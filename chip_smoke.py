@@ -17,6 +17,13 @@ Phases (any failure raises and the script exits non-zero):
      after; both kernels must have launched, the dispatch shape set must
      not grow after warmup, and sampled answers must match an engine on
      the plain backends on the card;
+  3b. the dynamic-graph path at real size: an index built with
+     stale_frac = 0.2 behind a warm engine takes two random churn
+     batches (0.1 % and 1 % of m) through ``update_index`` on the card,
+     each hot-swapped in with ``swap_index`` and served; the repaired
+     rows R are checked against a from-scratch rebuild of the mutated
+     graph on every target in K. The counters are zeroed before and
+     read after the batches; ``spmm`` must launch in both 3 and 3b;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -48,7 +55,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TOL_KERNEL = 1e-5      # kernel vs plain version, float32 reduction order
 EPS = 0.025            # the paper's Section-7.1 eps (c = 0.6)
-BLOCK = 2048           # target columns per Alg-2 frontier block
+BLOCK = 256            # target columns per Alg-2 frontier block
+STALE_FRAC = 0.2       # eps share reserved for updates (bench_update.py)
+CHURN = (0.001, 0.01)  # edges per update batch, as fractions of m
 
 
 def card_line() -> str:
@@ -117,6 +126,164 @@ def profile_serving(eng, q) -> None:
             print(f"[profile] {line}")
 
 
+def table_rows_vs_fresh(hp, fresh, rows, targets, theta: float) -> dict:
+    """Hold the rows ``rows`` of a repaired table, restricted to entries
+    whose target is in ``targets``, against a fresh table: keys must be
+    equal and values within TOL_KERNEL; an entry on one side only is
+    allowed (and counted) only within float32 rounding of theta."""
+    import torch
+    dev = hp.keys.device
+    n = hp.n
+    r = torch.as_tensor(rows, device=dev)
+    tg = torch.sort(torch.as_tensor(targets, device=dev)).values
+
+    def coo(t):
+        k, v = t.keys[r], t.vals[r]
+        live = (torch.arange(t.width, device=dev)[None, :]
+                < t.counts[r].long()[:, None])
+        ri, ci = torch.nonzero(live & torch.isin(k.long() % n, tg),
+                               as_tuple=True)
+        code = r[ri] * (1 << 31) + k[ri, ci].long()
+        order = torch.argsort(code)
+        return code[order], v[ri, ci][order]
+
+    ca, va = coo(hp)
+    cb, vb = coo(fresh)
+    in_b, in_a = torch.isin(ca, cb), torch.isin(cb, ca)
+    only = torch.cat([va[~in_b], vb[~in_a]])
+    near = (only - theta).abs() <= 4e-7 * theta
+    shared_err = float((va[in_b] - vb[in_a]).abs().max()) if \
+        int(in_b.sum()) else 0.0
+    return {"entries": len(ca), "fresh_entries": len(cb),
+            "one_side_only": len(only), "at_theta": int(near.sum()),
+            "max_abs_err": shared_err,
+            "bit_equal": bool(len(only) == 0 and torch.equal(va, vb)),
+            "ok": bool(near.all()) and shared_err <= TOL_KERNEL}
+
+
+def update_phase(g, dev) -> dict:
+    """The dynamic-graph path on the card at the Enron regime: build
+    with ``STALE_FRAC``, warm an engine, then for each churn level in
+    ``CHURN`` run ``update_index`` (theta_r = plan.theta), ``swap_index``
+    into the warm engine and serve a few batches of each kind. The
+    kernels' counters are zeroed before the batches and read after
+    them, batch by batch; the checks (a from-scratch rebuild of the
+    mutated graph, the affected sets recomputed for the row check) run
+    after each batch's count is read.
+    Returns the launches of the path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build, update
+    from repro_torch.graph import csr
+    from repro_torch.kernels.horner_push import horner_steps
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.serve import EngineConfig, QueryEngine
+
+    kernels = {"hp_join": hp_join, "horner_push": horner_steps,
+               "spmm": spmm}
+    t0 = time.perf_counter()
+    idx = build.build_index(g, eps=EPS, c=0.6, seed=1, block=BLOCK,
+                            stale_frac=STALE_FRAC, device=dev)
+    t_build = time.perf_counter() - t0
+    p = idx.plan
+    print(f"[update] build_index stale_frac={STALE_FRAC}: theta="
+          f"{p.theta:.6g} eps_stale={p.eps_stale:.6g} l_max={p.l_max} "
+          f"total={t_build:.2f}s width={idx.hp.width}")
+    eng = QueryEngine(idx, g, EngineConfig(), device=dev)
+    eng.warmup()
+    shapes = eng.stats()["unique_shapes"]
+    rng = np.random.default_rng(1)
+    path, g_cur = {k: 0 for k in kernels}, g
+    for i, churn in enumerate(CHURN):
+        for kern in kernels.values():
+            kern.launches = 0
+        q = rng.permutation(g.n)[:128].astype(np.int32)
+        eng.pairs(q[:64], q[64:])               # fill the cache
+        eng.single_source(q[:8])
+        eng.topk(q[8:16], 10)
+        m_batch = int(churn * g_cur.m)
+        delta = update.random_delta(g_cur, n_add=m_batch // 2,
+                                    n_del=m_batch - m_batch // 2,
+                                    seed=100 + i)
+        before = spmm.launches
+        t0 = time.perf_counter()
+        rep = build.update_index(idx, g_cur, delta, seed=10 + i,
+                                 theta_r=p.theta)
+        t_upd = time.perf_counter() - t0
+        upd_spmm = spmm.launches - before
+        sw = eng.swap_index(idx, rep.graph, affected=rep.affected)
+        lat = {"pair": [], "source": [], "topk": []}
+        served = {}
+        for lo in range(0, 128, 64):
+            t = time.perf_counter()
+            served.setdefault("pair", []).append(
+                eng.pairs(q[lo:lo + 32], q[lo + 32:lo + 64]))
+            lat["pair"].append(time.perf_counter() - t)
+        for lo in range(16, 32, 8):
+            t = time.perf_counter()
+            eng.single_source(q[lo:lo + 8])
+            lat["source"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            eng.topk(q[lo + 16:lo + 24], 10)
+            lat["topk"].append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        st = eng.stats()
+        for k, kern in kernels.items():
+            path[k] += kern.launches
+        secs = " ".join(f"{k}={v:.3f}s" for k, v in rep.secs.items())
+        print(f"[update {i}] churn {churn:.1%}: |delta|={len(delta)} "
+              f"|touched|={len(rep.touched)} |R|={rep.rows_repaired} "
+              f"|K|={rep.targets_seeded} |D|={rep.d_updated} "
+              f"width_grew={rep.width_grew} update={t_upd:.3f}s ({secs}) "
+              f"spmm launches={upd_spmm}")
+        print(f"[update {i}] stale={rep.stale:.6g} eps_stale="
+              f"{rep.eps_stale:.6g} needs_rebuild={rep.needs_rebuild}; swap "
+              f"{sw['swap_ms']:.2f} ms, cache dropped {sw['cache_dropped']},"
+              f" swap_recompiles={st['swap_recompiles']} (this swap "
+              f"{sw['recompiles']}), shapes grew="
+              f"{st['unique_shapes'] != shapes}, epoch={sw['epoch']}")
+        for kind, ls in lat.items():
+            print(f"[update {i}] served {kind}: {len(ls)} batches, "
+                  f"per batch {pct(ls)}")
+        # checks, outside the path's launch count
+        e_pair = float(np.abs(np.concatenate(served["pair"]) - np.concatenate(
+            [idx.query_pairs(q[lo:lo + 32], q[lo + 32:lo + 64])
+             for lo in (0, 64)])).max())
+        g_new, touched, tv = csr.apply_edges(g_cur, delta)
+        rows, targets, _, _, _ = update.affected_sets(
+            g_cur, g_new, touched, tv, p, p.theta, device=dev)
+        t0 = time.perf_counter()
+        fresh = build.build_index(g_new, eps=EPS, c=0.6, seed=1,
+                                  block=BLOCK, stale_frac=STALE_FRAC,
+                                  device=dev)
+        t_fresh = time.perf_counter() - t0
+        chk = table_rows_vs_fresh(idx.hp, fresh.hp, rows, targets, p.theta)
+        print(f"[update {i}] rows R x targets K vs a from-scratch rebuild "
+              f"({t_fresh:.2f}s, update {t_upd:.3f}s): {chk}; engine pairs "
+              f"vs the index's join: {e_pair:.3g}")
+        if len(rows) != rep.rows_repaired or \
+                len(targets) != rep.targets_seeded:
+            raise RuntimeError("recomputed affected sets differ from the "
+                               "update's")
+        if not chk["ok"] or e_pair > TOL_KERNEL:
+            raise RuntimeError(f"repaired rows disagree with a rebuild: "
+                               f"{chk}, pairs {e_pair}")
+        if upd_spmm <= 0:
+            raise RuntimeError("update_index did not launch spmm")
+        if sw["recompiles"] == 0 and st["unique_shapes"] != shapes:
+            raise RuntimeError("a swap that fits grew the shape set")
+        shapes = st["unique_shapes"]
+        del fresh
+        g_cur = rep.graph
+    if min(path.values()) <= 0:
+        raise RuntimeError(f"a kernel did not launch on the update path: "
+                           f"{path}")
+    del eng, idx
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="Enron",
@@ -145,6 +312,7 @@ def main() -> int:
     from repro_torch.kernels.horner_push import (horner_push, horner_steps,
                                                  horner_steps_plain)
     from repro_torch.kernels.hp_join import hp_join, hp_join_plain
+    from repro_torch.kernels.spmv_ell import SpmmLayout, spmm, spmm_plain
     from repro_torch.serve import EngineConfig, QueryEngine
 
     # fp32 products stay fp32 (no TF32) everywhere in this script
@@ -173,8 +341,7 @@ def main() -> int:
     g = generators.paper_scale(args.graph, seed=0)
     print(f"[main] graph {args.graph}: n={g.n} m={g.m} "
           f"max in-degree={int(g.in_deg.max())}")
-    hp_join.launches = 0
-    horner_steps.launches = 0
+    hp_join.launches = horner_steps.launches = spmm.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     idx = build.build_index(g, eps=EPS, c=0.6, seed=0, block=BLOCK,
@@ -214,7 +381,8 @@ def main() -> int:
         answers.setdefault("topk", []).append(eng.topk(top_q[lo:lo + 8], 10))
         lat["topk"].append(time.perf_counter() - t)
     launches = {"hp_join": hp_join.launches,
-                "horner_push": horner_steps.launches}
+                "horner_push": horner_steps.launches,
+                "spmm": spmm.launches}
     st = eng.stats()
     for path, ls in lat.items():
         per = 64 if path == "pair" else 8
@@ -256,6 +424,11 @@ def main() -> int:
         raise RuntimeError(f"engine answers disagree with plain: {err}")
     del plain
 
+    # ---- 3b. the dynamic-graph path at real size --------------------------
+    upd = update_phase(g, dev)
+    total = {k: launches[k] + upd[k] for k in launches}
+    print(f"[update] launches {upd}; main path + update {total}")
+
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = []
     K = eng._width_cap
@@ -274,7 +447,7 @@ def main() -> int:
         "name": "hp_join", "route": "cuda",
         "source": "src/repro_torch/csrc/hp_join.cu",
         "replaces": "src/repro/kernels/hp_join/hp_join.py:42",
-        "launches": launches["hp_join"], "max_abs_err": e_join,
+        "launches": total["hp_join"], "max_abs_err": e_join,
         "ms": time_ms(lambda: hp_join(fk, fv, us, vs), 200),
         "plain_ms": time_ms(lambda: hp_join_plain(fk, fv, us, vs), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -311,17 +484,72 @@ def main() -> int:
         "name": "horner_push", "route": "cuda",
         "source": "src/repro_torch/csrc/horner_push.cu",
         "replaces": "src/repro/kernels/horner_push/horner_push.py:69",
-        "launches": launches["horner_push"], "max_abs_err": e_push,
+        "launches": total["horner_push"], "max_abs_err": e_push,
         "ms": time_ms(lambda: push(horner_steps), 50),
         "plain_ms": time_ms(lambda: push(horner_steps_plain), 10),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library, 20),
         "shape": f"B={B} W={K} n={g.n} m={g.m} steps={L + 1}"})
+    # spmm at the build's shape, on what the main path gives it: the
+    # build's pruned frontier of targets 0..BLOCK-1 at step 3 (pull), and
+    # a mass scan's frontier of BLOCK seeds with weights in (0, 1] at step
+    # 3 (push, the transposed layout)
+    pull_lay = SpmmLayout.pull(g, p.sqrt_c, dev)
+    push_lay = SpmmLayout.push(g, p.sqrt_c, dev)
+
+    def frontier(lay, seeds, weights, steps=3):
+        h = torch.zeros((g.n, BLOCK), device=dev)
+        h[seeds, torch.arange(BLOCK, device=dev)] = weights
+        for _ in range(steps + 1):
+            x = torch.where(h > p.theta, h, 0.0)
+            h = spmm_plain(x, lay)
+        return x
+
+    xs = frontier(pull_lay, torch.arange(BLOCK, device=dev), 1.0)
+    xp = frontier(push_lay, torch.as_tensor(nodes[:BLOCK], device=dev),
+                  1.0 - torch.rand(BLOCK, device=dev))
+    e_spmm = max(float((spmm(x, lay) - spmm_plain(x, lay)).abs().max())
+                 for x, lay in ((xs, pull_lay), (xp, push_lay)))
+    # beside it, a uniform slab (push sums reach ~1e2 on the hubs): the
+    # kernel's and the plain version's error against float64, relative
+    # to the largest output
+    xr = torch.rand((g.n, BLOCK), device=dev)
+    for name, lay in (("pull", pull_lay), ("push", push_lay)):
+        ref64 = spmm_plain(xr.double(), lay)
+        scale = float(ref64.abs().max())
+        rel_k, rel_p = (float((y - ref64).abs().max()) / scale for y in
+                        (spmm(xr, lay), spmm_plain(xr, lay)))
+        print(f"[kernel] spmm {name}, uniform slab vs float64: kernel "
+              f"{rel_k:.3g}, plain {rel_p:.3g} (relative to max |out| = "
+              f"{scale:.4g}); frontier nonzeros pull {int((xs > 0).sum())} "
+              f"push {int((xp > 0).sum())}")
+    del xr, ref64
+    s_bytes = (4 * 2 * g.n * BLOCK + 8 * g.m + 4 * (g.n + 1) + 4 * g.n)
+    b_ms, b_by = bound_ms(s_bytes, 2 * g.m * BLOCK)
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        pull_csr = torch.sparse_csr_tensor(
+            pull_lay.in_ptr.long(), pull_lay.in_idx.long(), pull_lay.w,
+            size=(g.n, g.n), check_invariants=False)
+    spmm_out = torch.empty_like(xs)
+    kernels.append({
+        "name": "spmm", "route": "cuda",
+        "source": "src/repro_torch/csrc/spmm.cu",
+        "replaces": "src/repro/kernels/spmv_ell/spmv_ell.py:47",
+        "launches": total["spmm"], "max_abs_err": e_spmm,
+        "ms": time_ms(lambda: spmm(xs, pull_lay, out=spmm_out), 100),
+        "plain_ms": time_ms(lambda: spmm_plain(xs, pull_lay), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.sparse.mm(pull_csr, xs), 100),
+        "shape": f"n={g.n} m={g.m} F={BLOCK}",
+        "push_ms": time_ms(lambda: spmm(xp, push_lay, out=spmm_out), 100)})
+    del xs, xp, spmm_out, pull_csr
     for k in kernels:
         print(f"[kernel] {k['name']} {k['shape']}: max_abs_err="
               f"{k['max_abs_err']:.3g} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} "
-              f"({k['bound_by']}) library_ms={k['library_ms']}")
+              f"({k['bound_by']}) library_ms={k['library_ms']}"
+              + (f" push_ms={k['push_ms']:.4f}" if "push_ms" in k else ""))
         if not k["max_abs_err"] <= TOL_KERNEL:
             raise RuntimeError(f"{k['name']} disagrees with its plain "
                                f"version: {k['max_abs_err']}")
@@ -353,7 +581,8 @@ def main() -> int:
 
     # ---- 6. output --------------------------------------------------------
     print(json.dumps({"kernels": [{k: v for k, v in kk.items()
-                                   if k != "shape"} for kk in kernels]}))
+                                   if k not in ("shape", "push_ms")}
+                                  for kk in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,9 @@ def index_from_arrays(plan: dict, d, keys, vals, counts,
                       device=None) -> SlingIndex:
     """SlingIndex from a plan dict (``dataclasses.asdict`` of a plan),
     d (n,), packed keys/vals (n, width) and counts (n,), on ``device``
-    (``cuda`` unless ``device="cpu"``)."""
+    (``cuda`` unless ``device="cpu"``). The tensors are copies, never
+    views of the given arrays: ``update_index`` changes an index in
+    place, and must not reach the arrays it was carried from."""
     dev = resolve_device(device)
     p = SlingPlan(**plan)
     keys = np.asarray(keys, np.int32)
@@ -42,12 +44,11 @@ def index_from_arrays(plan: dict, d, keys, vals, counts,
         raise ValueError("keys/vals must be one (n, width) shape")
     n, width = keys.shape
     hp = HPTable(n=n, width=width,
-                 keys=torch.as_tensor(keys, device=dev),
-                 vals=torch.as_tensor(vals, device=dev),
-                 counts=torch.as_tensor(np.asarray(counts, np.int32),
-                                        device=dev),
+                 keys=torch.tensor(keys, device=dev),
+                 vals=torch.tensor(vals, device=dev),
+                 counts=torch.tensor(np.asarray(counts, np.int32),
+                                     device=dev),
                  theta=p.theta, sqrt_c=p.sqrt_c, l_max=p.l_max)
     return SlingIndex(plan=p,
-                      d=torch.as_tensor(np.asarray(d, np.float32),
-                                        device=dev),
+                      d=torch.tensor(np.asarray(d, np.float32), device=dev),
                       hp=hp, builder=builder, uncertified_d=uncertified_d)

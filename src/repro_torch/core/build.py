@@ -4,6 +4,7 @@ Port of ``repro/core/build.py`` ``build_index`` for ``builder="sling"``
 on one device. The walks and the HP build run on ``device`` (``cuda``
 unless the caller passes ``device="cpu"``); ``exact_d=True`` takes the
 power-method diagonal on the host instead of the walks.
+``update_index`` is the facade over ``core/update.py``.
 """
 from __future__ import annotations
 
@@ -11,17 +12,20 @@ import time
 
 import torch
 
-from repro_torch.core import diagonal, hp_index, theory
+from repro_torch.core import diagonal, hp_index, theory, update
 from repro_torch.core.index import SlingIndex
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import csr
 
 
 def build_index(g: csr.Graph, eps: float = 0.025, c: float = 0.6,
                 seed: int = 0, block: int = 256, exact_d: bool = False,
-                device=None, verbose: bool = False) -> SlingIndex:
+                stale_frac: float = 0.0, device=None,
+                verbose: bool = False) -> SlingIndex:
+    """``stale_frac`` reserves that share of eps for the staleness that
+    ``update_index`` batches spend (``theory.plan``)."""
     dev = resolve_device(device)
-    p = theory.plan(eps=eps, c=c, n=g.n)
+    p = theory.plan(eps=eps, c=c, n=g.n, stale_frac=stale_frac)
     t0 = time.perf_counter()
     if exact_d:
         d = diagonal.exact_diagonal(g, c)
@@ -31,8 +35,7 @@ def build_index(g: csr.Graph, eps: float = 0.025, c: float = 0.6,
     t1 = time.perf_counter()
     hp = hp_index.build_hp_table(g, theta=p.theta, sqrt_c=p.sqrt_c,
                                  l_max=p.l_max, block=block, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    synchronize(dev)
     t2 = time.perf_counter()
     idx = SlingIndex(plan=p, d=torch.as_tensor(d, dtype=torch.float32,
                                                device=dev), hp=hp,
@@ -42,3 +45,16 @@ def build_index(g: csr.Graph, eps: float = 0.025, c: float = 0.6,
               f"entries={int(hp.counts.sum())} width={hp.width} "
               f"bytes={idx.nbytes()}")
     return idx
+
+
+def update_index(idx: SlingIndex, g: csr.Graph, delta, seed: int = 0,
+                 exact_d: bool = False, theta_r: float | None = None,
+                 block: int = 256, verbose: bool = False):
+    """Incremental maintenance: apply a :class:`~repro_torch.graph.csr.
+    GraphDelta` to ``idx`` in place without a full rebuild; returns the
+    ``UpdateReport`` (new graph, affected nodes for
+    ``QueryEngine.swap_index``, staleness, ``needs_rebuild``). Build
+    with ``stale_frac > 0`` to reserve the budget updates spend."""
+    return update.update_index(idx, g, delta, seed=seed, exact_d=exact_d,
+                               theta_r=theta_r, block=block,
+                               verbose=verbose)

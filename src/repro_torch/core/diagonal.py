@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.baselines import power
 from repro_torch.core import theory, walks
+from repro_torch.device import resolve_device
 from repro_torch.graph import csr
 
 
@@ -62,20 +63,37 @@ def _count_meets(dg: walks.DeviceGraph, nodes: torch.Tensor,
 def estimate_diagonal(g: csr.Graph, plan: theory.SlingPlan,
                       seed: int = 0, adaptive: bool = True,
                       chunk: int = walks.DEFAULT_CHUNK,
-                      device="cpu", verbose: bool = False) -> np.ndarray:
-    """Estimate all d_k; ``adaptive=True`` is Algorithm 4, False the
-    fixed-budget Algorithm 1. Returns (n,) float32 (host).
-    ``verbose`` prints each phase's walk-pair count and seconds."""
+                      nodes=None, d_init=None, device=None,
+                      verbose: bool = False) -> np.ndarray:
+    """Estimate all d_k on ``device`` (``cuda`` unless ``device="cpu"``);
+    ``adaptive=True`` is Algorithm 4, False the fixed-budget Algorithm 1.
+    Returns (n,) float32 (host). ``verbose`` prints each phase's
+    walk-pair count and seconds.
+
+    ``nodes`` restricts estimation to a subset (incremental maintenance
+    re-estimates only the affected d_k of an edge batch): entries
+    outside ``nodes`` come back bit-equal to ``d_init`` (required with
+    ``nodes``), and the walks run on the current graph ``g``, so subset
+    estimates carry the same certificate as a full pass."""
     n, c, sc = g.n, plan.c, plan.sqrt_c
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dg = walks.DeviceGraph.from_graph(g, device)
 
     deg = g.in_deg
-    d = np.ones(n, dtype=np.float64)
-    d[deg == 1] = 1.0 - c
-    sampled = np.flatnonzero(deg >= 2)
+    if nodes is None:
+        d = np.ones(n, dtype=np.float64)
+        d[deg == 1] = 1.0 - c
+        sampled = np.flatnonzero(deg >= 2)
+    else:
+        if d_init is None:
+            raise ValueError("subset estimation needs d_init")
+        nodes = np.asarray(nodes, np.int64)
+        d = np.asarray(d_init).astype(np.float64)
+        d[nodes] = 1.0
+        d[nodes[deg[nodes] == 1]] = 1.0 - c
+        sampled = nodes[deg[nodes] >= 2]
     if len(sampled) == 0:
         return d.astype(np.float32)
     nodes = torch.as_tensor(sampled, dtype=torch.int64, device=device)

@@ -1,7 +1,8 @@
 """The SLING index object and single-pair queries (Alg 3).
 
-Port of ``repro/core/index.py`` (fp32 indexes, no on-disk artifact in
-this slice). Index = { d~_k for all k } + packed HP table
+Port of ``repro/core/index.py`` (fp32 indexes, no on-disk artifact
+yet; ``stale`` and ``epoch`` carry the incremental-maintenance state of
+``core/update.py``). Index = { d~_k for all k } + packed HP table
 { H(v) for all v }, both as tensors on one device.
 
 Single-pair query: s~(u,v) = sum over matching (l,k) keys of
@@ -33,6 +34,8 @@ class SlingIndex:
     uncertified_d: bool = False
     # wall seconds of the build phases ({"d": .., "hp": ..}), if built
     build_seconds: dict = dataclasses.field(default_factory=dict)
+    stale: float = 0.0     # staleness charged against plan.eps_stale
+    epoch: int = 0         # bumped by every applied update batch
 
     @property
     def n(self) -> int:

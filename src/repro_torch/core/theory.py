@@ -8,8 +8,10 @@ Lemma 7, every SimRank estimate satisfies |s~ - s| <= eps provided
 ``plan`` splits eps between the two terms exactly as the reference
 does (paper Section 7.1: eps_d = 0.005, theta = 0.000725 at eps = 0.025,
 c = 0.6) and reserves the walk-cap bias (sqrt c)^t_max inside eps_d.
-The reference's staleness and quantization reserves are not part of
-this slice; their plan fields stay (at 0) so plans carry across.
+``stale_frac`` reserves a share of eps for incremental maintenance
+(``stale_increment`` charges each update batch against it). The
+reference's quantization reserve is not ported; its plan field stays
+(at 0) so plans carry across.
 """
 from __future__ import annotations
 
@@ -51,14 +53,23 @@ class SlingPlan:
 
 def plan(eps: float = 0.025, delta: float | None = None, c: float = 0.6,
          n: int = 1 << 20, eps_d_frac: float = 0.5,
-         walk_tail: float = 1e-4) -> SlingPlan:
-    """Choose (eps_d, theta, delta_d, t_max, l_max, n_r1) for a target eps."""
+         walk_tail: float = 1e-4, stale_frac: float = 0.0) -> SlingPlan:
+    """Choose (eps_d, theta, delta_d, t_max, l_max, n_r1) for a target eps.
+
+    ``stale_frac`` reserves eps_stale = stale_frac * eps for incremental
+    maintenance: the static index is planned against
+    eps_static = eps * (1 - stale_frac), and ``update_index`` spends the
+    reserve across batches until the rebuild trigger fires.
+    """
     if not (0 < eps < 1):
         raise ValueError("eps must be in (0,1)")
+    if not (0 <= stale_frac < 1):
+        raise ValueError("stale_frac must be in [0,1)")
     sc = math.sqrt(c)
     delta = delta if delta is not None else 1.0 / n
-    eps_d_raw = eps_d_frac * eps * (1 - c)
-    theta = (1 - eps_d_frac) * eps * (1 - c) * (1 - sc) / (2 * sc)
+    eps_static = eps * (1 - stale_frac)
+    eps_d_raw = eps_d_frac * eps_static * (1 - c)
+    theta = (1 - eps_d_frac) * eps_static * (1 - c) * (1 - sc) / (2 * sc)
     t_max = max(1, int(math.ceil(math.log(walk_tail) / math.log(sc))))
     tail = sc ** t_max
     eps_d = eps_d_raw - c * tail
@@ -71,7 +82,24 @@ def plan(eps: float = 0.025, delta: float | None = None, c: float = 0.6,
     n_r1 = int(math.ceil(14.0 / (3.0 * eps_star) * math.log(4.0 / delta_d)))
     return SlingPlan(c=c, eps=eps, delta=delta, eps_d=eps_d, theta=theta,
                      delta_d=delta_d, t_max=t_max, l_max=l_max, n_r1=n_r1,
-                     walk_tail=tail)
+                     walk_tail=tail, eps_stale=stale_frac * eps)
+
+
+def stale_increment(p: SlingPlan, theta_r: float, m_rows: float,
+                    m_d: float) -> float:
+    """Staleness charged against ``p.eps_stale`` by one update batch.
+
+    ``m_rows``: the largest first-generation sub-threshold drift mass
+    the row repair left uncaptured (``propagation_mass``'s skipped
+    mass); ``m_d``: the largest mean in-neighbor drift proxy of a node
+    whose d_k was not re-estimated. Each is amplified by the geometric
+    descendant tail 1/(1 - sqrt c) and floored by theta_r (mass the
+    propagation never materialises); the d channel enters scores
+    through Theorem 1's d-term, c/(1 - c). Monotone and additive across
+    batches: once the sum exceeds eps_stale the certificate is spent.
+    """
+    return (2.0 * (m_rows + theta_r) / (1.0 - p.sqrt_c)
+            + 2.0 * p.c * (m_d + theta_r) / ((1 - p.c) * (1.0 - p.sqrt_c)))
 
 
 def phase2_pairs_vec(mu_hat, eps_d: float, delta_d: float, c: float):

@@ -12,6 +12,9 @@ both orientations:
 
 Nodes with no in-neighbors are absorbing for reverse walks; d_k = 1
 there (two walks from k stop at once and never meet after step 0).
+
+``GraphDelta`` / ``apply_edges`` mutate the edge set of a fixed node set
+for incremental index maintenance (``core/update.py``).
 """
 from __future__ import annotations
 
@@ -82,6 +85,102 @@ def from_edges(n: int, src: np.ndarray, dst: np.ndarray,
               edge_src=src[order_in].astype(np.int32))
     g.validate()
     return g
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphDelta:
+    """A batch of edge mutations against a fixed node set.
+
+    Directed edges (src -> dst). The node count never changes under a
+    delta: the hot-swap contract relies on every (n,)-shaped array
+    keeping its shape; growing n is a full rebuild. Inserting an edge
+    that already exists, or deleting one that does not, is a no-op (and
+    does not mark its endpoint as touched).
+    """
+    add_src: np.ndarray  # (a,) int64
+    add_dst: np.ndarray  # (a,) int64
+    del_src: np.ndarray  # (d,) int64
+    del_dst: np.ndarray  # (d,) int64
+
+    @staticmethod
+    def empty() -> "GraphDelta":
+        z = np.zeros(0, np.int64)
+        return GraphDelta(z, z, z, z)
+
+    @staticmethod
+    def inserts(src, dst) -> "GraphDelta":
+        z = np.zeros(0, np.int64)
+        return GraphDelta(np.asarray(src, np.int64),
+                          np.asarray(dst, np.int64), z, z)
+
+    @staticmethod
+    def deletes(src, dst) -> "GraphDelta":
+        z = np.zeros(0, np.int64)
+        return GraphDelta(z, z, np.asarray(src, np.int64),
+                          np.asarray(dst, np.int64))
+
+    def __len__(self) -> int:
+        return len(self.add_src) + len(self.del_src)
+
+
+def _member(keys: np.ndarray, sorted_ref: np.ndarray) -> np.ndarray:
+    """Which of ``keys`` occur in the sorted array ``sorted_ref``."""
+    if len(keys) == 0 or len(sorted_ref) == 0:
+        return np.zeros(len(keys), bool)
+    pos = np.clip(np.searchsorted(sorted_ref, keys), 0, len(sorted_ref) - 1)
+    return sorted_ref[pos] == keys
+
+
+def apply_edges(g: Graph, delta: GraphDelta
+                ) -> tuple[Graph, np.ndarray, np.ndarray]:
+    """Apply a :class:`GraphDelta`, returning (new_graph, touched, tv).
+
+    ``touched`` is the sorted array of nodes whose in-neighborhood
+    actually changed: every SLING quantity (d_k, H(v) entries, pull
+    weights) depends on the graph only through in-neighbor lists, so a
+    genuine insert or delete of (u -> v) touches ``v`` only. ``tv``
+    (aligned with ``touched``) is #changed in-edges / max(old deg, new
+    deg, 1), clipped to 1: a bound on the total-variation distance
+    between the old and new transition kernels at the node. Edges keep
+    their multiplicity (a multigraph stays one); an insert and a delete
+    of the same edge in one batch cancel; ids outside [0, n) raise.
+    """
+    n = g.n
+    old = g.edge_src.astype(np.int64) * n + g.edge_dst.astype(np.int64)
+    old_sorted = np.sort(old)
+    # the key src*n + dst would alias an out-of-range pair onto a real
+    # edge, so both sides of inserts and deletes are checked
+    for side in (delta.add_src, delta.add_dst,
+                 delta.del_src, delta.del_dst):
+        side = np.asarray(side, np.int64)
+        if len(side) and (side.min() < 0 or side.max() >= n):
+            raise ValueError("delta references node ids outside [0, n)")
+    add = (np.asarray(delta.add_src, np.int64) * n
+           + np.asarray(delta.add_dst, np.int64))
+    dele = (np.asarray(delta.del_src, np.int64) * n
+            + np.asarray(delta.del_dst, np.int64))
+    add = np.unique(add) if len(add) else add
+    dele = np.unique(dele) if len(dele) else dele
+    if len(add) and len(dele):
+        both = np.intersect1d(add, dele)
+        if len(both):
+            add = np.setdiff1d(add, both)
+            dele = np.setdiff1d(dele, both)
+    eff_add = add[~_member(add, old_sorted)] if len(add) else add
+    eff_del = dele[_member(dele, old_sorted)] if len(dele) else dele
+    if len(eff_add) == 0 and len(eff_del) == 0:
+        return g, np.zeros(0, np.int64), np.zeros(0, np.float64)
+
+    keep = (~_member(old, np.sort(eff_del)) if len(eff_del)
+            else np.ones(len(old), bool))
+    new_keys = np.concatenate([old[keep], eff_add])
+    g2 = from_edges(n, new_keys // n, new_keys % n, dedup=False)
+    touched, n_changed = np.unique(np.concatenate([eff_add, eff_del]) % n,
+                                   return_counts=True)
+    deg_ref = np.maximum(np.maximum(g.in_deg[touched],
+                                    g2.in_deg[touched]), 1)
+    tv = np.minimum(n_changed / deg_ref, 1.0)
+    return g2, touched, tv
 
 
 def undirected(n: int, a: np.ndarray, b: np.ndarray) -> Graph:

@@ -17,8 +17,7 @@ import torch
 
 from repro_torch.kernels.horner_push.horner_push import (horner_steps,
                                                          horner_steps_plain)
-from repro_torch.kernels.horner_push.ops import (PushLayout, horner_push,
-                                                 prepare_rows)
+from repro_torch.kernels.horner_push.ops import horner_push, prepare_rows
 
 PUSH_BACKENDS = ("auto", "plain", "kernel")
 
@@ -38,6 +37,6 @@ def steps_for(backend: str):
     return horner_steps if backend == "kernel" else horner_steps_plain
 
 
-__all__ = ["PUSH_BACKENDS", "PushLayout", "horner_push", "horner_steps",
+__all__ = ["PUSH_BACKENDS", "horner_push", "horner_steps",
            "horner_steps_plain", "prepare_rows", "resolve_push_backend",
            "steps_for"]

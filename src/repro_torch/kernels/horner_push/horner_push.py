@@ -6,7 +6,7 @@ Replaces the TPU kernel ``src/repro/kernels/horner_push/horner_push.py``
 (``_step_kernel`` / ``horner_step``). Frontiers are node-major (n, B)
 float32; Â is given in CSR over destinations (``in_ptr``,
 ``in_idx``, per-edge ``w``) with the nodes split into light and heavy
-in-degree classes (``ops.PushLayout``); the seed of level
+in-degree classes (``spmv_ell.SpmmLayout``); the seed of level
 l places ``contrib[b, j]`` at node ``k`` for every entry whose key
 ``keys[b, j]`` equals ``l*n + k``, with duplicate keys adding up.
 ``keys`` rows must be sorted ascending (``ops.prepare_rows`` sorts
@@ -22,8 +22,9 @@ import ctypes
 
 import torch
 
-from repro_torch.core.hp_index import INT32_PAD_KEY, pull
+from repro_torch.core.hp_index import INT32_PAD_KEY
 from repro_torch.kernels import _build
+from repro_torch.kernels.spmv_ell import spmm_plain
 
 _launch = []   # the bound C function, filled on first launch
 
@@ -41,11 +42,10 @@ def _launcher():
 
 def horner_step_plain(x, out, layout, keys, contrib, level: int,
                       tau: float) -> torch.Tensor:
-    """One plain step: prune, CSR pull (``hp_index.pull``), and the
+    """One plain step: prune, CSR pull (``spmm_plain``), and the
     level-l seed scattered with ``index_add_``; written into ``out``."""
     n, B = x.shape
-    acc = pull(torch.where(x > tau, x, 0.0), layout.in_ptr.long(),
-               layout.in_idx, layout.w)
+    acc = spmm_plain(torch.where(x > tau, x, 0.0), layout)
     hit = (keys != INT32_PAD_KEY) & (keys.long() // n == level)
     b_idx, j_idx = torch.nonzero(hit, as_tuple=True)
     seed = torch.zeros(n * B, dtype=torch.float32, device=x.device)

@@ -1,0 +1,81 @@
+"""The CSR layout of the Â operator that the ``spmm`` and Horner-step
+kernels walk.
+
+Port of the layout half of ``repro/kernels/spmv_ell/ops.py``. The TPU
+layout groups edges into destination blocks padded for a one-hot
+matmul; the port's layout is a plain CSR over the operator's *outputs*
+(:class:`SpmmLayout`): ``in_ptr``/``in_idx``/``w`` list, per output row,
+the input rows it sums and their weights, with the rows split by
+in-degree so that a heavy row (above ``HEAVY_DEGREE``) gets a block of
+its own in the kernels.
+
+  * :meth:`SpmmLayout.pull` -- Â over the in-CSR:
+    out[v] = sum_{u in I(v)} sqrt(c)/|I(v)| * x[u] (Alg 2's pull);
+  * :meth:`SpmmLayout.push` -- the transposed operator over the
+    out-CSR: out[u] = sum_{u -> v} sqrt(c)/|I(v)| * x[v], each out-edge
+    carrying the weight of its destination (the reference's
+    ``transpose=True`` mass scan).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.graph import csr
+
+# in-degree above which the kernels give a row a block of its own
+HEAVY_DEGREE = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmLayout:
+    """An operator in CSR over its output rows on one device (int32 for
+    the kernels), and the row ids split by in-degree."""
+    n: int
+    in_ptr: torch.Tensor   # (n+1,) int32
+    in_idx: torch.Tensor   # (m,) int32 input rows, grouped by output row
+    w: torch.Tensor        # (m,) float32 per-edge weights
+    heavy: torch.Tensor    # int32 ids with in-degree > HEAVY_DEGREE
+    light: torch.Tensor    # int32 ids of the other rows
+
+    @staticmethod
+    def from_edges(src, dst, w, n: int, device) -> "SpmmLayout":
+        """Any edge list (input row src -> output row dst, weight w):
+        edges are grouped by output row with a stable sort, so each
+        row's edges keep their input order."""
+        dst = np.asarray(dst, np.int64)
+        order = np.argsort(dst, kind="stable")
+        deg = np.bincount(dst, minlength=n)
+        ptr = np.zeros(n + 1, np.int64)
+        np.cumsum(deg, out=ptr[1:])
+
+        def ids(mask):
+            return torch.as_tensor(np.flatnonzero(mask).astype(np.int32),
+                                   device=device)
+
+        return SpmmLayout(
+            n=n,
+            in_ptr=torch.as_tensor(ptr.astype(np.int32), device=device),
+            in_idx=torch.as_tensor(np.asarray(src, np.int32)[order],
+                                   device=device),
+            w=torch.as_tensor(np.asarray(w, np.float32)[order],
+                              device=device),
+            heavy=ids(deg > HEAVY_DEGREE), light=ids(deg <= HEAVY_DEGREE))
+
+    @staticmethod
+    def pull(g: csr.Graph, sqrt_c: float, device) -> "SpmmLayout":
+        """Â over the in-CSR (the graph's edge list is grouped by
+        destination, so each row keeps the in-CSR's edge order)."""
+        return SpmmLayout.from_edges(g.edge_src, g.edge_dst,
+                                     csr.normalized_pull_weights(g, sqrt_c),
+                                     g.n, device)
+
+    @staticmethod
+    def push(g: csr.Graph, sqrt_c: float, device) -> "SpmmLayout":
+        """The transpose of Â over the out-CSR: out-edge u -> v carries
+        sqrt(c)/|I(v)|, the pull weight of its destination."""
+        return SpmmLayout.from_edges(g.edge_dst, g.edge_src,
+                                     csr.normalized_pull_weights(g, sqrt_c),
+                                     g.n, device)

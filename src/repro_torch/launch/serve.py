@@ -3,10 +3,20 @@ serve a query stream through it and report latency.
 
     python -m repro_torch.launch.serve --n 2000 --queries 64 --mode mixed
     python -m repro_torch.launch.serve --device cpu --n 200 --queries 8
+    python -m repro_torch.launch.serve --n 2000 --mutate 3 --churn 0.01
 
 Port of the direct-engine path of ``repro/launch/serve.py``. Runs on
-``cuda`` unless ``--device cpu``. The last line says whether the set of
-dispatch shapes grew after warmup.
+``cuda`` unless ``--device cpu``. The last serving line says whether the
+set of dispatch shapes grew after warmup.
+
+``--mutate N`` appends an edge-churn replay: N random insert/delete
+batches of ``--churn`` of the edges each go through ``update_index``
+and are hot-swapped into the live engine between query batches
+(``swap_index``), with the index built with ``--stale-frac`` of eps
+reserved for staleness. Each batch prints its repair time, swap latency,
+cache entries dropped and the staleness against the reserve; when the
+reserve is spent the index is rebuilt and swapped in. The last line
+says whether any swap grew a bucket or the shape set.
 """
 from __future__ import annotations
 
@@ -15,7 +25,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core import build
+from repro_torch.core import build, update
 from repro_torch.graph import generators
 from repro_torch.serve import EngineConfig, QueryEngine
 
@@ -38,6 +48,13 @@ def main(argv=None) -> None:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--mutate", type=int, default=0, metavar="N",
+                    help="replay N edge-churn batches with incremental "
+                         "update_index + hot-swap after the query loop")
+    ap.add_argument("--churn", type=float, default=0.01,
+                    help="fraction of edges mutated per --mutate batch")
+    ap.add_argument("--stale-frac", type=float, default=0.2,
+                    help="fraction of eps reserved for update staleness")
     args = ap.parse_args(argv)
     if args.queries < 1 or args.batch < 1:
         ap.error("--queries and --batch must be >= 1")
@@ -47,7 +64,8 @@ def main(argv=None) -> None:
     print(f"graph: n={g.n} m={g.m}")
     t0 = time.perf_counter()
     idx = build.build_index(g, eps=args.eps, seed=args.seed,
-                            device=args.device, verbose=True)
+                            stale_frac=args.stale_frac if args.mutate
+                            else 0.0, device=args.device, verbose=True)
     print(f"index built in {time.perf_counter() - t0:.2f}s "
           f"({idx.nbytes() / 1e6:.1f} MB)")
 
@@ -91,6 +109,47 @@ def main(argv=None) -> None:
           f"({'fixed shape set OK' if grew == 0 else 'SHAPES GREW'})")
     if grew:
         raise SystemExit(1)
+    if args.mutate:
+        _mutate_replay(args, g, idx, eng, qs)
+
+
+def _mutate_replay(args, g, idx, eng, qs) -> None:
+    """Edge-churn replay: update -> hot-swap -> serve, N times."""
+    m_batch = max(1, int(g.m * args.churn))
+    print(f"\n[mutate] {args.mutate} batches x {m_batch} edges "
+          f"(churn {args.churn:.2%}), theta_r=plan.theta")
+    shapes0 = len(eng.stats()["unique_shapes"])
+    for i in range(args.mutate):
+        delta = update.random_delta(g, n_add=m_batch // 2,
+                                    n_del=m_batch - m_batch // 2,
+                                    seed=args.seed + 100 + i)
+        t0 = time.perf_counter()
+        rep = build.update_index(idx, g, delta, seed=args.seed + i)
+        t_repair = time.perf_counter() - t0
+        sw = eng.swap_index(idx, rep.graph, affected=rep.affected)
+        g = rep.graph
+        scores = eng.single_source(qs[:args.batch])
+        trigger = " REBUILD-TRIGGER" if rep.needs_rebuild else ""
+        print(f"[mutate {i}] touched={len(rep.touched)} "
+              f"rows={rep.rows_repaired} d={rep.d_updated} "
+              f"repair={t_repair * 1e3:.0f}ms swap={sw['swap_ms']:.1f}ms "
+              f"dropped={sw['cache_dropped']} "
+              f"stale={rep.stale:.4f}/{rep.eps_stale:.4f}{trigger} "
+              f"sample={np.round(scores[0][:3], 4)}")
+        if rep.needs_rebuild:
+            t0 = time.perf_counter()
+            idx = build.build_index(g, eps=args.eps, seed=args.seed,
+                                    stale_frac=args.stale_frac,
+                                    device=args.device)
+            eng.swap_index(idx, g)      # full invalidation: epoch 0
+            print(f"[mutate {i}] full rebuild in "
+                  f"{time.perf_counter() - t0:.1f}s, engine re-armed")
+    st = eng.stats()
+    grew = len(st["unique_shapes"]) - shapes0
+    ok = grew == 0 and not st["swap_recompiles"]
+    print(f"[mutate] {st['swaps']} swaps, last {st['last_swap_ms']:.1f}ms, "
+          f"{st['swap_recompiles']} bucket growths, {grew} new shapes "
+          f"({'fixed-shape swap OK' if ok else 'BUCKETS GREW'})")
 
 
 if __name__ == "__main__":

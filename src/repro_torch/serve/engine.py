@@ -1,16 +1,25 @@
 """Unified SimRank query engine on one device: pairs, single-source and
 top-k from a built :class:`~repro_torch.core.index.SlingIndex`.
 
-Port of ``repro/serve/engine.py`` (single device; hot-swap, invalidation,
-meshes and kNN attachments are later slices). The dispatch contract is
-the reference's:
+Port of ``repro/serve/engine.py`` (single device; meshes and kNN
+attachments are later slices). The dispatch contract is the
+reference's:
 
   * **fixed batch shapes** -- requests are chunked and padded to
     ``pair_batch`` / ``source_batch``; the packed table is padded to a
     capacity bucket of its width. Eager PyTorch compiles nothing, so
     the fixed set of dispatch shapes (``stats()["unique_shapes"]``,
-    which must not grow after ``warmup``) is the port's counterpart of
-    the reference's compile-once rule;
+    which must not grow after ``warmup``; each shape names the width
+    bucket) is the port's counterpart of the reference's compile-once
+    rule;
+  * **epoch-based hot-swap** -- ``swap_index`` installs an incrementally
+    repaired index (``core/update.py``) into the same buckets and drops
+    the cache entries the update may have changed; a swap that fits
+    adds no dispatch shape, and a bucket growth (a width past the
+    bucket, or a changed ``l_max``) is counted in
+    ``stats()["swap_recompiles"]``. The engine holds copies of the
+    index's tensors, so an in-place ``update_index`` does not reach it
+    before the swap;
   * **k-bucketing** -- top-k rounds k up to a configured bucket (or n
     past the largest) and slices the answer;
   * **LRU score cache** keyed by (type, node(s), bucket), with the
@@ -36,11 +45,11 @@ from repro_torch.core.index import SlingIndex, _pair_query_batch
 from repro_torch.core.single_source import (batched_single_source,
                                             prune_tau)
 from repro_torch.core.topk import batched_topk
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import csr
 from repro_torch.kernels.hp_join import fold_sqrt_d, hp_join
-from repro_torch.kernels.horner_push import (PushLayout,
-                                             resolve_push_backend)
+from repro_torch.kernels.horner_push import resolve_push_backend
+from repro_torch.kernels.spmv_ell import SpmmLayout
 
 PAIR_BACKENDS = ("auto", "join", "kernel")
 
@@ -125,6 +134,8 @@ class QueryEngine:
                         "batches": 0, "pad_slots": 0,
                         "warmup_batches": 0, "warmup_pad_slots": 0}
         self._in_warmup = False
+        self._swaps = {"swaps": 0, "last_swap_ms": 0.0,
+                       "swap_recompiles": 0, "invalidated": 0}
         self._width_cap = hp_index.capacity_bucket(index.hp.width)
         self._install(index, g)
 
@@ -136,13 +147,15 @@ class QueryEngine:
         return out
 
     def _install(self, index: SlingIndex, g: csr.Graph) -> None:
-        """Upload ``index``/``g`` with the packed table padded to the
-        width bucket (PAD keys, zero values: inert in every path)."""
+        """Copy ``index``/``g`` to the device with the packed table
+        padded to the width bucket (PAD keys, zero values: inert in every
+        path). Every tensor is the engine's own copy, never the index's,
+        so an in-place update of the index reaches the engine only
+        through ``swap_index``."""
         self._keys = self._padded(index.hp.keys, INT32_PAD_KEY)
         self._vals = self._padded(index.vals_f32(), 0.0)
-        self._d = index.d.to(self.device, torch.float32)
-        self._layout = PushLayout.from_graph(g, index.plan.sqrt_c,
-                                             self.device)
+        self._d = index.d.to(self.device, torch.float32, copy=True)
+        self._layout = SpmmLayout.pull(g, index.plan.sqrt_c, self.device)
         self._tau = prune_tau(index.plan)
         self._folded_keys = self._folded_vals = None
         if self._pair_backend == "kernel":
@@ -151,6 +164,96 @@ class QueryEngine:
             self._folded_vals = self._padded(fv, 0.0)
         self.index = index
         self.g = g
+
+    def swap_index(self, index: SlingIndex, g: csr.Graph,
+                   affected=None) -> dict:
+        """Epoch-based hot-swap: install a repaired index (and its graph)
+        into the engine's buckets and drop the cache entries it may have
+        changed.
+
+        A swap that keeps ``n`` and ``l_max`` and fits the width bucket
+        is a device copy plus cache invalidation: no dispatch shape
+        changes. A width past the bucket grows it, and a changed
+        ``l_max`` changes the push's step count; each is counted in
+        ``stats()["swap_recompiles"]``. Refused: a changed ``n`` (a new
+        engine's job) and an uncertified diagonal without
+        ``allow_uncertified``. ``affected`` (``UpdateReport.affected``)
+        restricts invalidation as :meth:`invalidate` says; ``None``
+        drops the whole cache. Returns swap metrics (also in
+        ``stats()``)."""
+        t0 = time.perf_counter()
+        if index.uncertified_d and not self.cfg.allow_uncertified:
+            raise ValueError(
+                "refusing to hot-swap in an uncertified-diagonal index; "
+                "pass EngineConfig(allow_uncertified=True)")
+        if index.n != self.index.n:
+            raise ValueError("hot-swap requires a fixed node set "
+                             f"({index.n} != {self.index.n}); a changed n "
+                             "is a rebuild and a new engine")
+        recompiles = 0
+        if index.plan.l_max != self.index.plan.l_max:
+            recompiles += 1
+        if index.hp.width > self._width_cap:
+            self._width_cap = hp_index.capacity_bucket(index.hp.width)
+            recompiles += 1
+        self._install(index, g)
+        dropped = self.invalidate(affected)
+        synchronize(self.device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        self._swaps["swaps"] += 1
+        self._swaps["last_swap_ms"] = ms
+        self._swaps["swap_recompiles"] += recompiles
+        return {"swap_ms": ms, "recompiles": recompiles,
+                "cache_dropped": dropped, "epoch": index.epoch}
+
+    def invalidate(self, nodes=None) -> int:
+        """Drop cached scores whose value may depend on ``nodes``
+        (``None`` drops everything). A single-source or top-k entry holds
+        scores for all n targets, so any non-empty hot set drops every
+        one of them. A pair entry reads its endpoints' rows and d at its
+        meeting nodes, so it is dropped when an endpoint or a meeting
+        node is hot. Returns the count dropped."""
+        cache = self._cache._d
+        if nodes is None:
+            dropped = len(cache)
+            cache.clear()
+        else:
+            hot = set(np.asarray(nodes).ravel().tolist())
+            stale = []
+            if hot:
+                cold = [k for k in cache if k[0] == "pair"
+                        and k[1] not in hot and k[2] not in hot]
+                rows = self._host_rows({x for k in cold for x in k[1:]})
+                stale = [k for k in cache if k[0] != "pair"
+                         or k[1] in hot or k[2] in hot]
+                stale += [k for k in cold
+                          if self._pair_meets_hot(k[1], k[2], hot, rows)]
+            for k in stale:
+                del cache[k]
+            dropped = len(stale)
+        self._swaps["invalidated"] += dropped
+        return dropped
+
+    def _host_rows(self, nodes) -> dict:
+        """{node: its live packed keys} of the current index, fetched
+        from the device in one copy."""
+        if not nodes:
+            return {}
+        ids = sorted(nodes)
+        hp = self.index.hp
+        t = torch.as_tensor(ids, device=hp.keys.device)
+        keys, counts = hp.keys[t].cpu().numpy(), hp.counts[t].cpu().numpy()
+        return {u: keys[i, :counts[i]] for i, u in enumerate(ids)}
+
+    def _pair_meets_hot(self, u: int, v: int, hot: set, rows: dict) -> bool:
+        """Does the cached pair (u, v) read d at a hot meeting node?
+        Checked against the current index's rows (``rows``, from
+        :meth:`_host_rows`): the endpoints are not hot, so their rows
+        were not repaired and the key intersection is the one the cached
+        value was computed from."""
+        meet = np.intersect1d(rows[u], rows[v], assume_unique=True)
+        return bool(len(meet)) and not hot.isdisjoint(
+            (meet.astype(np.int64) % self.index.n).tolist())
 
     # ------------------------------------------------------------------
     def _k_bucket(self, k: int) -> int:
@@ -181,7 +284,8 @@ class QueryEngine:
         out = np.empty(len(us_p), np.float32)
         for lo in range(0, len(us_p), B):
             u_b, v_b = self._ids(us_p[lo:lo + B]), self._ids(vs_p[lo:lo + B])
-            self._record("pair", (B, self._pair_backend))
+            self._record("pair", (B, self._pair_backend,
+                                  self._width_cap))
             if self._pair_backend == "kernel":
                 chunk = hp_join(self._folded_keys, self._folded_vals,
                                 u_b, v_b)
@@ -203,7 +307,8 @@ class QueryEngine:
         us_p = self._padded_sources(us)
         out = np.empty((len(us_p), self.index.n), np.float32)
         for lo in range(0, len(us_p), B):
-            self._record("source", (B, self._push_backend))
+            self._record("source", (B, self._push_backend, self._width_cap,
+                                   self.index.plan.l_max))
             out[lo:lo + B] = batched_single_source(
                 self._keys, self._vals, self._d, self._layout,
                 self._ids(us_p[lo:lo + B]).long(), self._tau,
@@ -217,7 +322,8 @@ class QueryEngine:
         sv = np.empty((len(us_p), bucket), np.float32)
         si = np.empty((len(us_p), bucket), np.int32)
         for lo in range(0, len(us_p), B):
-            self._record("topk", (B, bucket, self._push_backend))
+            self._record("topk", (B, bucket, self._push_backend,
+                                 self._width_cap, self.index.plan.l_max))
             v, i = batched_topk(
                 self._keys, self._vals, self._d, self._layout,
                 self._ids(us_p[lo:lo + B]).long(), self._tau,
@@ -327,6 +433,9 @@ class QueryEngine:
     def stats(self) -> dict:
         return {
             **self._counts,
+            **self._swaps,
+            "epoch": self.index.epoch,
+            "stale": self.index.stale,
             "cache_hits": self._cache.hits,
             "cache_misses": self._cache.misses,
             "cache_hits_by_kind": dict(self._cache.hits_by_kind),

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.horner_push import (PushLayout, horner_push,
-                                             horner_steps, horner_steps_plain)
+from repro_torch.kernels.horner_push import (horner_push, horner_steps,
+                                             horner_steps_plain)
 from repro_torch.kernels.hp_join import hp_join
+from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout, spmm,
+                                          spmm_plain)
 from torch_cases import JOIN_CASES, join_rows, port_join, port_push, \
     rand_case
 
@@ -48,7 +50,7 @@ def test_wrappers_raise_without_library_on_card(card, monkeypatch, tmp_path):
     ids = torch.zeros(2, dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="nvcc"):
         hp_join(keys, keys.float(), ids, ids)
-    lay = PushLayout.from_edges([0], [1], [0.5], 2, card)
+    lay = SpmmLayout.from_edges([0], [1], [0.5], 2, card)
     x = torch.zeros((2, 2), device=card)
     with pytest.raises(RuntimeError, match="nvcc"):
         horner_steps(x, torch.empty_like(x), lay, keys, keys.float(), 0, 0.0)
@@ -86,7 +88,7 @@ def test_horner_kernel_matches_plain_on_card(card, seed):
     case["dst"] = np.concatenate([case["dst"], hub]).astype(np.int32)
     case["w"] = np.concatenate([case["w"], rng.uniform(0.05, 0.6,
                                                        len(hub))])
-    lay = PushLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
     assert lay.heavy.numel() >= 1
     args = [torch.as_tensor(case[k], device=card) for k in ("ku", "xu", "d")]
     before = horner_steps.launches
@@ -95,3 +97,87 @@ def test_horner_kernel_matches_plain_on_card(card, seed):
     np.testing.assert_allclose(got.cpu().numpy(),
                                port_push(case, n, l_max, horner_steps_plain),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_spmm_raises_without_library_on_card(card, monkeypatch, tmp_path):
+    sp_mod = importlib.import_module("repro_torch.kernels.spmv_ell.spmv_ell")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    monkeypatch.setattr(sp_mod, "_launch", [])
+    lay = SpmmLayout.from_edges([0], [1], [0.5], 2, card)
+    before = spmm.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        spmm(torch.zeros((2, 4), device=card), lay)
+    assert spmm.launches == before
+
+
+def _spmm_case(seed, n, f):
+    """A random graph with hub rows above the heavy split in both
+    directions (in-hubs 1 and 2, out-hub 3), rows of in-degree 0, and n
+    not a multiple of the kernel's block."""
+    rng = np.random.default_rng(seed)
+    m = 3 * n
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n // 2, m)          # rows >= n/2: in-degree 0
+    hubs = np.repeat([1, 2], [HEAVY_DEGREE + 1, 10 * HEAVY_DEGREE])
+    out_hub = np.full(5 * HEAVY_DEGREE, 3)
+    src = np.concatenate([src, rng.integers(0, n, len(hubs)), out_hub])
+    dst = np.concatenate([dst, hubs, rng.integers(0, n // 2, len(out_hub))])
+    w = rng.uniform(0.05, 0.6, len(src)).astype(np.float32)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    return src, dst, w, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 16, 256])
+@pytest.mark.parametrize("n", [300, 1001])
+def test_spmm_kernel_matches_plain_on_card(card, n, f):
+    src, dst, w, x = _spmm_case(n + f, n, f)
+    for a, b in ((src, dst), (dst, src)):     # pull and transposed
+        lay = SpmmLayout.from_edges(a, b, w, n, card)
+        assert lay.heavy.numel() >= 1
+        xt = torch.as_tensor(x, device=card)
+        before = spmm.launches
+        got = spmm(xt, lay)
+        torch.cuda.synchronize()
+        assert spmm.launches == before + 1
+        ref = spmm_plain(xt, lay)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=ATOL, rtol=0)
+        deg = np.diff(lay.in_ptr.cpu().numpy())
+        assert np.all(got.cpu().numpy()[deg == 0] == 0.0)
+
+
+@pytest.mark.cuda
+def test_spmm_column_is_bit_exact_in_any_block_on_card(card):
+    src, dst, w, x = _spmm_case(3, 700, 256)
+    lay = SpmmLayout.from_edges(src, dst, w, 700, card)
+    xt = torch.as_tensor(x, device=card)
+    wide = spmm(xt, lay)
+    for j in (0, 31, 32, 200, 255):
+        for lo in (j, max(0, j - 5)):
+            part = spmm(xt[:, lo:j + 1].contiguous(), lay)
+            assert torch.equal(part[:, j - lo], wide[:, j])
+
+
+@pytest.mark.cuda
+def test_repair_on_card_equals_fresh_build(card):
+    """Row repair on the card reproduces a fresh card build of the new
+    graph bit for bit, for every row and every target."""
+    from repro_torch.core import build, hp_index, update
+    from repro_torch.graph import csr, generators
+    g = generators.barabasi_albert(400, 4, seed=3, directed=False)
+    idx = build.build_index(g, eps=0.1, exact_d=True, device=card)
+    g2, touched, _ = csr.apply_edges(
+        g, update.random_delta(g, n_add=10, n_del=10, seed=1))
+    assert len(touched) > 0
+    every = np.arange(g.n)
+    hp_index.repair_hp_rows(g2, idx.hp, every, every, block=64)
+    fresh = build.build_index(g2, eps=0.1, exact_d=True, device=card)
+    assert torch.equal(idx.hp.counts, fresh.hp.counts)
+    c = int(fresh.hp.counts.max())
+    assert torch.equal(idx.hp.keys[:, :c], fresh.hp.keys[:, :c])
+    assert torch.equal(idx.hp.vals[:, :c], fresh.hp.vals[:, :c])

@@ -145,6 +145,7 @@ def test_port_imports_with_jax_and_reference_blocked():
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.serve, repro_torch.convert\n"
             "import repro_torch.launch.serve, repro_torch.core.build\n"
+            "import repro_torch.core.update, repro_torch.kernels.spmv_ell\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -1,10 +1,11 @@
-"""The port's two Hopper kernels' plain versions held against the JAX
+"""The port's Hopper kernels' plain versions held against the JAX
 reference kernels (Pallas interpret mode) and their references, on the
 CPU; and the wrappers' argument contracts.
 
-On the CPU the wrappers (``hp_join``, ``horner_steps``) take the plain
-versions because the tensors lie on the CPU. The kernels themselves are
-held against the plain versions on the card by tests/test_torch_cuda.py.
+On the CPU the wrappers (``hp_join``, ``horner_steps``, ``spmm``) take
+the plain versions because the tensors lie on the CPU. The kernels
+themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,15 +14,23 @@ import torch
 
 from repro.core.hp_index import INT32_PAD_KEY
 from repro.core.single_source import horner_push as rhorner_push
+from repro.graph import csr as rcsr
+from repro.graph import generators as rgen
 from repro.kernels.horner_push import ops as rhp_ops
 from repro.kernels.horner_push import ref as rhp_ref
 from repro.kernels.hp_join.hp_join import hp_join as rhp_join
 from repro.kernels.hp_join.ref import join_ref
+from repro.kernels.spmv_ell import ops as rspmm
+from repro.kernels.spmv_ell.ref import spmm_ref
+from repro_torch import convert
 from repro_torch.core import single_source as tss
-from repro_torch.kernels.horner_push import (PushLayout, horner_steps,
+from repro_torch.graph import generators as tgen
+from repro_torch.kernels.horner_push import (horner_steps,
                                              horner_steps_plain,
                                              resolve_push_backend)
 from repro_torch.kernels.hp_join import hp_join, hp_join_plain
+from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout, spmm,
+                                          spmm_plain)
 from torch_cases import JOIN_CASES, join_rows, port_join, port_push, \
     rand_case
 
@@ -156,7 +165,7 @@ def test_push_tau_zero():
 def test_plain_push_is_single_source_horner_push():
     rng = np.random.default_rng(6)
     case = rand_case(rng, n=30, B=8, W=6, l_max=5, m=120)
-    lay = PushLayout.from_edges(case["src"], case["dst"], case["w"], 30,
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], 30,
                                 "cpu")
     got = tss.horner_push(torch.as_tensor(case["ku"]),
                           torch.as_tensor(case["xu"]),
@@ -171,7 +180,7 @@ def test_push_layout_groups_edges_by_destination():
     n, m = 25, 90
     src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
     w = rng.random(m).astype(np.float32)
-    lay = PushLayout.from_edges(src, dst, w, n, "cpu")
+    lay = SpmmLayout.from_edges(src, dst, w, n, "cpu")
     ptr = lay.in_ptr.numpy()
     assert ptr[0] == 0 and ptr[-1] == m and np.all(np.diff(ptr) >= 0)
     for v in range(n):
@@ -185,7 +194,7 @@ def test_push_layout_groups_edges_by_destination():
 def test_horner_steps_wrapper_rejects_bad_arguments():
     n, B, W = 6, 2, 3
     x = torch.zeros((n, B))
-    lay = PushLayout.from_edges([0, 1], [2, 3], [0.5, 0.5], n, "cpu")
+    lay = SpmmLayout.from_edges([0, 1], [2, 3], [0.5, 0.5], n, "cpu")
     keys = torch.zeros((B, W), dtype=torch.int32)
     contrib = torch.zeros((B, W))
     args = (lay, keys, contrib, 2, 0.0)
@@ -204,12 +213,11 @@ def test_horner_steps_wrapper_rejects_bad_arguments():
 
 
 def test_push_layout_splits_nodes_by_in_degree():
-    from repro_torch.kernels.horner_push.ops import HEAVY_DEGREE
     n = 50
     dst = np.concatenate([np.full(HEAVY_DEGREE + 1, 3), np.full(40, 7),
                           np.arange(n)])
     src = np.arange(len(dst)) % n
-    lay = PushLayout.from_edges(src, dst, np.ones(len(dst)), n, "cpu")
+    lay = SpmmLayout.from_edges(src, dst, np.ones(len(dst)), n, "cpu")
     assert lay.heavy.tolist() == [3, 7]
     assert sorted(lay.light.tolist() + lay.heavy.tolist()) == list(range(n))
     assert lay.heavy.dtype == lay.light.dtype == torch.int32
@@ -221,3 +229,109 @@ def test_push_backend_resolves_by_device():
     assert resolve_push_backend("kernel", "cpu") == "kernel"
     with pytest.raises(ValueError):
         resolve_push_backend("pallas", "cpu")
+
+
+# ----------------------------------------------------------------------
+# spmm (the Â operator)
+# ----------------------------------------------------------------------
+SPMM_CASES = {
+    "ba40-deg2-F8": dict(n=40, deg=2, f=8),
+    "ba40-deg5-F24": dict(n=40, deg=5, f=24),
+    "ba100-deg2-F1": dict(n=100, deg=2, f=1),
+    "ba100-deg5-F16": dict(n=100, deg=5, f=16),
+    "sinks-F8": dict(sinks=True, f=8),
+    "multigraph-F24": dict(multigraph=True, f=24),
+}
+
+
+def _spmm_graph(n=0, deg=0, sinks=False, multigraph=False):
+    """A reference graph and the port's copy of it (in-degree 0 rows in
+    the sinks case, parallel edges in the multigraph case)."""
+    if sinks:
+        r = rgen.with_sinks(40, 120, n_sinks=5, seed=7)
+    elif multigraph:
+        r = rgen.multigraph(32, 90, seed=9)
+    else:
+        r = rgen.barabasi_albert(n, deg, seed=n + deg, directed=True)
+    return r, convert.graph_from_arrays(r.n, r.edge_src, r.edge_dst)
+
+
+@pytest.mark.parametrize("layout", ["pull", "push"])
+@pytest.mark.parametrize("case", SPMM_CASES)
+def test_spmm_plain_matches_reference_kernel(case, layout):
+    """spmm_plain against the reference's Pallas kernel (interpret mode)
+    and its segment-sum reference. The push layout is the kernel over
+    the reversed graph with each edge keeping its destination's pull
+    weight (the reference's transpose=True)."""
+    kw = dict(SPMM_CASES[case])
+    f = kw.pop("f")
+    r, t = _spmm_graph(**kw)
+    sc = 0.7746
+    w = rcsr.normalized_pull_weights(r, sc)
+    x = np.random.default_rng(0).normal(size=(r.n, f)).astype(np.float32)
+    if layout == "pull":
+        rg, rw = r, w
+        seg = spmm_ref(jnp.asarray(x), jnp.asarray(r.edge_src),
+                       jnp.asarray(r.edge_dst), jnp.asarray(w), r.n)
+    else:
+        rg = rcsr.from_edges(r.n, r.edge_dst, r.edge_src, dedup=False)
+        rw = w[np.argsort(r.edge_src, kind="stable")]
+        seg = spmm_ref(jnp.asarray(x), jnp.asarray(r.edge_dst),
+                       jnp.asarray(r.edge_src), jnp.asarray(w), r.n)
+    ref_k = np.asarray(rspmm.spmm(x, rg, rw, bn=8, eb=16))
+    lay = getattr(SpmmLayout, layout)(t, sc, "cpu")
+    got = spmm_plain(torch.as_tensor(x), lay).numpy()
+    np.testing.assert_allclose(got, ref_k, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(seg), atol=ATOL, rtol=0)
+    # on the CPU the wrapper takes the plain version, into ``out``
+    out = torch.empty(r.n, f)
+    assert spmm(torch.as_tensor(x), lay, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), got)
+    if kw.get("sinks"):
+        zero = np.flatnonzero(np.diff(lay.in_ptr.numpy()) == 0)
+        assert len(zero) and np.all(got[zero] == 0.0)
+
+
+def test_spmm_push_layout_is_the_transpose():
+    """On a graph with non-uniform in-degrees the push layout applies
+    the transpose of the pull operator: the weight of an out-edge is
+    its destination's, not its source's."""
+    g = tgen.barabasi_albert(50, 3, seed=4, directed=True)
+    assert len(set(g.in_deg.tolist())) > 3
+    pull = SpmmLayout.pull(g, 0.8, "cpu")
+    push = SpmmLayout.push(g, 0.8, "cpu")
+    A = np.zeros((g.n, g.n))
+    for v in range(g.n):
+        lo, hi = int(pull.in_ptr[v]), int(pull.in_ptr[v + 1])
+        np.add.at(A[v], pull.in_idx[lo:hi].numpy(), pull.w[lo:hi].numpy())
+    x = np.random.default_rng(1).random((g.n, 5)).astype(np.float32)
+    np.testing.assert_allclose(spmm(torch.as_tensor(x), pull).numpy(),
+                               A @ x, atol=1e-6)
+    np.testing.assert_allclose(spmm(torch.as_tensor(x), push).numpy(),
+                               A.T @ x, atol=1e-6)
+
+
+def test_spmm_column_does_not_depend_on_its_block():
+    """A column propagated alone equals the same column inside a wider
+    block, bit for bit: the row repair relies on it."""
+    g = tgen.barabasi_albert(64, 3, seed=1, directed=False)
+    lay = SpmmLayout.pull(g, 0.77, "cpu")
+    x = torch.as_tensor(np.random.default_rng(2).random((g.n, 37)),
+                        dtype=torch.float32)
+    wide = spmm(x, lay)
+    for j in (0, 17, 36):
+        assert torch.equal(spmm(x[:, j:j + 1].contiguous(), lay)[:, 0],
+                           wide[:, j])
+
+
+def test_spmm_wrapper_rejects_bad_arguments():
+    lay = SpmmLayout.from_edges([0, 1], [2, 3], [0.5, 0.5], 6, "cpu")
+    x = torch.zeros((6, 4))
+    with pytest.raises(ValueError):
+        spmm(torch.zeros((5, 4)), lay)
+    with pytest.raises(TypeError):
+        spmm(x.double(), lay)
+    with pytest.raises(ValueError):
+        spmm(torch.zeros((4, 6)).t(), lay)
+    with pytest.raises(ValueError):
+        spmm(x, lay, out=torch.zeros((6, 3)))

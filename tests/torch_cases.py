@@ -4,8 +4,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.hp_index import INT32_PAD_KEY
-from repro_torch.kernels.horner_push import PushLayout, horner_push
+from repro_torch.kernels.horner_push import horner_push
 from repro_torch.kernels.hp_join import hp_join
+from repro_torch.kernels.spmv_ell import SpmmLayout
 
 JOIN_CASES = {
     "ragged-K64": dict(B=16, K=64, key_range=150),
@@ -63,7 +64,7 @@ def rand_case(rng, *, n, B, W, l_max, m, tau=1e-4, pad_frac=0.3):
 
 def port_push(case, n, l_max, steps):
     """The port's Horner loop on a case, on the CPU, with ``steps``."""
-    lay = PushLayout.from_edges(case["src"], case["dst"], case["w"], n,
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n,
                                 "cpu")
     return horner_push(torch.as_tensor(case["ku"]),
                        torch.as_tensor(case["xu"]),
