@@ -24,10 +24,23 @@ Phases (any failure raises and the script exits non-zero):
      rows R are checked against a from-scratch rebuild of the mutated
      graph on every target in K. The counters are zeroed before and
      read after the batches; ``spmm`` must launch in both 3 and 3b;
+  3c. xDeepFM serving at full width (``xdeepfm.full()``, 432,742,000
+     parameters from a seeded ``torch.Generator``): serve_p99 (22
+     ``RecsysStream`` batches of 512 through ``recsys_serve_step``, per
+     batch p50/p99 from CUDA events), retrieval_cand (one user against
+     1,000,000 candidates through ``recsys_retrieval_step``, top-128),
+     then the SLING prior: a 40,000-node user-item click graph indexed
+     on the card, ``single_source_device`` for 8 users and retrieval
+     over its 30,000 items with ``sim_prior``. The counters are zeroed
+     before and read after; ``cin``, ``horner_push`` and ``spmm`` must
+     all launch. Checks (outside the counts): logits against the plain
+     CIN on the card, top-128 against a stable sort, fused - base =
+     sim_w * prior;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
-     exists;
+     exists (``cin`` at the serve_p99 shapes, on the model's own
+     embeddings and on O(1)-scale inputs, relative to max |out|);
   5. accuracy: on a 64-node graph built with the exact diagonal, every
      pair, single-source and top-k answer is within eps + 1e-5 of exact
      SimRank (power method);
@@ -58,6 +71,13 @@ EPS = 0.025            # the paper's Section-7.1 eps (c = 0.6)
 BLOCK = 256            # target columns per Alg-2 frontier block
 STALE_FRAC = 0.2       # eps share reserved for updates (bench_update.py)
 CHURN = (0.001, 0.01)  # edges per update batch, as fractions of m
+TOL_CIN = 2e-5         # CIN vs plain, relative to max |out| (float32 order)
+TOL_PRIOR = 1e-5       # fused - base vs sim_w * prior (test_system.py:124)
+SERVE_STEPS = (2, 20)  # serve_p99: warm-up batches, timed batches
+N_CAND = 1_000_000     # retrieval_cand (launch/specs.py RECSYS_SHAPE_DEFS)
+N_CHECK = 4_096        # candidates recomputed on the plain CIN
+CLICK_GRAPH = (10_000, 30_000, 150_000)   # users, items, clicks
+N_PRIOR_USERS = 8
 
 
 def card_line() -> str:
@@ -96,10 +116,10 @@ def pct(lat_s: list[float]) -> str:
             f"{np.percentile(a, 99):.3f} ms")
 
 
-def profile_serving(eng, q) -> None:
-    """Trace 4 pair, 4 single-source and 4 top-k batches (fresh nodes,
-    so no cache hits) and print the device's busy share of the window:
-    the device time of kernels and copies over the wall time."""
+def trace(label: str, fn) -> None:
+    """Run ``fn`` under torch.profiler and print the device's busy share
+    of the window (the device time of kernels and copies over the wall
+    time) and the top rows by device and by CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -107,10 +127,7 @@ def profile_serving(eng, q) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for lo in range(0, 32, 8):
-            eng.pairs(q[lo:lo + 8], q[lo + 32:lo + 40])
-            eng.single_source(q[lo:lo + 8])
-            eng.topk(q[lo + 32:lo + 40], 10)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = prof.key_averages()
@@ -119,11 +136,22 @@ def profile_serving(eng, q) -> None:
     dev = sum(r.self_device_time_total for r in rows
               if r.device_type == DeviceType.CUDA
               and not getattr(r, "is_user_annotation", False)) / 1e6
-    print(f"[profile] 12 batches: wall {wall * 1e3:.3f} ms, device busy "
+    print(f"[profile] {label}: wall {wall * 1e3:.3f} ms, device busy "
           f"{dev * 1e3:.3f} ms ({100 * dev / wall:.1f}%)")
     for sort_by in ("self_device_time_total", "cpu_time_total"):
         for line in rows.table(sort_by=sort_by, row_limit=15).splitlines():
             print(f"[profile] {line}")
+
+
+def profile_serving(eng, q) -> None:
+    """Trace 4 pair, 4 single-source and 4 top-k batches (fresh nodes,
+    so no cache hits)."""
+    def run():
+        for lo in range(0, 32, 8):
+            eng.pairs(q[lo:lo + 8], q[lo + 32:lo + 40])
+            eng.single_source(q[lo:lo + 8])
+            eng.topk(q[lo + 32:lo + 40], 10)
+    trace("12 batches", run)
 
 
 def table_rows_vs_fresh(hp, fresh, rows, targets, theta: float) -> dict:
@@ -159,6 +187,340 @@ def table_rows_vs_fresh(hp, fresh, rows, targets, theta: float) -> dict:
             "max_abs_err": shared_err,
             "bit_equal": bool(len(only) == 0 and torch.equal(va, vb)),
             "ok": bool(near.all()) and shared_err <= TOL_KERNEL}
+
+
+class _Clock:
+    """Per-call milliseconds: CUDA events on the card, the host clock
+    (after the call returns) on the CPU, where the phase is rehearsed."""
+
+    def __init__(self, dev):
+        import torch
+        self.cuda = dev.type == "cuda"
+        self.torch = torch
+
+    def __call__(self, fn):
+        if not self.cuda:
+            t = time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t) * 1e3
+        a = self.torch.cuda.Event(enable_timing=True)
+        b = self.torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    return float((got.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
+
+
+def xdeepfm_phase(dev, cfg=None, n_cand: int = N_CAND,
+                  click_graph=CLICK_GRAPH, eps: float = EPS,
+                  profile: bool = False):
+    """xDeepFM serving on ``dev``: serve_p99, retrieval_cand and the
+    SimRank-prior retrieval (see the module docstring, phase 3c); with
+    ``profile``, a trace of 4 more serve batches and of one more
+    retrieval after the path's counts are read.
+    Returns (the model, a serve batch, the launches of the path)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import xdeepfm
+    from repro_torch.core import build
+    from repro_torch.core.single_source import single_source_device
+    from repro_torch.core.topk import stable_topk
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.device import synchronize
+    from repro_torch.graph import generators
+    from repro_torch.kernels.cin import cin_layer
+    from repro_torch.kernels.horner_push import horner_steps
+    from repro_torch.kernels.spmv_ell import HEAVY_DEGREE, spmm
+    from repro_torch.launch.specs import RECSYS_SHAPE_DEFS, \
+        recsys_model_flops
+    from repro_torch.models import recsys
+    from repro_torch.train.steps import recsys_retrieval_step, \
+        recsys_serve_step
+
+    kernels = {"cin": cin_layer, "horner_push": horner_steps, "spmm": spmm}
+    path = {k: 0 for k in kernels}
+
+    def zero():
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def read():
+        for k, kern in kernels.items():
+            path[k] += kern.launches
+
+    clock = _Clock(dev)
+    cfg = cfg or xdeepfm.full()
+    prior_cfg = dataclasses.replace(cfg, sim_prior=True)
+    t0 = time.perf_counter()
+    # one module for both configs: sim_prior adds the scalar sim_w
+    model = recsys.XDeepFM(prior_cfg, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    synchronize(dev)
+    numel = sum(p.numel() for p in model.parameters())
+    table_bytes = sum(p.numel() * p.element_size()
+                      for p in model.tables.values())
+    print(f"[xdeepfm] {cfg.name}: param_count={cfg.param_count():,} "
+          f"(the module holds {numel:,}: + the scalars bias and sim_w, "
+          f"which param_count leaves out, as the reference does); tables "
+          f"{table_bytes / 1e9:.3f} GB; init {time.perf_counter() - t0:.2f}s")
+    if numel != cfg.param_count() + 2:
+        raise RuntimeError("the module's parameters differ from "
+                           "param_count")
+
+    # ---- serve_p99 ----
+    B = RECSYS_SHAPE_DEFS["serve_p99"]["batch"]
+    stream = RecsysStream(cfg.n_fields, cfg.vocab_per_field, B,
+                          multi_hot_fields=cfg.multi_hot_fields,
+                          bag_size=cfg.bag_size)
+    batches = [stream.batch_at(s) for s in range(sum(SERVE_STEPS))]
+    serve = recsys_serve_step(cfg)
+    zero()
+    probs, lat = [], []
+    for b in batches:
+        p, ms = clock(lambda: serve(model, b))
+        probs.append(p)
+        lat.append(ms / 1e3)
+    read()
+    lat = lat[SERVE_STEPS[0]:]
+    flops = recsys_model_flops(cfg, B, train=False)
+    print(f"[xdeepfm] serve_p99: {len(lat)} batches of {B} (after "
+          f"{SERVE_STEPS[0]} warm-up): per batch {pct(lat)} (CUDA events); "
+          f"{flops / 1e9:.2f} GFLOP per batch")
+    allp = torch.stack(probs)
+    if not bool(torch.isfinite(allp).all()) or \
+            float(allp.min()) < 0.0 or float(allp.max()) > 1.0:
+        raise RuntimeError("serve probabilities not finite in [0, 1]")
+    with torch.inference_mode():                      # check, not counted
+        lk = recsys.forward(cfg, model, batches[0])
+        lp = recsys.forward(cfg, model, batches[0], backend="plain")
+    e_serve = rel_err(lk, lp)
+    print(f"[xdeepfm] serve step 0 logits vs the plain CIN on the card: "
+          f"{e_serve:.3g} of max |logit| = {float(lp.abs().max()):.4g} "
+          f"(bound {TOL_CIN})")
+    if not e_serve <= TOL_CIN:
+        raise RuntimeError(f"serve logits disagree with plain: {e_serve}")
+    if profile:
+        trace(f"4 serve_p99 batches of {B}",
+              lambda: [serve(model, b) for b in batches[:4]])
+
+    # ---- retrieval_cand ----
+    rng = np.random.default_rng(0)
+    n_item = cfg.n_fields - cfg.n_user_fields
+    rb = {"user_ids": torch.as_tensor(
+              rng.integers(0, cfg.vocab_per_field, cfg.n_user_fields),
+              device=dev),
+          "cand_ids": torch.as_tensor(
+              rng.integers(0, cfg.vocab_per_field, (n_cand, n_item)),
+              device=dev)}
+    retrieve = recsys_retrieval_step(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero()
+    out = retrieve(model, rb)                         # warm
+    secs = []
+    for _ in range(3):
+        del out
+        t = time.perf_counter()
+        out = retrieve(model, rb)
+        synchronize(dev)
+        secs.append(time.perf_counter() - t)
+    read()
+    peak = torch.cuda.max_memory_allocated() / 2**30 \
+        if dev.type == "cuda" else float("nan")
+    flops = recsys_model_flops(cfg, n_cand, train=False)
+    print(f"[xdeepfm] retrieval_cand: C={n_cand:,} top-128: "
+          + " ".join(f"{x:.3f}s" for x in secs)
+          + f" (3 reps after one warm); {flops / 1e12:.2f} TFLOP, "
+          f"{flops / min(secs) / 1e12:.2f} TFLOP/s at the best rep; "
+          f"peak device memory {peak:.2f} GiB (candidate ids on the card)")
+    scores = out["scores"]
+    sv, si = stable_topk(scores[None], 128)
+    if not torch.equal(out["top_i"], si[0]) or \
+            not torch.equal(out["top_v"], sv[0]) or \
+            not bool(torch.isfinite(scores).all()):
+        raise RuntimeError("retrieval top-128 is not the stable top-128")
+    with torch.inference_mode():                      # check, not counted
+        sub = {"user_ids": rb["user_ids"],
+               "cand_ids": rb["cand_ids"][:N_CHECK]}
+        sp = recsys.score_candidates(cfg, model, sub, backend="plain")
+    e_ret = float((scores[:N_CHECK] - sp).abs().max()
+                  / sp.abs().max())
+    print(f"[xdeepfm] retrieval: first {N_CHECK} scores vs the plain CIN "
+          f"on the card: {e_ret:.3g} of max |score| = "
+          f"{float(sp.abs().max()):.4g} (bound {TOL_CIN}); top score "
+          f"{float(out['top_v'][0]):.6g} at candidate "
+          f"{int(out['top_i'][0])}")
+    if not e_ret <= TOL_CIN:
+        raise RuntimeError(f"retrieval scores disagree with plain: {e_ret}")
+    if profile:
+        del out
+        trace(f"one retrieval_cand step, C={n_cand:,}",
+              lambda: retrieve(model, rb))
+        out = None
+    del out, scores, rb, sub, sp
+
+    # ---- the SLING SimRank prior over a click graph ----
+    n_users, n_items, clicks = click_graph
+    g = generators.bipartite(n_users, n_items, clicks, seed=0)
+    zero()
+    t0 = time.perf_counter()
+    idx = build.build_index(g, eps=eps, c=0.6, seed=0, block=BLOCK,
+                            device=dev)
+    t_build = time.perf_counter() - t0
+    clicked_any = np.flatnonzero(g.in_deg[:n_users] > 0)
+    users = np.sort(rng.choice(clicked_any, N_PRIOR_USERS, replace=False))
+    # a user and an item never meet on a bipartite graph (their reverse
+    # walks are on opposite sides at every step), so a user's SimRank to
+    # every item is 0; an item each user clicked is a second source,
+    # whose item-to-item scores are the prior that is not zero
+    items = np.array([rng.choice(g.in_neighbors(u)) for u in users])
+    sources = np.concatenate([users, items])
+    t0 = time.perf_counter()
+    sim = single_source_device(idx, g, sources)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = single_source_device(idx, g, sources)
+    t_warm = time.perf_counter() - t0
+    item_ids = torch.as_tensor(rng.integers(0, cfg.vocab_per_field,
+                                            (n_items, n_item)), device=dev)
+    fused_step = recsys_retrieval_step(prior_cfg)
+    base, fused, lat = [], [], []
+    for u in range(len(users)):
+        ub = {"user_ids": torch.as_tensor(rng.integers(
+                  0, cfg.vocab_per_field, cfg.n_user_fields), device=dev),
+              "cand_ids": item_ids}
+        base.append(retrieve(model, ub)["scores"])
+        for row in (u, len(users) + u):     # the user's, the item's prior
+            t = time.perf_counter()
+            fused.append(fused_step(model, {
+                **ub, "sim_scores": torch.as_tensor(sim[row, n_users:],
+                                                    device=dev)})["scores"])
+            synchronize(dev)
+            lat.append(time.perf_counter() - t)
+    read()
+    p = idx.plan
+    deg = g.in_deg
+    print(f"[prior] click graph bipartite{click_graph}: n={g.n} m={g.m} "
+          f"max in-degree={int(deg.max())} rows of in-degree > "
+          f"{HEAVY_DEGREE}: {int((deg > HEAVY_DEGREE).sum())}")
+    print(f"[prior] build_index eps={p.eps} c={p.c}: l_max={p.l_max} "
+          f"d={idx.build_seconds['d']:.2f}s hp={idx.build_seconds['hp']:.2f}s"
+          f" total={t_build:.2f}s width={idx.hp.width}; "
+          f"single_source_device({len(users)} users + their "
+          f"{len(items)} clicked items) first {t_first * 1e3:.2f} ms, warm "
+          f"{t_warm * 1e3:.2f} ms; fused retrieval over {n_items:,} items "
+          f"per call {pct(lat)}")
+    w = float(model.recsys.sim_w)
+    e_prior = max(float((fused[2 * u + k] - base[u] - w * torch.as_tensor(
+        sim[k * len(users) + u, n_users:], device=dev)).abs().max())
+        for u in range(len(users)) for k in (0, 1))
+    e_sim = float(np.abs(single_source_device(
+        idx, g, sources, backend="plain") - sim).max())   # not counted
+    user_mass = np.abs(sim[:len(users), n_users:]).sum(1)
+    item_mass = sim[len(users):, n_users:].sum(1)
+    print(f"[prior] fused - base vs sim_w * prior: max {e_prior:.3g} "
+          f"(bound {TOL_PRIOR}); single_source_device vs the plain push "
+          f"on the card: {e_sim:.3g}; prior mass on the items: from each "
+          f"user {user_mass.tolist()}, from each clicked item "
+          f"{np.round(item_mass, 4).tolist()}")
+    if not e_prior <= TOL_PRIOR or not e_sim <= TOL_KERNEL or \
+            user_mass.any() or not (item_mass > 0).all():
+        raise RuntimeError(f"prior retrieval is off: {e_prior}, {e_sim}, "
+                           f"{user_mass}, {item_mass}")
+    if min(path.values()) <= 0:
+        raise RuntimeError(f"a kernel did not launch on the xDeepFM path: "
+                           f"{path}")
+    del idx, base, fused
+    return model, batches[0], path
+
+
+def cin_row(model, batch, dev, launches: int) -> dict:
+    """``cin`` against its plain version at the serve_p99 shapes (the
+    three layers of one batch), on the model's own embeddings and on
+    O(1)-scale inputs (x0, xk unit normal, W / sqrt(h*m)): errors
+    relative to max |out| (and both versions against float64), times,
+    the operation bound and one ``torch.einsum`` per layer (TF32 off)."""
+    import torch
+
+    from repro_torch.kernels.cin import cin_layer, cin_layer_ref
+    from repro_torch.models import recsys
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        x0 = recsys.embed(cfg, model, batch)
+        Ws = [w.detach() for w in model.recsys.cin_w]
+        # each layer's input: the plain version's output of the layer
+        # before, so kernel and plain see the same inputs
+        xs = [x0]
+        for W in Ws[:-1]:
+            xs.append(cin_layer(x0, xs[-1], W, backend="plain"))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        unit = [(torch.randn(x0.shape, generator=gen, device=dev),
+                 torch.randn(xk.shape, generator=gen, device=dev),
+                 torch.randn(W.shape, generator=gen, device=dev)
+                 / math.sqrt(W.shape[1] * W.shape[2]))
+                for xk, W in zip(xs, Ws)]
+        errs = {"model": [], "unit": []}
+        abs_err = 0.0
+        for name, cases in (("model", [(x0, xk, W) for xk, W in
+                                       zip(xs, Ws)]), ("unit", unit)):
+            for a, xk, W in cases:
+                got = cin_layer(a, xk, W)
+                ref = cin_layer(a, xk, W, backend="plain")
+                r64 = cin_layer_ref(a.double(), xk.double(), W.double())
+                if name == "model":
+                    abs_err = max(abs_err, float((got - ref).abs().max()))
+                errs[name].append((rel_err(got, ref), rel_err(got, r64),
+                                   rel_err(ref, r64)))
+        B, m, D = x0.shape
+        ops = sum(2.0 * B * D * W.shape[1] * m * W.shape[0] for W in Ws)
+        nbytes = sum(4.0 * (x0.numel() + xk.numel() + W.numel()
+                            + B * W.shape[0] * D) for xk, W in zip(xs, Ws))
+        b_ms, b_by = bound_ms(nbytes, ops)
+
+        def run(backend):
+            return lambda: [cin_layer(x0, xk, W, backend=backend)
+                            for xk, W in zip(xs, Ws)]
+
+        def library():
+            return [torch.einsum("ihm,bhd,bmd->bid", W, xk, x0)
+                    for xk, W in zip(xs, Ws)]
+
+        e_lib = max(rel_err(y, cin_layer(x0, xk, W, backend="plain"))
+                    for y, xk, W in zip(library(), xs, Ws))
+        row = {"name": "cin", "route": "cuda",
+               "source": "src/repro_torch/csrc/cin.cu",
+               "replaces": "src/repro/kernels/cin/cin.py:37",
+               "launches": launches, "max_abs_err": abs_err,
+               "ms": time_ms(run("auto"), 50),
+               "plain_ms": time_ms(run("plain"), 10),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(library, 10),
+               "shape": f"B={B} m={m} D={D} layers "
+                        + "-".join(str(W.shape[1]) for W in Ws)
+                        + f"-{Ws[-1].shape[0]}"}
+    for name, es in errs.items():
+        print(f"[kernel] cin on {name} inputs, per layer, relative to max "
+              f"|out|: kernel vs plain / kernel vs float64 / plain vs "
+              f"float64: " + "; ".join(" / ".join(f"{e:.3g}" for e in t)
+                                       for t in es))
+    print(f"[kernel] cin: the einsum library call vs plain {e_lib:.3g}; "
+          f"{ops / 1e9:.2f} GFLOP, kernel at "
+          f"{ops / row['ms'] / 1e9:.2f} TFLOP/s")
+    worst = max(t[0] for es in errs.values() for t in es)
+    if not worst <= TOL_CIN:
+        raise RuntimeError(f"cin disagrees with its plain version: {worst}")
+    return row
 
 
 def update_phase(g, dev) -> dict:
@@ -289,9 +651,10 @@ def main() -> int:
     ap.add_argument("--graph", default="Enron",
                     help="Table-3 regime of generators.paper_scale")
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, trace a few more serve "
-                         "batches with torch.profiler and print the "
-                         "tables by device and by CPU time")
+                    help="after the main path and in phase 3c, trace "
+                         "a few more serve batches (and one retrieval) "
+                         "with torch.profiler and print the tables by "
+                         "device and by CPU time")
     args = ap.parse_args()
 
     import torch
@@ -429,6 +792,13 @@ def main() -> int:
     total = {k: launches[k] + upd[k] for k in launches}
     print(f"[update] launches {upd}; main path + update {total}")
 
+    # ---- 3c. xDeepFM serving at full width, with the SLING prior -------
+    model, serve_batch, rec = xdeepfm_phase(dev, profile=args.profile)
+    for k in ("horner_push", "spmm"):
+        total[k] += rec[k]
+    total["cin"] = rec["cin"]
+    print(f"[xdeepfm] launches {rec}; all paths {total}")
+
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = []
     K = eng._width_cap
@@ -544,13 +914,15 @@ def main() -> int:
         "shape": f"n={g.n} m={g.m} F={BLOCK}",
         "push_ms": time_ms(lambda: spmm(xp, push_lay, out=spmm_out), 100)})
     del xs, xp, spmm_out, pull_csr
+    kernels.append(cin_row(model, serve_batch, dev, total["cin"]))
+    del model
     for k in kernels:
         print(f"[kernel] {k['name']} {k['shape']}: max_abs_err="
               f"{k['max_abs_err']:.3g} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} "
               f"({k['bound_by']}) library_ms={k['library_ms']}"
               + (f" push_ms={k['push_ms']:.4f}" if "push_ms" in k else ""))
-        if not k["max_abs_err"] <= TOL_KERNEL:
+        if k["name"] != "cin" and not k["max_abs_err"] <= TOL_KERNEL:
             raise RuntimeError(f"{k['name']} disagrees with its plain "
                                f"version: {k['max_abs_err']}")
     del eng, idx

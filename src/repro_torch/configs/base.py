@@ -1,0 +1,48 @@
+"""Config registry: every architecture the port has registers an
+ArchSpec (port of ``repro/configs/base.py``).
+
+Each arch module defines ``full()`` (the exact assigned config),
+``smoke()`` (a reduced config of the same family for CPU tests) and the
+shape cells it takes part in. The port holds xDeepFM so far; the other
+families join with their slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str
+    full: Callable[[], Any]
+    smoke: Callable[[], Any]
+    shapes: tuple
+    notes: str = ""
+
+
+_REGISTRY: dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+def get(arch_id: str) -> ArchSpec:
+    _ensure_loaded()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch '{arch_id}'; have {sorted(_REGISTRY)}")
+    return _REGISTRY[arch_id]
+
+
+def all_archs() -> dict[str, ArchSpec]:
+    _ensure_loaded()
+    return dict(_REGISTRY)
+
+
+def _ensure_loaded() -> None:
+    from repro_torch.configs import xdeepfm  # noqa: F401  (registers)

@@ -52,3 +52,33 @@ def index_from_arrays(plan: dict, d, keys, vals, counts,
     return SlingIndex(plan=p,
                       d=torch.tensor(np.asarray(d, np.float32), device=dev),
                       hp=hp, builder=builder, uncertified_d=uncertified_d)
+
+
+def recsys_params_from_jax(cfg, params_np: dict, device=None):
+    """The port's :class:`~repro_torch.models.recsys.XDeepFM` from the
+    reference's ``init_params`` pytree as NumPy arrays ({"tables":
+    {"embed", "linear"}, "recsys": {"cin_w": [..], "mlp_w": [..],
+    "mlp_b": [..], "mlp_out", "cin_out", "bias"[, "sim_w"]}}), on
+    ``device`` (``cuda`` unless ``device="cpu"``). ``cfg`` is the port's
+    RecsysConfig with the reference's field values."""
+    from repro_torch.models.recsys import XDeepFM
+    dev = resolve_device(device)
+    model = XDeepFM(cfg, generator=torch.Generator(device=dev))
+    t, r = params_np["tables"], params_np["recsys"]
+    src = {"tables.embed": t["embed"], "tables.linear": t["linear"],
+           **{f"recsys.{k}": r[k] for k in ("mlp_out", "cin_out", "bias",
+                                            "sim_w") if k in r},
+           **{f"recsys.{k}.{i}": a for k in ("cin_w", "mlp_w", "mlp_b")
+              for i, a in enumerate(r[k])}}
+    own = dict(model.named_parameters())
+    if set(src) != set(own):
+        raise ValueError(f"parameter names differ: given {sorted(src)}, "
+                         f"the model has {sorted(own)}")
+    with torch.no_grad():
+        for name, p in own.items():
+            a = np.array(src[name], np.float32)     # a writable copy
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {a.shape}, expected "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(a))
+    return model

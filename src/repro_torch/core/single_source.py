@@ -92,3 +92,17 @@ def batched_single_source(keys, vals, d, layout, us, tau: float, *,
     steps = hpk.steps_for(hpk.resolve_push_backend(backend, keys.device))
     return hpk.horner_push(keys[us], vals[us], d, layout, tau, n=n,
                            l_max=l_max, steps=steps)
+
+
+def single_source_device(idx, g: csr.Graph, us,
+                         backend: str | None = None) -> np.ndarray:
+    """One-shot batched path on the index's device: (B,) ids -> (B, n)
+    float32 NumPy. Â's layout is warm after the first call
+    (``core/device_state.py``), so repeated calls measure the push, not
+    the layout build. ``backend``: "auto"/None | "kernel" | "plain"."""
+    from repro_torch.core import device_state
+    st = device_state.serving_arrays(idx, g)
+    us = torch.as_tensor(np.asarray(us, np.int64), device=idx.device)
+    return batched_single_source(
+        st.keys, st.vals, st.d, st.layout, us, st.tau, n=idx.n,
+        l_max=idx.plan.l_max, backend=backend).cpu().numpy()

@@ -95,6 +95,16 @@ PAPER_GRAPHS = {
 }
 
 
+def bipartite(n_users: int, n_items: int, m: int,
+              seed: int = 0) -> csr.Graph:
+    """User->item click graph, symmetrized (SimRank needs in-edges both
+    ways); item popularity is power-law."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, size=m, dtype=np.int64)
+    i = rng.zipf(1.5, size=m) % n_items
+    return csr.undirected(n_users + n_items, u, n_users + i)
+
+
 def paper_scale(name: str, seed: int = 0) -> csr.Graph:
     """Synthetic stand-ins matching Table 3's (n, m) regimes."""
     n, m, directed = PAPER_GRAPHS[name]

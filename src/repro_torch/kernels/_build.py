@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("hp_join", "horner_push", "spmm")
+SOURCES = ("hp_join", "horner_push", "spmm", "cin")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cin import (cin_forward, cin_forward_reference,
+                                     cin_layer, cin_layer_ref)
 from repro_torch.kernels.horner_push import (horner_push, horner_steps,
                                              horner_steps_plain)
 from repro_torch.kernels.hp_join import hp_join
@@ -181,3 +183,84 @@ def test_repair_on_card_equals_fresh_build(card):
     c = int(fresh.hp.counts.max())
     assert torch.equal(idx.hp.keys[:, :c], fresh.hp.keys[:, :c])
     assert torch.equal(idx.hp.vals[:, :c], fresh.hp.vals[:, :c])
+
+
+@pytest.mark.cuda
+def test_cin_raises_without_library_on_card(card, monkeypatch, tmp_path):
+    cin_mod = importlib.import_module("repro_torch.kernels.cin.cin")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    monkeypatch.setattr(cin_mod, "_launch", [])
+    x0 = torch.zeros((4, 3, 2), device=card)
+    before = cin_layer.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cin_layer(x0, x0, torch.zeros((5, 3, 3), device=card))
+    assert cin_layer.launches == before
+
+
+def _cin_case(seed, B, m, h, hp, D):
+    """O(1)-scale inputs: unit normal x0 and xk, W scaled by
+    1/sqrt(h*m), so max |out| is a few units."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, m, D)).astype(np.float32),
+            rng.normal(size=(B, h, D)).astype(np.float32),
+            (rng.normal(size=(hp, h, m)) / np.sqrt(h * m)).astype(np.float32))
+
+
+# ragged B (rows B*D not a multiple of the 128-row tile), h, m and h'
+# (not a multiple of the 64-map tile); the last case takes more than
+# 48 KB of shared memory (m = 70)
+CIN_SHAPES = [(13, 4, 4, 6, 4), (64, 8, 8, 8, 8), (37, 5, 3, 65, 10),
+              (200, 39, 39, 200, 10), (3, 70, 17, 129, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CIN_SHAPES, ids=str)
+def test_cin_kernel_matches_plain_on_card(card, shape):
+    """Relative to max |out| (float32 reduction order), as the
+    reference's kernel test holds its kernel (rtol 2e-5)."""
+    x0, xk, W = (torch.as_tensor(a, device=card)
+                 for a in _cin_case(sum(shape), *shape))
+    before = cin_layer.launches
+    got = cin_layer(x0, xk, W)
+    torch.cuda.synchronize()
+    assert cin_layer.launches == before + 1
+    assert got.shape == (shape[0], shape[3], shape[4])
+    ref = cin_layer_ref(x0.double(), xk.double(), W.double())
+    scale = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max()) / scale
+    plain = float((cin_layer(x0, xk, W, backend="plain").double()
+                   - ref).abs().max()) / scale
+    assert err <= 2e-5, (err, plain)
+
+
+@pytest.mark.cuda
+def test_cin_full_width_layer_on_card(card):
+    """One 200 -> 200 layer of xdeepfm.full() (m = 39, D = 10) at the
+    serve batch of 512."""
+    x0, xk, W = (torch.as_tensor(a, device=card)
+                 for a in _cin_case(5, 512, 39, 200, 200, 10))
+    got = cin_layer(x0, xk, W)
+    ref = cin_layer(x0, xk, W, backend="plain")
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 2e-5 * scale
+    stack = cin_forward(x0, [W[:, :39].contiguous(), W, W])
+    plain = cin_forward_reference(x0, [W[:, :39].contiguous(), W, W])
+    assert stack.shape == (512, 600)
+    assert float((stack - plain).abs().max()) <= \
+        2e-5 * float(plain.abs().max())
+
+
+@pytest.mark.cuda
+def test_cin_refuses_tensors_that_record_a_gradient(card):
+    """The kernel has no backward: rather than return an output cut off
+    from autograd, the wrapper raises; under no_grad it launches."""
+    x0, xk, W = (torch.as_tensor(a, device=card)
+                 for a in _cin_case(1, 8, 4, 4, 6, 3))
+    W.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cin_layer(x0, xk, W)
+    with torch.no_grad():
+        assert cin_layer(x0, xk, W).shape == (8, 6, 3)

@@ -146,6 +146,10 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch, repro_torch.serve, repro_torch.convert\n"
             "import repro_torch.launch.serve, repro_torch.core.build\n"
             "import repro_torch.core.update, repro_torch.kernels.spmv_ell\n"
+            "import repro_torch.models.recsys, repro_torch.kernels.cin\n"
+            "import repro_torch.core.device_state, repro_torch.train.steps\n"
+            "import repro_torch.data.pipeline, repro_torch.configs.xdeepfm\n"
+            "import repro_torch.launch.specs\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,
