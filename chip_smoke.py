@@ -40,7 +40,10 @@ Phases (any failure raises and the script exits non-zero):
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
      exists (``cin`` at the serve_p99 shapes, on the model's own
-     embeddings and on O(1)-scale inputs, relative to max |out|);
+     embeddings and on O(1)-scale inputs, relative to max |out|, with
+     two calls held to equal bits, its 3xTF32 tensor-core bound and the
+     float32-FMA bound beside it, then timed at retrieval_cand's
+     shapes);
   5. accuracy: on a 64-node graph built with the exact diagonal, every
      pair, single-source and top-k answer is within eps + 1e-5 of exact
      SimRank (power method);
@@ -63,9 +66,10 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): memory
-# bandwidth and non-tensor-core float32 rate.
+# bandwidth, non-tensor-core float32 rate and dense TF32 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 494.7e12
 TOL_KERNEL = 1e-5      # kernel vs plain version, float32 reduction order
 EPS = 0.025            # the paper's Section-7.1 eps (c = 0.6)
 BLOCK = 256            # target columns per Alg-2 frontier block
@@ -103,9 +107,10 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             rate: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -448,11 +453,16 @@ def cin_row(model, batch, dev, launches: int) -> dict:
     """``cin`` against its plain version at the serve_p99 shapes (the
     three layers of one batch), on the model's own embeddings and on
     O(1)-scale inputs (x0, xk unit normal, W / sqrt(h*m)): errors
-    relative to max |out| (and both versions against float64), times,
-    the operation bound and one ``torch.einsum`` per layer (TF32 off)."""
+    relative to max |out| (and both versions against float64), equal
+    bits from two calls, times, one ``torch.einsum`` per layer (TF32
+    off), and the bounds: the kernel's own, 3xTF32 operations on the
+    tensor cores, and beside it float32 FMA. Then the three layers at
+    retrieval_cand's shapes (N_CAND candidates, O(1) inputs), timed."""
     import torch
 
     from repro_torch.kernels.cin import cin_layer, cin_layer_ref
+    from repro_torch.kernels.cin.cin import (split_weights,
+                                             split_weights_on_card)
     from repro_torch.models import recsys
 
     cfg = model.cfg
@@ -482,11 +492,21 @@ def cin_row(model, batch, dev, launches: int) -> dict:
                     abs_err = max(abs_err, float((got - ref).abs().max()))
                 errs[name].append((rel_err(got, ref), rel_err(got, r64),
                                    rel_err(ref, r64)))
+        same = all(torch.equal(cin_layer(x0, xk, W), cin_layer(x0, xk, W))
+                   for xk, W in zip(xs, Ws))
+        # the W split inside each call: the kernel the wrapper launches,
+        # and its plain version's torch ops (equal bits)
+        split_same = all(torch.equal(split_weights_on_card(W),
+                                     split_weights(W)) for W in Ws)
+        split_ms = time_ms(lambda: [split_weights_on_card(W) for W in Ws], 50)
+        split_plain_ms = time_ms(lambda: [split_weights(W) for W in Ws], 50)
         B, m, D = x0.shape
         ops = sum(2.0 * B * D * W.shape[1] * m * W.shape[0] for W in Ws)
         nbytes = sum(4.0 * (x0.numel() + xk.numel() + W.numel()
                             + B * W.shape[0] * D) for xk, W in zip(xs, Ws))
-        b_ms, b_by = bound_ms(nbytes, ops)
+        # three TF32 products per multiply-add on the tensor cores
+        b_ms, b_by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
+        fma_ms, _ = bound_ms(nbytes, ops)
 
         def run(backend):
             return lambda: [cin_layer(x0, xk, W, backend=backend)
@@ -506,20 +526,47 @@ def cin_row(model, batch, dev, launches: int) -> dict:
                "plain_ms": time_ms(run("plain"), 10),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": time_ms(library, 10),
+               "fma_bound_ms": fma_ms,
                "shape": f"B={B} m={m} D={D} layers "
                         + "-".join(str(W.shape[1]) for W in Ws)
                         + f"-{Ws[-1].shape[0]}"}
+        del unit, cases
+        xr = torch.randn((N_CAND, m, D), generator=gen, device=dev)
+        w_unit = [torch.randn(W.shape, generator=gen, device=dev)
+                  / math.sqrt(W.shape[1] * W.shape[2]) for W in Ws]
+
+        def retrieval_layers():
+            xk = xr
+            for W in w_unit:
+                xk = cin_layer(xr, xk, W)
+            return xk
+
+        r_ms = time_ms(retrieval_layers, 2)
+        r_ops = ops / B * N_CAND
+        del xr
     for name, es in errs.items():
         print(f"[kernel] cin on {name} inputs, per layer, relative to max "
               f"|out|: kernel vs plain / kernel vs float64 / plain vs "
               f"float64: " + "; ".join(" / ".join(f"{e:.3g}" for e in t)
                                        for t in es))
     print(f"[kernel] cin: the einsum library call vs plain {e_lib:.3g}; "
-          f"{ops / 1e9:.2f} GFLOP, kernel at "
-          f"{ops / row['ms'] / 1e9:.2f} TFLOP/s")
+          f"serve_p99 {ops / 1e9:.2f} GFLOP, kernel at "
+          f"{ops / row['ms'] / 1e9:.2f} TFLOP/s; bounds: 3xTF32 on the "
+          f"tensor cores {b_ms:.4f} ms, float32 FMA {fma_ms:.4f} ms; two "
+          f"calls give equal bits: {same}")
+    print(f"[kernel] cin W split (3 layers, inside the kernel's ms): the "
+          f"cin_split kernel {split_ms:.4f} ms, its plain torch ops "
+          f"{split_plain_ms:.4f} ms; equal bits: {split_same}")
+    print(f"[kernel] cin at retrieval_cand (C={N_CAND:,}, 3 layers, one "
+          f"call each): {r_ms:.3f} ms, {r_ops / 1e12:.2f} TFLOP, kernel at "
+          f"{r_ops / r_ms / 1e9:.2f} TFLOP/s")
     worst = max(t[0] for es in errs.values() for t in es)
     if not worst <= TOL_CIN:
         raise RuntimeError(f"cin disagrees with its plain version: {worst}")
+    if not same:
+        raise RuntimeError("two cin calls on the same inputs differ")
+    if not split_same:
+        raise RuntimeError("cin_split disagrees with split_weights")
     return row
 
 
@@ -921,7 +968,9 @@ def main() -> int:
               f"{k['max_abs_err']:.3g} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} "
               f"({k['bound_by']}) library_ms={k['library_ms']}"
-              + (f" push_ms={k['push_ms']:.4f}" if "push_ms" in k else ""))
+              + (f" push_ms={k['push_ms']:.4f}" if "push_ms" in k else "")
+              + (f" fma_bound_ms={k['fma_bound_ms']:.5f}"
+                 if "fma_bound_ms" in k else ""))
         if k["name"] != "cin" and not k["max_abs_err"] <= TOL_KERNEL:
             raise RuntimeError(f"{k['name']} disagrees with its plain "
                                f"version: {k['max_abs_err']}")
@@ -953,7 +1002,8 @@ def main() -> int:
 
     # ---- 6. output --------------------------------------------------------
     print(json.dumps({"kernels": [{k: v for k, v in kk.items()
-                                   if k not in ("shape", "push_ms")}
+                                   if k not in ("shape", "push_ms",
+                                                "fma_bound_ms")}
                                   for kk in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

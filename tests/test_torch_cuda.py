@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.cin import (cin_forward, cin_forward_reference,
                                      cin_layer, cin_layer_ref)
+from repro_torch.kernels.cin.cin import (depth_split, split_weights,
+                                         split_weights_on_card)
 from repro_torch.kernels.horner_push import (horner_push, horner_steps,
                                              horner_steps_plain)
 from repro_torch.kernels.hp_join import hp_join
@@ -210,10 +212,18 @@ def _cin_case(seed, B, m, h, hp, D):
 
 
 # ragged B (rows B*D not a multiple of the 128-row tile), h, m and h'
-# (not a multiple of the 64-map tile); the last case takes more than
-# 48 KB of shared memory (m = 70)
+# (not a multiple of the 200-map tile); m = 70 the largest x0 slab in
+# shared memory. Then the tensor-core design's edges: K = h*m = 1,521
+# ragged against the 8-deep wgmma step and the 32-deep tile, with a
+# 6-way depth split whose chunk boundaries (multiples of 256 in k) fall
+# inside an `a` of m = 39; h' = 65 not a multiple of 8; B*D = 50 rows,
+# below one warpgroup's 64; h' = 450, three column tiles and a 30-way
+# split; 200,000 rows, enough tiles (1,563) for the persistent grid
 CIN_SHAPES = [(13, 4, 4, 6, 4), (64, 8, 8, 8, 8), (37, 5, 3, 65, 10),
-              (200, 39, 39, 200, 10), (3, 70, 17, 129, 7)]
+              (200, 39, 39, 200, 10), (3, 70, 17, 129, 7),
+              (16, 39, 39, 200, 10), (24, 39, 40, 65, 10),
+              (5, 39, 20, 200, 10), (7, 39, 200, 450, 10),
+              (20_000, 39, 39, 200, 10)]
 
 
 @pytest.mark.cuda
@@ -264,3 +274,31 @@ def test_cin_refuses_tensors_that_record_a_gradient(card):
         cin_layer(x0, xk, W)
     with torch.no_grad():
         assert cin_layer(x0, xk, W).shape == (8, 6, 3)
+
+
+@pytest.mark.cuda
+def test_cin_two_calls_give_the_same_bits_on_card(card):
+    """The depth split's partial sums are added in chunk order, never
+    with atomics: at the serve batch (s = 3) two calls are equal."""
+    x0, xk, W = (torch.as_tensor(a, device=card)
+                 for a in _cin_case(7, 512, 39, 200, 200, 10))
+    assert depth_split(512 * 10, 200, 200 * 39) == 3
+    assert torch.equal(cin_layer(x0, xk, W), cin_layer(x0, xk, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200, 200, 39), (200, 39, 39),
+                                   (65, 5, 3)], ids=str)
+def test_cin_weight_split_on_card(card, shape):
+    """The kernel's split of W: both parts TF32-exact, their sum W to
+    ~2^-22, and the same bits as the plain split on the card."""
+    hp, h, m = shape
+    K = h * m
+    W = torch.as_tensor(_cin_case(1, 1, m, h, hp, 1)[2], device=card)
+    w2 = split_weights_on_card(W)
+    assert torch.equal(w2, split_weights(W))
+    assert not bool((w2.view(torch.int32) & 0x1FFF).any())
+    assert not bool(w2[:, :, K:].any())
+    w = W.reshape(hp, K).double()
+    assert bool(((w2[0, :, :K].double() + w2[1, :, :K].double() - w).abs()
+                 <= 2.0 ** -22 * w.abs()).all())
