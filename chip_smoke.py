@@ -39,7 +39,13 @@ Phases (any failure raises and the script exits non-zero):
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
-     exists (``cin`` at the serve_p99 shapes, on the model's own
+     exists (``spmm`` on every step of one build block and of one push
+     mass-scan block, as the path calls it, with the prune threshold and
+     the live-segment masks: equal bits to the dense kernel, live_out
+     equal to ``segment_live``; timed on the step-3 frontiers masked,
+     dense and through ``torch.sparse.mm``, and as each block's mean per
+     launch, beside the bound of what the frontier needs and the dense
+     bound; ``cin`` at the serve_p99 shapes, on the model's own
      embeddings and on O(1)-scale inputs, relative to max |out|, with
      two calls held to equal bits, its 3xTF32 tensor-core bound and the
      float32-FMA bound beside it, then timed at retrieval_cand's
@@ -693,15 +699,191 @@ def update_phase(g, dev) -> dict:
     return path
 
 
+def spmm_chain(lay, h, tau: float, steps: int, stop: bool) -> list:
+    """The (frontier, live mask) pairs that a block's steps hand ``spmm``,
+    made by the plain version: up to ``steps`` propagations of ``h``,
+    ending early (``stop``, the build's stop test) once nothing exceeds
+    tau."""
+    import torch
+
+    from repro_torch.kernels.spmv_ell import segment_live, spmm_plain
+    out, live = [], segment_live(h, tau)
+    for _ in range(steps):
+        out.append((h, live))
+        nxt = torch.empty_like(live)
+        h = spmm_plain(h, lay, tau=tau, live_out=nxt)
+        live = nxt
+        if stop and not bool(live.any()):
+            break
+    return out
+
+
+def spmm_bytes(lay, x, live) -> tuple[float, float, int]:
+    """What one masked step needs: (bytes, operations, live segments) --
+    128 bytes per live segment of x read once, out written whole, the
+    CSR, the mask words read and written; an FMA per column of each
+    edge's live source segments."""
+    import torch
+    n, F = x.shape
+    bits = (live.unsqueeze(-1) >> torch.arange(32, device=x.device)) & 1
+    per_row = bits.sum(dim=(1, 2))
+    segs = int(per_row.sum())
+    m = lay.in_idx.numel()
+    nbytes = (128 * segs + 4 * n * F + 8 * m + 4 * (n + 1)
+              + 2 * 4 * live.numel())
+    ops = 2 * 32 * int(per_row[lay.in_idx.long()].sum())
+    return nbytes, ops, segs
+
+
+def spmm_row(g, p, dev, nodes, launches: int) -> dict:
+    """``spmm`` on what the main path hands it, at F = BLOCK: every step
+    of one build block (targets 0..BLOCK-1, pull, theta, up to the stop
+    test) and all l_max steps of one push mass-scan block (BLOCK seeds
+    with weights in (0, 1], the update's theta_r of the stale_frac plan).
+    On every step, and on both step-3 frontiers, the kernel as the path
+    calls it (tau and the live mask) must equal the kernel dense on the
+    pruned x bit for bit, fill live_out with ``segment_live`` of its
+    output, and stay within TOL_KERNEL of ``spmm_plain``. Times: the
+    step-3 frontiers masked, dense and through ``torch.sparse.mm``, and
+    each block's mean per launch beside ``torch.sparse.mm`` on the same
+    pruned frontiers. The row's bound is the step-3 pull frontier's data
+    bound (:func:`spmm_bytes`); the dense bound is printed beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import theory
+    from repro_torch.kernels.spmv_ell import (SpmmLayout, segment_live,
+                                              spmm, spmm_plain)
+
+    pull_lay = SpmmLayout.pull(g, p.sqrt_c, dev)
+    push_lay = SpmmLayout.push(g, p.sqrt_c, dev)
+    theta = float(np.float32(p.theta))
+    theta_r = float(np.float32(theory.plan(
+        eps=EPS, c=0.6, n=g.n, stale_frac=STALE_FRAC).theta))
+    h = torch.zeros((g.n, BLOCK), device=dev)
+    h[torch.arange(BLOCK, device=dev), torch.arange(BLOCK, device=dev)] = 1.0
+    build_steps = spmm_chain(pull_lay, h, theta, p.l_max, stop=True)
+    h = torch.zeros((g.n, BLOCK), device=dev)
+    weights = 1.0 - np.random.default_rng(2).random(BLOCK, np.float32)
+    h[torch.as_tensor(nodes[:BLOCK], device=dev),
+      torch.arange(BLOCK, device=dev)] = torch.as_tensor(weights, device=dev)
+    mass_steps = spmm_chain(push_lay, h, theta_r, p.l_max, stop=False)
+    del h
+    blocks = (("build", pull_lay, theta, build_steps),
+              ("mass scan", push_lay, theta_r, mass_steps))
+    out = torch.empty((g.n, BLOCK), device=dev)
+    live_out = torch.empty_like(build_steps[0][1])
+
+    def masked(x, live, lay, tau):
+        return spmm(x, lay, out, tau=tau, live=live, live_out=live_out)
+
+    # checks, step by step
+    err = 0.0
+    for name, lay, tau, steps in blocks:
+        for i, (x, live) in enumerate(steps):
+            got = masked(x, live, lay, tau).clone()
+            same_mask = torch.equal(live_out, segment_live(got, tau))
+            dense = spmm(torch.where(x > tau, x, 0.0), lay)
+            e = float((got - spmm_plain(x, lay, tau=tau)).abs().max())
+            err = max(err, e)
+            if not torch.equal(got, dense) or not same_mask or \
+                    not e <= TOL_KERNEL:
+                raise RuntimeError(
+                    f"spmm {name} step {i}: masked equals dense "
+                    f"{torch.equal(got, dense)}, live_out equals "
+                    f"segment_live {same_mask}, vs plain {e}")
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = {id(lay): torch.sparse_csr_tensor(
+            lay.in_ptr.long(), lay.in_idx.long(), lay.w, size=(g.n, g.n),
+            check_invariants=False) for lay in (pull_lay, push_lay)}
+    # the step-3 frontiers
+    t3 = {}
+    for name, lay, tau, steps in blocks:
+        x, live = steps[3]
+        xp = torch.where(x > tau, x, 0.0)
+        nb, ops, segs = spmm_bytes(lay, x, live)
+        t3[name] = {
+            "masked": time_ms(lambda: masked(x, live, lay, tau), 200),
+            "dense": time_ms(lambda: spmm(xp, lay, out), 200),
+            "library": time_ms(lambda: torch.sparse.mm(csr[id(lay)], xp),
+                               200),
+            "plain": time_ms(lambda: spmm_plain(
+                x, lay, tau=tau, live_out=live_out), 20),
+            "bound": bound_ms(nb, ops), "segs": segs,
+            "nnz": int((xp > 0).sum())}
+    # the path's mean per launch, one block of each kind
+    means = {}
+    for name, lay, tau, steps in blocks:
+        pruned = [torch.where(x > tau, x, 0.0) for x, _ in steps]
+        k_ms = time_ms(lambda: [masked(x, live, lay, tau)
+                                for x, live in steps], 20) / len(steps)
+        l_ms = time_ms(lambda: [torch.sparse.mm(csr[id(lay)], xp)
+                                for xp in pruned], 20) / len(steps)
+        need = [spmm_bytes(lay, x, live) for x, live in steps]
+        b_mean = sum(bound_ms(nb, ops)[0] for nb, ops, _ in need) / len(need)
+        segs = [sg for _, _, sg in need]
+        means[name] = (k_ms, l_ms)
+        print(f"[kernel] spmm {name} block ({len(steps)} launches, theta "
+              f"{tau:.6g}): mean per launch masked {k_ms:.4f} ms, "
+              f"torch.sparse.mm {l_ms:.4f} ms; mean data bound "
+              f"{b_mean:.5f} ms; live segments per step {segs} of "
+              f"{g.n * BLOCK // 32}")
+        del pruned
+    s_bytes = 4 * 2 * g.n * BLOCK + 8 * g.m + 4 * (g.n + 1) + 4 * g.n
+    dense_ms, _ = bound_ms(s_bytes, 2 * g.m * BLOCK)
+    for name, t in t3.items():
+        print(f"[kernel] spmm {name} step-3 frontier: masked {t['masked']:.4f}"
+              f" ms, dense {t['dense']:.4f} ms, torch.sparse.mm "
+              f"{t['library']:.4f} ms, plain {t['plain']:.4f} ms; data "
+              f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}; "
+              f"{t['segs']} live segments, {t['nnz']} nonzeros after the "
+              f"prune), dense bound {dense_ms:.5f} ms")
+    pull, build = t3["build"], means["build"]
+    print(f"[kernel] spmm: the row's bound_ms is the step-3 pull frontier's "
+          f"data bound; faster than torch.sparse.mm on the step-3 pull "
+          f"frontier: {pull['masked'] < pull['library']}, as a mean over "
+          f"the build block: {build[0] < build[1]}")
+    return {"name": "spmm", "route": "cuda",
+            "source": "src/repro_torch/csrc/spmm.cu",
+            "replaces": "src/repro/kernels/spmv_ell/spmv_ell.py:47",
+            "launches": launches, "max_abs_err": err,
+            "ms": pull["masked"], "plain_ms": pull["plain"],
+            "bound_ms": pull["bound"][0], "bound_by": pull["bound"][1],
+            "library_ms": pull["library"],
+            "shape": f"n={g.n} m={g.m} F={BLOCK}, step-3 pull frontier"}
+
+
+def profile_build(g, p, dev, blocks: int = 4) -> None:
+    """Trace ``blocks`` blocks of the Enron build loop (Alg 2 with the
+    masked ``spmm``, the prune, the extraction and the stop test)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import hp_index
+    from repro_torch.kernels.spmv_ell import SpmmLayout
+    lay = SpmmLayout.pull(g, p.sqrt_c, dev)
+    theta = float(np.float32(p.theta))
+
+    def run():
+        for b0 in range(0, blocks * BLOCK, BLOCK):
+            tid = torch.arange(b0, b0 + BLOCK, device=dev)
+            h = torch.zeros((g.n, BLOCK), device=dev)
+            h[tid, tid - b0] = 1.0
+            hp_index._propagate_block_coo(h, lay, theta, p.l_max, tid)
+    run()                                               # warm
+    trace(f"{blocks} Enron build blocks of {BLOCK} targets", run)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="Enron",
                     help="Table-3 regime of generators.paper_scale")
     ap.add_argument("--profile", action="store_true",
                     help="after the main path and in phase 3c, trace "
-                         "a few more serve batches (and one retrieval) "
-                         "with torch.profiler and print the tables by "
-                         "device and by CPU time")
+                         "a few more serve batches, four Enron build "
+                         "blocks (and one retrieval) with torch.profiler "
+                         "and print the tables by device and by CPU time")
     args = ap.parse_args()
 
     import torch
@@ -722,7 +904,7 @@ def main() -> int:
     from repro_torch.kernels.horner_push import (horner_push, horner_steps,
                                                  horner_steps_plain)
     from repro_torch.kernels.hp_join import hp_join, hp_join_plain
-    from repro_torch.kernels.spmv_ell import SpmmLayout, spmm, spmm_plain
+    from repro_torch.kernels.spmv_ell import spmm
     from repro_torch.serve import EngineConfig, QueryEngine
 
     # fp32 products stay fp32 (no TF32) everywhere in this script
@@ -811,6 +993,7 @@ def main() -> int:
 
     if args.profile:
         profile_serving(eng, nodes[640:704].astype(np.int32))
+        profile_build(g, p, dev)
 
     plain = QueryEngine(idx, g, EngineConfig(pair_backend="join",
                                              push_backend="plain"),
@@ -880,7 +1063,10 @@ def main() -> int:
     e_push = float((push(horner_steps) - push(horner_steps_plain)).abs().max())
     B = ku.shape[0]
     live_rows = int(cnt[sq].sum())
-    h_bytes = (12 * live_rows + 4 * (g.n + 1) + 8 * g.m + 4 * g.n * B)
+    # each of the L + 1 steps reads the CSR and its (n, B) frontier and
+    # writes its (n, B) output; the packed rows are read once
+    h_bytes = ((L + 1) * (8 * g.m + 4 * (g.n + 1) + 2 * 4 * g.n * B)
+               + 12 * live_rows)
     h_ops = 2 * (L + 1) * g.m * B
     b_ms, b_by = bound_ms(h_bytes, h_ops)
     with warnings.catch_warnings():   # "sparse CSR support is in beta"
@@ -907,60 +1093,7 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library, 20),
         "shape": f"B={B} W={K} n={g.n} m={g.m} steps={L + 1}"})
-    # spmm at the build's shape, on what the main path gives it: the
-    # build's pruned frontier of targets 0..BLOCK-1 at step 3 (pull), and
-    # a mass scan's frontier of BLOCK seeds with weights in (0, 1] at step
-    # 3 (push, the transposed layout)
-    pull_lay = SpmmLayout.pull(g, p.sqrt_c, dev)
-    push_lay = SpmmLayout.push(g, p.sqrt_c, dev)
-
-    def frontier(lay, seeds, weights, steps=3):
-        h = torch.zeros((g.n, BLOCK), device=dev)
-        h[seeds, torch.arange(BLOCK, device=dev)] = weights
-        for _ in range(steps + 1):
-            x = torch.where(h > p.theta, h, 0.0)
-            h = spmm_plain(x, lay)
-        return x
-
-    xs = frontier(pull_lay, torch.arange(BLOCK, device=dev), 1.0)
-    xp = frontier(push_lay, torch.as_tensor(nodes[:BLOCK], device=dev),
-                  1.0 - torch.rand(BLOCK, device=dev))
-    e_spmm = max(float((spmm(x, lay) - spmm_plain(x, lay)).abs().max())
-                 for x, lay in ((xs, pull_lay), (xp, push_lay)))
-    # beside it, a uniform slab (push sums reach ~1e2 on the hubs): the
-    # kernel's and the plain version's error against float64, relative
-    # to the largest output
-    xr = torch.rand((g.n, BLOCK), device=dev)
-    for name, lay in (("pull", pull_lay), ("push", push_lay)):
-        ref64 = spmm_plain(xr.double(), lay)
-        scale = float(ref64.abs().max())
-        rel_k, rel_p = (float((y - ref64).abs().max()) / scale for y in
-                        (spmm(xr, lay), spmm_plain(xr, lay)))
-        print(f"[kernel] spmm {name}, uniform slab vs float64: kernel "
-              f"{rel_k:.3g}, plain {rel_p:.3g} (relative to max |out| = "
-              f"{scale:.4g}); frontier nonzeros pull {int((xs > 0).sum())} "
-              f"push {int((xp > 0).sum())}")
-    del xr, ref64
-    s_bytes = (4 * 2 * g.n * BLOCK + 8 * g.m + 4 * (g.n + 1) + 4 * g.n)
-    b_ms, b_by = bound_ms(s_bytes, 2 * g.m * BLOCK)
-    with warnings.catch_warnings():   # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        pull_csr = torch.sparse_csr_tensor(
-            pull_lay.in_ptr.long(), pull_lay.in_idx.long(), pull_lay.w,
-            size=(g.n, g.n), check_invariants=False)
-    spmm_out = torch.empty_like(xs)
-    kernels.append({
-        "name": "spmm", "route": "cuda",
-        "source": "src/repro_torch/csrc/spmm.cu",
-        "replaces": "src/repro/kernels/spmv_ell/spmv_ell.py:47",
-        "launches": total["spmm"], "max_abs_err": e_spmm,
-        "ms": time_ms(lambda: spmm(xs, pull_lay, out=spmm_out), 100),
-        "plain_ms": time_ms(lambda: spmm_plain(xs, pull_lay), 20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: torch.sparse.mm(pull_csr, xs), 100),
-        "shape": f"n={g.n} m={g.m} F={BLOCK}",
-        "push_ms": time_ms(lambda: spmm(xp, push_lay, out=spmm_out), 100)})
-    del xs, xp, spmm_out, pull_csr
+    kernels.append(spmm_row(g, p, dev, nodes, total["spmm"]))
     kernels.append(cin_row(model, serve_batch, dev, total["cin"]))
     del model
     for k in kernels:
@@ -968,7 +1101,6 @@ def main() -> int:
               f"{k['max_abs_err']:.3g} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} "
               f"({k['bound_by']}) library_ms={k['library_ms']}"
-              + (f" push_ms={k['push_ms']:.4f}" if "push_ms" in k else "")
               + (f" fma_bound_ms={k['fma_bound_ms']:.5f}"
                  if "fma_bound_ms" in k else ""))
         if k["name"] != "cin" and not k["max_abs_err"] <= TOL_KERNEL:
@@ -1002,8 +1134,7 @@ def main() -> int:
 
     # ---- 6. output --------------------------------------------------------
     print(json.dumps({"kernels": [{k: v for k, v in kk.items()
-                                   if k not in ("shape", "push_ms",
-                                                "fma_bound_ms")}
+                                   if k not in ("shape", "fma_bound_ms")}
                                   for kk in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,11 @@ entries at step l are the elements of H(.) with key l*n + k.
 
 Every application of Â goes through ``kernels.spmv_ell.spmm``: the
 Hopper kernel for CUDA tensors, ``spmm_plain`` (a fixed-order
-``segment_reduce`` over the CSR) for CPU tensors. Both sum each output
+``segment_reduce`` over the CSR) for CPU tensors. Each step hands it the
+raw frontier with the prune threshold and the frontier's mask of live
+32-column segments, and takes back the next frontier and its mask, so
+the kernel reads only segments that hold an entry above theta, and the
+build's stop test reads the mask. Both versions sum each output
 in an order that depends only on its row, never with atomics, so a
 column propagated inside any block of columns gives the same values --
 which is what lets ``repair_hp_rows`` reproduce a fresh build's
@@ -32,7 +36,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graph import csr
-from repro_torch.kernels.spmv_ell import SpmmLayout, spmm
+from repro_torch.kernels.spmv_ell import SpmmLayout, segment_live, spmm
 
 INT32_PAD_KEY = 2**31 - 1
 
@@ -88,9 +92,9 @@ def _propagate_block_coo(h: torch.Tensor, layout: SpmmLayout, theta: float,
     n = layout.n
     srcs, keys, vals = [], [], []
     nb = len(target_ids)
+    live = segment_live(h, theta)
     for l in range(l_max + 1):
-        hp = torch.where(h > theta, h, 0.0)
-        kept = hp[:, :nb]
+        kept = torch.where(h[:, :nb] > theta, h[:, :nb], 0.0)
         if row_mask is not None:
             kept = torch.where(row_mask[:, None], kept, 0.0)
         i_idx, b_idx = torch.nonzero(kept, as_tuple=True)
@@ -99,8 +103,12 @@ def _propagate_block_coo(h: torch.Tensor, layout: SpmmLayout, theta: float,
         vals.append(kept[i_idx, b_idx])
         if l == l_max:
             break
-        h = spmm(hp, layout)
-        if not bool((h > theta).any()):
+        # Â prune(h) and the live mask of the result: the kernel reads
+        # only the segments that ``live`` marks
+        live_out = torch.empty_like(live)
+        h = spmm(h, layout, tau=theta, live=live, live_out=live_out)
+        live = live_out
+        if not bool(live.any()):      # no entry of h exceeds theta
             break
     return torch.cat(srcs), torch.cat(keys), torch.cat(vals)
 
@@ -156,6 +164,7 @@ def propagation_mass(g: csr.Graph, seeds, sqrt_c: float, theta_r: float,
         sub = seeds[b0:b0 + block]
         wsub = None if weights is None else weights[b0:b0 + block]
         h = _one_hot_block(n, sub, block, dev, weights=wsub)
+        live = segment_live(h, theta32)
         acc = torch.zeros_like(h)
         skip = torch.zeros_like(h)
         for l in range(l_max + 1):
@@ -163,7 +172,9 @@ def propagation_mass(g: csr.Graph, seeds, sqrt_c: float, theta_r: float,
             acc += hp
             skip += h - hp
             if l < l_max:       # the last step's propagation is unused
-                h = spmm(hp, lay)
+                live_out = torch.empty_like(live)
+                h = spmm(h, lay, tau=theta32, live=live, live_out=live_out)
+                live = live_out
         colmax = torch.maximum(colmax, acc.max(dim=1).values.double())
         total += acc.double().sum(dim=1)
         skipped += skip.double().sum(dim=1)

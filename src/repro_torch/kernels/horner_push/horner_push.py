@@ -65,27 +65,24 @@ def horner_steps_plain(acc, spare, layout, keys, contrib, l_max: int,
 
 
 def _check(x, out, layout, keys, contrib) -> None:
+    """The per-call arguments against the layout (whose own arrays
+    :class:`SpmmLayout` checked when it was made)."""
     n, B = x.shape
-    lay = (layout.in_ptr, layout.in_idx, layout.w, layout.heavy,
-           layout.light)
     if out.shape != (n, B) or layout.n != n or \
-            layout.in_ptr.shape != (n + 1,) or \
-            layout.w.shape != layout.in_idx.shape or \
-            layout.heavy.numel() + layout.light.numel() != n or \
             keys.dim() != 2 or keys.shape[0] != B or \
             contrib.shape != keys.shape:
         raise ValueError(
             f"horner_steps shapes: x {tuple(x.shape)} out "
             f"{tuple(out.shape)} layout n={layout.n} keys "
             f"{tuple(keys.shape)} contrib {tuple(contrib.shape)}")
-    if any(t.dtype != torch.float32 for t in (x, out, layout.w, contrib)) \
-            or any(t.dtype != torch.int32 for t in lay[:2] + lay[3:]) \
+    if any(t.dtype != torch.float32 for t in (x, out, contrib)) \
             or keys.dtype != torch.int32:
-        raise TypeError("horner_steps takes float32 x/out/w/contrib and "
-                        "int32 keys and layout indices")
-    ts = (x, out, keys, contrib) + lay
-    if len({t.device for t in ts}) != 1:
-        raise ValueError("horner_steps arguments must share one device")
+        raise TypeError("horner_steps takes float32 x/out/contrib and "
+                        "int32 keys")
+    ts = (x, out, keys, contrib)
+    if any(t.device != layout.device for t in ts):
+        raise ValueError("horner_steps arguments must share the layout's "
+                         "device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("horner_steps arguments must be contiguous")
 

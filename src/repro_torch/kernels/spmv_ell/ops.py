@@ -40,6 +40,27 @@ class SpmmLayout:
     heavy: torch.Tensor    # int32 ids with in-degree > HEAVY_DEGREE
     light: torch.Tensor    # int32 ids of the other rows
 
+    def __post_init__(self):
+        """Check the arrays once, here, so that a kernel wrapper called
+        every step checks only its own arguments against ``n`` and the
+        layout's device."""
+        ts = (self.in_ptr, self.in_idx, self.w, self.heavy, self.light)
+        if self.in_ptr.shape != (self.n + 1,) or \
+                self.w.shape != self.in_idx.shape or \
+                self.heavy.numel() + self.light.numel() != self.n:
+            raise ValueError(f"SpmmLayout shapes do not fit n={self.n}")
+        if self.w.dtype != torch.float32 or any(
+                t.dtype != torch.int32 for t in ts if t is not self.w):
+            raise TypeError("SpmmLayout takes float32 w and int32 indices")
+        if len({t.device for t in ts}) != 1 or \
+                not all(t.is_contiguous() for t in ts):
+            raise ValueError("SpmmLayout arrays must be contiguous on one "
+                             "device")
+
+    @property
+    def device(self) -> torch.device:
+        return self.in_ptr.device
+
     @staticmethod
     def from_edges(src, dst, w, n: int, device) -> "SpmmLayout":
         """Any edge list (input row src -> output row dst, weight w):

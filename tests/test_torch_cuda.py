@@ -19,8 +19,8 @@ from repro_torch.kernels.cin.cin import (depth_split, split_weights,
 from repro_torch.kernels.horner_push import (horner_push, horner_steps,
                                              horner_steps_plain)
 from repro_torch.kernels.hp_join import hp_join
-from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout, spmm,
-                                          spmm_plain)
+from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout,
+                                          segment_live, spmm, spmm_plain)
 from torch_cases import JOIN_CASES, join_rows, port_join, port_push, \
     rand_case
 
@@ -185,6 +185,89 @@ def test_repair_on_card_equals_fresh_build(card):
     c = int(fresh.hp.counts.max())
     assert torch.equal(idx.hp.keys[:, :c], fresh.hp.keys[:, :c])
     assert torch.equal(idx.hp.vals[:, :c], fresh.hp.vals[:, :c])
+
+
+def _masked_step(x, lay, tau):
+    """One masked step as the build takes it, held against the dense
+    kernel on the pruned x (equal bits), the plain version (ATOL) and
+    segment_live (equal masks). Returns the output."""
+    live = segment_live(x, tau)
+    live_out = torch.full_like(live, -1)
+    before = spmm.launches
+    got = spmm(x, lay, tau=tau, live=live, live_out=live_out)
+    torch.cuda.synchronize()
+    assert spmm.launches == before + 1
+    dense = spmm(torch.where(x > tau, x, 0.0), lay)
+    assert torch.equal(got, dense)
+    assert torch.equal(got, spmm(x, lay, tau=tau))      # no mask
+    assert torch.equal(live_out, segment_live(got, tau))
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               spmm_plain(x, lay, tau=tau).cpu().numpy(),
+                               atol=ATOL, rtol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 16, 256, 257, 1100])
+@pytest.mark.parametrize("n", [300, 1001])
+def test_spmm_masked_equals_dense_on_sparse_slabs_on_card(card, n, f):
+    """Slabs with ~10% of entries above tau, both layouts (hub rows in
+    both directions), F = 1100 with two mask words a row; F = 16, 256
+    and 1100 also from a slab that is not 16-byte aligned (the scalar
+    path), with equal bits."""
+    src, dst, w, x = _spmm_case(n + f, n, f)
+    x = np.abs(x) * (np.random.default_rng(f).random(x.shape) < 0.1)
+    tau = 0.5
+    for a, b in ((src, dst), (dst, src)):
+        lay = SpmmLayout.from_edges(a, b, w, n, card)
+        xt = torch.as_tensor(x, dtype=torch.float32, device=card)
+        got = _masked_step(xt, lay, tau)
+        if f % 4 == 0:
+            odd = torch.empty(n * f + 1, device=card)[1:].view(n, f)
+            odd.copy_(xt)
+            assert odd.data_ptr() % 16 != 0
+            assert torch.equal(_masked_step(odd, lay, tau), got)
+
+
+@pytest.mark.cuda
+def test_spmm_masked_build_frontiers_on_card(card):
+    """Every step of a pruned build block (256 targets on a power-law
+    graph with hubs) until the stop test: masked == dense bit for bit,
+    live_out == segment_live, within ATOL of the plain version."""
+    from repro_torch.graph import generators
+    g = generators.barabasi_albert(3000, 4, seed=5, directed=True)
+    lay = SpmmLayout.pull(g, 0.6 ** 0.5, card)
+    assert lay.heavy.numel() >= 1
+    tau = float(np.float32(2e-3))
+    h = torch.zeros((g.n, 256), device=card)
+    h[torch.arange(256), torch.arange(256)] = 1.0
+    steps = 0
+    while bool((h > tau).any()) and steps < 30:
+        h = _masked_step(h, lay, tau)
+        steps += 1
+    assert steps >= 3
+
+
+@pytest.mark.cuda
+def test_spmm_masked_column_is_bit_exact_in_any_block_on_card(card):
+    """A column propagated alone through three masked steps equals the
+    same column inside the block (F = 256 vector path vs F = 1 scalar
+    path) bit for bit."""
+    src, dst, w, x = _spmm_case(5, 700, 256)
+    lay = SpmmLayout.from_edges(src, dst, w, 700, card)
+    tau = 0.05
+    wide = torch.as_tensor(np.abs(x), device=card)
+    cols = {j: wide[:, j:j + 1].contiguous() for j in (0, 31, 32, 200, 255)}
+    for _ in range(3):
+        live = segment_live(wide, tau)
+        wide = spmm(wide, lay, tau=tau, live=live,
+                    live_out=torch.empty_like(live))
+        for j, c in cols.items():
+            lc = segment_live(c, tau)
+            cols[j] = spmm(c, lay, tau=tau, live=lc,
+                           live_out=torch.empty_like(lc))
+            assert torch.equal(cols[j][:, 0], wide[:, j])
+    assert bool((wide > tau).any())
 
 
 @pytest.mark.cuda
