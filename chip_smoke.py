@@ -39,7 +39,17 @@ Phases (any failure raises and the script exits non-zero):
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
-     exists (``spmm`` on every step of one build block and of one push
+     exists (``hp_join`` at B = 256 pairs by the profiler's device time,
+     with two calls held to equal bits and ``launch_floor_ms``, a
+     one-element ``add_``, beside it; ``horner_push`` at B = 8 and 16:
+     the whole push from the row ids on the card to the (B, n) result,
+     the kernel's device time, the allocations before its one launch,
+     the levels it runs, two pushes held to equal bits, the bound
+     (inputs read once, the result written once) and the bytes streamed
+     through the levels run, ``torch.sparse.mm`` over all l_max + 1
+     levels, and the kernel's time on cut inputs -- no edges, level-0
+     keys only -- to split it per level;
+     ``spmm`` on every step of one build block and of one push
      mass-scan block, as the path calls it, with the prune threshold and
      the live-segment masks: equal bits to the dense kernel, live_out
      equal to ``segment_live``; timed on the step-3 frontiers masked,
@@ -88,6 +98,10 @@ N_CAND = 1_000_000     # retrieval_cand (launch/specs.py RECSYS_SHAPE_DEFS)
 N_CHECK = 4_096        # candidates recomputed on the plain CIN
 CLICK_GRAPH = (10_000, 30_000, 150_000)   # users, items, clicks
 N_PRIOR_USERS = 8
+# a kernel row's keys beyond the contract's, printed beside it
+ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
+              "steps", "levels_run", "push_ms", "alloc_ms",
+              "streamed_bound_ms", "b16", "parts")
 
 
 def card_line() -> str:
@@ -250,7 +264,7 @@ def xdeepfm_phase(dev, cfg=None, n_cand: int = N_CAND,
     from repro_torch.device import synchronize
     from repro_torch.graph import generators
     from repro_torch.kernels.cin import cin_layer
-    from repro_torch.kernels.horner_push import horner_steps
+    from repro_torch.kernels.horner_push import horner_push_rows
     from repro_torch.kernels.spmv_ell import HEAVY_DEGREE, spmm
     from repro_torch.launch.specs import RECSYS_SHAPE_DEFS, \
         recsys_model_flops
@@ -258,16 +272,20 @@ def xdeepfm_phase(dev, cfg=None, n_cand: int = N_CAND,
     from repro_torch.train.steps import recsys_retrieval_step, \
         recsys_serve_step
 
-    kernels = {"cin": cin_layer, "horner_push": horner_steps, "spmm": spmm}
+    kernels = {"cin": cin_layer, "horner_push": horner_push_rows,
+               "spmm": spmm}
     path = {k: 0 for k in kernels}
+    path["horner_push_steps"] = 0
 
     def zero():
         for kern in kernels.values():
             kern.launches = 0
+        horner_push_rows.steps = 0
 
     def read():
         for k, kern in kernels.items():
             path[k] += kern.launches
+        path["horner_push_steps"] += horner_push_rows.steps
 
     clock = _Clock(dev)
     cfg = cfg or xdeepfm.full()
@@ -591,12 +609,12 @@ def update_phase(g, dev) -> dict:
 
     from repro_torch.core import build, update
     from repro_torch.graph import csr
-    from repro_torch.kernels.horner_push import horner_steps
+    from repro_torch.kernels.horner_push import horner_push_rows
     from repro_torch.kernels.hp_join import hp_join
     from repro_torch.kernels.spmv_ell import spmm
     from repro_torch.serve import EngineConfig, QueryEngine
 
-    kernels = {"hp_join": hp_join, "horner_push": horner_steps,
+    kernels = {"hp_join": hp_join, "horner_push": horner_push_rows,
                "spmm": spmm}
     t0 = time.perf_counter()
     idx = build.build_index(g, eps=EPS, c=0.6, seed=1, block=BLOCK,
@@ -611,9 +629,11 @@ def update_phase(g, dev) -> dict:
     shapes = eng.stats()["unique_shapes"]
     rng = np.random.default_rng(1)
     path, g_cur = {k: 0 for k in kernels}, g
+    path["horner_push_steps"] = 0
     for i, churn in enumerate(CHURN):
         for kern in kernels.values():
             kern.launches = 0
+        horner_push_rows.steps = 0
         q = rng.permutation(g.n)[:128].astype(np.int32)
         eng.pairs(q[:64], q[64:])               # fill the cache
         eng.single_source(q[:8])
@@ -647,6 +667,7 @@ def update_phase(g, dev) -> dict:
         st = eng.stats()
         for k, kern in kernels.items():
             path[k] += kern.launches
+        path["horner_push_steps"] += horner_push_rows.steps
         secs = " ".join(f"{k}={v:.3f}s" for k, v in rep.secs.items())
         print(f"[update {i}] churn {churn:.1%}: |delta|={len(delta)} "
               f"|touched|={len(rep.touched)} |R|={rep.rows_repaired} "
@@ -854,6 +875,295 @@ def spmm_row(g, p, dev, nodes, launches: int) -> dict:
             "shape": f"n={g.n} m={g.m} F={BLOCK}, step-3 pull frontier"}
 
 
+def device_ms(fn, key: str, reps: int) -> float:
+    """Mean device milliseconds per call of the kernels whose name holds
+    ``key`` in ``reps`` calls of ``fn``, from torch.profiler's device
+    activity: the kernel alone, where back-to-back CUDA events would
+    time the host's dispatch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(r.self_device_time_total for r in prof.key_averages()
+             if r.device_type == DeviceType.CUDA and key in r.key)
+    if us <= 0:
+        raise RuntimeError(f"the profiler saw no device time for {key}")
+    return us / reps / 1e3
+
+
+def launch_floor(dev) -> tuple[float, float]:
+    """A yardstick that the port does not call: a one-element in-place
+    ``add_`` back to back, by CUDA events over 1,000 calls (what the
+    host's dispatch allows) and by the profiler (the kernel alone)."""
+    import torch
+    x = torch.zeros(1, device=dev)
+    return (time_ms(lambda: x.add_(1.0), 1000),
+            device_ms(lambda: x.add_(1.0), "elementwise", 200))
+
+
+def hp_join_row(eng, idx, pair_u, pair_v, launches: int) -> dict:
+    """``hp_join`` at the engine's pair shapes (B = 256 pairs, K = the
+    width bucket) against its plain version, with two calls held to
+    equal bits. ``ms`` is the kernel's device time (profiler); the
+    wrapper's back-to-back time and the launch floor are beside it. The
+    bound counts the live entries of both rows of each pair, read once,
+    and the ids and scores."""
+    import torch
+
+    from repro_torch.kernels.hp_join import hp_join, hp_join_plain
+    dev = eng.device
+    K = eng._width_cap
+    us = torch.as_tensor(pair_u, device=dev)
+    vs = torch.as_tensor(pair_v, device=dev)
+    fk, fv = eng._folded_keys, eng._folded_vals
+    got = hp_join(fk, fv, us, vs)
+    e_join = float((got - hp_join_plain(fk, fv, us, vs)).abs().max())
+    if not torch.equal(got, hp_join(fk, fv, us, vs)):
+        raise RuntimeError("two hp_join calls on the same inputs differ")
+    cnt = idx.hp.counts.long()
+    live = int(cnt[us.long()].sum() + cnt[vs.long()].sum())
+    j_bytes = 8 * live + 4 * 3 * len(us)
+    j_ops = 2 * int(cnt[us.long()].sum()) * (math.log2(K) + 1)
+    b_ms, b_by = bound_ms(j_bytes, j_ops)
+    floor_ms, floor_dev_ms = launch_floor(dev)
+    row = {"name": "hp_join", "route": "cuda",
+           "source": "src/repro_torch/csrc/hp_join.cu",
+           "replaces": "src/repro/kernels/hp_join/hp_join.py:42",
+           "launches": launches, "max_abs_err": e_join,
+           "ms": device_ms(lambda: hp_join(fk, fv, us, vs),
+                           "hp_join_kernel", 200),
+           "plain_ms": time_ms(lambda: hp_join_plain(fk, fv, us, vs), 20),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "call_ms": time_ms(lambda: hp_join(fk, fv, us, vs), 200),
+           "launch_floor_ms": floor_ms,
+           "launch_floor_device_ms": floor_dev_ms,
+           "shape": f"B={len(us)} K={K}"}
+    print(f"[kernel] hp_join B={len(us)} K={K}: one block a pair; kernel "
+          f"{row['ms']:.4f} ms (device time); call {row['call_ms']:.4f} ms "
+          f"(CUDA events, back to back); launch_floor_ms "
+          f"{floor_ms:.4f} (device {floor_dev_ms:.4f}); plain "
+          f"{row['plain_ms']:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
+          f"max_abs_err {e_join:.3g}; two calls equal bits")
+    return row
+
+
+def push_inputs(eng):
+    """The engine's push inputs: the padded table, d, Â's layout, tau."""
+    return eng._keys, eng._vals, eng._d, eng._layout, eng._tau
+
+
+def horner_push_case(g, p, eng, sources) -> dict:
+    """``horner_push`` on the engine's packed table for the rows
+    ``sources`` (one batch) against the plain push on the card: error,
+    equal bits from two pushes, the levels the kernel runs (from the
+    plain level runs, outside the timed calls), and times: the whole
+    push from the row ids on the card to the (B, n) result (CUDA events,
+    back to back), the kernel alone (device time), the allocations that
+    precede its launch, the plain push and ``torch.sparse.mm`` for all
+    l_max + 1 levels. The bound counts each input byte once and the
+    result once; ``streamed_bound_ms`` counts what the levels that ran
+    stream: the CSR and a frontier read and written a level."""
+    import torch
+
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 horner_push_rows_plain,
+                                                 level_runs_plain,
+                                                 workspace_numel)
+    keys, vals, d, lay, tau = push_inputs(eng)
+    dev = keys.device
+    n, L = g.n, p.l_max
+    us = torch.as_tensor(sources, dtype=torch.long, device=dev)
+    B = len(us)
+
+    def push():
+        return horner_push_rows(keys, vals, d, us, lay, tau, l_max=L)
+
+    def plain():
+        return horner_push_rows_plain(keys, vals, d, us, lay, tau, l_max=L)
+
+    got = push()
+    err = float((got - plain()).abs().max())
+    if not torch.equal(got, push()):
+        raise RuntimeError(f"two pushes of B={B} on the same inputs differ")
+    levels_run = max(int(level_runs_plain(keys[us], n, L)[1].max()), 0) + 1
+
+    def allocations():
+        return (torch.empty((B, n), dtype=torch.float32, device=dev),
+                torch.empty(workspace_numel(n, B, L), dtype=torch.float32,
+                            device=dev))
+
+    reps = 1000
+    allocations()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        allocations()
+    alloc_ms = (time.perf_counter() - t0) / reps * 1e3
+    live = int(eng.index.hp.counts.long()[us].sum())
+    csr_bytes = 8 * g.m + 4 * (n + 1)
+    # inputs once: the ids, the live entries of the B rows (key, value
+    # and d_k), the CSR; the (B, n) result once
+    in_out = 8 * B + 12 * live + csr_bytes + 4 * n * B
+    ops = 2 * levels_run * g.m * B
+    b_ms, b_by = bound_ms(in_out, ops)
+    streamed, _ = bound_ms(levels_run * (csr_bytes + 2 * 4 * n * B)
+                           + 12 * live, ops)
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        a_csr = torch.sparse_csr_tensor(lay.in_ptr.long(),
+                                        lay.in_idx.long(), lay.w,
+                                        size=(n, n), check_invariants=False)
+    x = torch.rand((n, B), device=dev)
+
+    def library():
+        y = x
+        for _ in range(L + 1):
+            y = torch.sparse.mm(a_csr, y)
+        return y
+
+    return {"B": B, "max_abs_err": err, "levels_run": levels_run,
+            "ms": device_ms(push, "horner_push_kernel", 50),
+            "push_ms": time_ms(push, 50), "alloc_ms": alloc_ms,
+            "plain_ms": time_ms(plain, 10), "bound_ms": b_ms,
+            "bound_by": b_by, "streamed_bound_ms": streamed,
+            "library_ms": time_ms(library, 20),
+            "parts": horner_push_parts(g, p, eng, us)}
+
+
+def horner_push_parts(g, p, eng, us) -> dict:
+    """Where the kernel's time goes, timed in this call (device time per
+    push) on the same B rows: over the graph with no edge (the launch,
+    the prologue, the barriers, the seeds and the units' bookkeeping),
+    and over the rows cut to their level-0 keys (one level: the launch,
+    the prologue and a level of seeds alone)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hp_index import INT32_PAD_KEY
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 level_runs_plain)
+    from repro_torch.kernels.spmv_ell import SpmmLayout
+    keys, vals, d, lay, tau = push_inputs(eng)
+    dev = keys.device
+    n, L = g.n, p.l_max
+    none = np.zeros(0, np.int64)
+    bare = SpmmLayout.from_edges(none, none, none, n, dev)
+    rows_k, rows_v = keys[us].contiguous(), vals[us].contiguous()
+    k0 = torch.where(rows_k < n, rows_k, INT32_PAD_KEY)   # still sorted
+    ids = torch.arange(len(us), device=dev)
+    out = {}
+    for name, lay_x in (("all edges", lay), ("no edges", bare)):
+        out[name] = device_ms(lambda: horner_push_rows(
+            keys, vals, d, us, lay_x, tau, l_max=L), "horner_push_kernel", 50)
+    out["level 0 only"] = device_ms(lambda: horner_push_rows(
+        k0, rows_v, d, ids, lay, tau, l_max=L), "horner_push_kernel", 50)
+    runs = max(int(level_runs_plain(rows_k, n, L)[1].max()), 1)
+    per = {"bookkeeping, seeds and barrier":
+           (out["no edges"] - out["level 0 only"]) / runs,
+           "in-edges": (out["all edges"] - out["no edges"]) / runs}
+    print(f"[kernel] horner_push B={len(us)} parts (device ms a push): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+          + "; per level after the first: "
+          + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in per.items()))
+    return {**out, **{f"per level: {k} (us)": v * 1e3
+                      for k, v in per.items()}}
+
+
+def horner_row(g, p, eng, nodes, launches: int, steps: int) -> dict:
+    """``horner_push`` at B = 8 (serving, the row) and B = 16 (the
+    prior's batch, under ``b16``), each on a batch of the main path's
+    nodes; see :func:`horner_push_case`."""
+    from repro_torch.kernels.horner_push import persistent_grid
+    cases = [horner_push_case(g, p, eng, nodes[512:512 + B])
+             for B in (8, 16)]
+    for c in cases:
+        print(f"[kernel] horner_push B={c['B']}: {c['levels_run']} of "
+              f"{p.l_max + 1} levels run in one launch (grid "
+              f"{persistent_grid(eng._layout, c['B'])} blocks of 1,024); "
+              f"whole push {c['push_ms']:.4f} ms (row ids on the card to "
+              f"the (B, n) result, CUDA events); kernel {c['ms']:.4f} ms "
+              f"(device time); before the launch only allocations, "
+              f"{c['alloc_ms']:.4f} ms of host time; plain "
+              f"{c['plain_ms']:.4f} ms; torch.sparse.mm x {p.l_max + 1} "
+              f"{c['library_ms']:.4f} ms; bound {c['bound_ms']:.5f} ms "
+              f"({c['bound_by']}: inputs once, result once); streamed over "
+              f"the levels run {c['streamed_bound_ms']:.5f} ms; max_abs_err "
+              f"{c['max_abs_err']:.3g}; two pushes equal bits")
+    row, b16 = cases
+    return {"name": "horner_push", "route": "cuda",
+            "source": "src/repro_torch/csrc/horner_push.cu",
+            "replaces": "src/repro/kernels/horner_push/horner_push.py:69",
+            "launches": launches, "max_abs_err": max(row["max_abs_err"],
+                                                     b16["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "steps": steps,
+            "levels_run": row["levels_run"], "push_ms": row["push_ms"],
+            "alloc_ms": row["alloc_ms"],
+            "streamed_bound_ms": row["streamed_bound_ms"],
+            "parts": row["parts"],
+            "b16": {k: v for k, v in b16.items() if k not in ("B", "parts")},
+            "shape": f"B=8 W={eng._width_cap} n={g.n} m={g.m} "
+                     f"levels={p.l_max + 1}"}
+
+
+def profile_single_source(eng, q) -> None:
+    """Where a warm single-source batch of 8 spends its time: the engine
+    path's parts run alone on fresh nodes, each timed on the host clock
+    and ending in a synchronize -- the ids to the card (``_ids``), the
+    push, the (8, n) copy to the host, the per-row cache copies and the
+    LRU inserts -- beside ``QueryEngine.single_source`` on fresh nodes;
+    then a torch.profiler trace of one more batch."""
+    import torch
+
+    from repro_torch.core.single_source import batched_single_source
+    from repro_torch.serve.engine import _LRU
+    torch.cuda.synchronize()
+    walls = []
+    for lo in range(0, 32, 8):
+        t0 = time.perf_counter()
+        eng.single_source(q[lo:lo + 8])
+        walls.append(time.perf_counter() - t0)
+    parts = {k: [] for k in ("ids", "push", "copy_to_host", "row_copies",
+                             "lru")}
+    for lo in range(32, 48, 8):
+        us = q[lo:lo + 8]
+        t0 = time.perf_counter()
+        ids = eng._ids(us).long()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = batched_single_source(eng._keys, eng._vals, eng._d,
+                                    eng._layout, ids, eng._tau,
+                                    n=eng.index.n,
+                                    l_max=eng.index.plan.l_max,
+                                    backend=eng._push_backend)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = out.cpu().numpy()
+        t3 = time.perf_counter()
+        rows = [host[j].copy() for j in range(len(us))]
+        t4 = time.perf_counter()
+        lru = _LRU(eng.cfg.cache_size)
+        for u, r in zip(us, rows):
+            lru.put(("src", int(u)), r)
+        t5 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3),
+                                     (t3, t4), (t4, t5))):
+            parts[k].append((b - a) * 1e3)
+    print("[profile] single_source: a warm batch of 8 through the engine "
+          + " ".join(f"{w * 1e3:.3f}" for w in walls) + " ms; its parts "
+          "alone (two batches): "
+          + " ".join(f"{k}=" + "/".join(f"{v:.3f}" for v in vs) + "ms"
+                     for k, vs in parts.items()))
+    trace("one single_source batch of 8",
+          lambda: eng.single_source(q[48:56]))
+
+
 def profile_build(g, p, dev, blocks: int = 4) -> None:
     """Trace ``blocks`` blocks of the Enron build loop (Alg 2 with the
     masked ``spmm``, the prune, the extraction and the stop test)."""
@@ -901,9 +1211,8 @@ def main() -> int:
     from repro_torch.core import build
     from repro_torch.graph import generators
     from repro_torch.kernels import _build
-    from repro_torch.kernels.horner_push import (horner_push, horner_steps,
-                                                 horner_steps_plain)
-    from repro_torch.kernels.hp_join import hp_join, hp_join_plain
+    from repro_torch.kernels.horner_push import horner_push_rows
+    from repro_torch.kernels.hp_join import hp_join
     from repro_torch.kernels.spmv_ell import spmm
     from repro_torch.serve import EngineConfig, QueryEngine
 
@@ -933,7 +1242,8 @@ def main() -> int:
     g = generators.paper_scale(args.graph, seed=0)
     print(f"[main] graph {args.graph}: n={g.n} m={g.m} "
           f"max in-degree={int(g.in_deg.max())}")
-    hp_join.launches = horner_steps.launches = spmm.launches = 0
+    hp_join.launches = horner_push_rows.launches = spmm.launches = 0
+    horner_push_rows.steps = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     idx = build.build_index(g, eps=EPS, c=0.6, seed=0, block=BLOCK,
@@ -973,8 +1283,9 @@ def main() -> int:
         answers.setdefault("topk", []).append(eng.topk(top_q[lo:lo + 8], 10))
         lat["topk"].append(time.perf_counter() - t)
     launches = {"hp_join": hp_join.launches,
-                "horner_push": horner_steps.launches,
-                "spmm": spmm.launches}
+                "horner_push": horner_push_rows.launches,
+                "spmm": spmm.launches,
+                "horner_push_steps": horner_push_rows.steps}
     st = eng.stats()
     for path, ls in lat.items():
         per = 64 if path == "pair" else 8
@@ -993,6 +1304,7 @@ def main() -> int:
 
     if args.profile:
         profile_serving(eng, nodes[640:704].astype(np.int32))
+        profile_single_source(eng, nodes[704:760].astype(np.int32))
         profile_build(g, p, dev)
 
     plain = QueryEngine(idx, g, EngineConfig(pair_backend="join",
@@ -1024,75 +1336,15 @@ def main() -> int:
 
     # ---- 3c. xDeepFM serving at full width, with the SLING prior -------
     model, serve_batch, rec = xdeepfm_phase(dev, profile=args.profile)
-    for k in ("horner_push", "spmm"):
+    for k in ("horner_push", "spmm", "horner_push_steps"):
         total[k] += rec[k]
     total["cin"] = rec["cin"]
     print(f"[xdeepfm] launches {rec}; all paths {total}")
 
     # ---- 4. each kernel vs its plain version at the main path's shapes --
-    kernels = []
-    K = eng._width_cap
-    us = torch.as_tensor(pair_u, device=dev)
-    vs = torch.as_tensor(pair_v, device=dev)
-    fk, fv = eng._folded_keys, eng._folded_vals
-    got = hp_join(fk, fv, us, vs)
-    ref = hp_join_plain(fk, fv, us, vs)
-    e_join = float((got - ref).abs().max())
-    cnt = idx.hp.counts.long()
-    live = int(cnt[us.long()].sum() + cnt[vs.long()].sum())
-    j_bytes = 8 * live + 4 * 3 * len(us)
-    j_ops = 2 * int(cnt[us.long()].sum()) * (math.log2(K) + 1)
-    b_ms, b_by = bound_ms(j_bytes, j_ops)
-    kernels.append({
-        "name": "hp_join", "route": "cuda",
-        "source": "src/repro_torch/csrc/hp_join.cu",
-        "replaces": "src/repro/kernels/hp_join/hp_join.py:42",
-        "launches": total["hp_join"], "max_abs_err": e_join,
-        "ms": time_ms(lambda: hp_join(fk, fv, us, vs), 200),
-        "plain_ms": time_ms(lambda: hp_join_plain(fk, fv, us, vs), 20),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"B={len(us)} K={K}"})
-
-    sq = torch.as_tensor(src_q[:8], dtype=torch.long, device=dev)
-    ku, xu = eng._keys[sq], eng._vals[sq]
-    lay, d, tau, L = eng._layout, eng._d, eng._tau, p.l_max
-
-    def push(steps):
-        return horner_push(ku, xu, d, lay, tau, n=g.n, l_max=L, steps=steps)
-
-    e_push = float((push(horner_steps) - push(horner_steps_plain)).abs().max())
-    B = ku.shape[0]
-    live_rows = int(cnt[sq].sum())
-    # each of the L + 1 steps reads the CSR and its (n, B) frontier and
-    # writes its (n, B) output; the packed rows are read once
-    h_bytes = ((L + 1) * (8 * g.m + 4 * (g.n + 1) + 2 * 4 * g.n * B)
-               + 12 * live_rows)
-    h_ops = 2 * (L + 1) * g.m * B
-    b_ms, b_by = bound_ms(h_bytes, h_ops)
-    with warnings.catch_warnings():   # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore", UserWarning)
-        a_csr = torch.sparse_csr_tensor(lay.in_ptr.long(),
-                                        lay.in_idx.long(), lay.w,
-                                        size=(g.n, g.n),
-                                        check_invariants=False)
-    x = torch.rand((g.n, B), device=dev)
-
-    def library():
-        y = x
-        for _ in range(L + 1):
-            y = torch.sparse.mm(a_csr, y)
-        return y
-
-    kernels.append({
-        "name": "horner_push", "route": "cuda",
-        "source": "src/repro_torch/csrc/horner_push.cu",
-        "replaces": "src/repro/kernels/horner_push/horner_push.py:69",
-        "launches": total["horner_push"], "max_abs_err": e_push,
-        "ms": time_ms(lambda: push(horner_steps), 50),
-        "plain_ms": time_ms(lambda: push(horner_steps_plain), 10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(library, 20),
-        "shape": f"B={B} W={K} n={g.n} m={g.m} steps={L + 1}"})
+    kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),
+               horner_row(g, p, eng, nodes, total["horner_push"],
+                          total["horner_push_steps"])]
     kernels.append(spmm_row(g, p, dev, nodes, total["spmm"]))
     kernels.append(cin_row(model, serve_batch, dev, total["cin"]))
     del model
@@ -1102,7 +1354,8 @@ def main() -> int:
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} "
               f"({k['bound_by']}) library_ms={k['library_ms']}"
               + (f" fma_bound_ms={k['fma_bound_ms']:.5f}"
-                 if "fma_bound_ms" in k else ""))
+                 if "fma_bound_ms" in k else "")
+              + "".join(f" {x}={k[x]}" for x in ROW_EXTRAS if x in k))
         if k["name"] != "cin" and not k["max_abs_err"] <= TOL_KERNEL:
             raise RuntimeError(f"{k['name']} disagrees with its plain "
                                f"version: {k['max_abs_err']}")
@@ -1134,7 +1387,8 @@ def main() -> int:
 
     # ---- 6. output --------------------------------------------------------
     print(json.dumps({"kernels": [{k: v for k, v in kk.items()
-                                   if k not in ("shape", "fma_bound_ms")}
+                                   if k not in ("shape", "fma_bound_ms",
+                                                "parts", "b16")}
                                   for kk in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -18,20 +18,28 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import csr
 
 
-def build_index(g: csr.Graph, eps: float = 0.025, c: float = 0.6,
-                seed: int = 0, block: int = 256, exact_d: bool = False,
-                stale_frac: float = 0.0, device=None,
-                verbose: bool = False) -> SlingIndex:
-    """``stale_frac`` reserves that share of eps for the staleness that
-    ``update_index`` batches spend (``theory.plan``)."""
+def build_index(g: csr.Graph, eps: float = 0.025,
+                delta: float | None = None, c: float = 0.6, seed: int = 0,
+                adaptive: bool = True, block: int = 256, *,
+                exact_d: bool = False, stale_frac: float = 0.0,
+                device=None, verbose: bool = False) -> SlingIndex:
+    """The reference's positional order through ``block``. ``delta`` is
+    the failure probability of the walk diagonal (``None``: 1/n) and
+    ``adaptive`` picks Algorithm 4 over the fixed-budget Algorithm 1
+    (``theory.plan``, ``diagonal.estimate_diagonal``). Everything after
+    ``block`` is keyword-only: the reference's next positional
+    parameter, ``spill_dir``, is not ported. ``stale_frac`` reserves
+    that share of eps for the staleness that ``update_index`` batches
+    spend (``theory.plan``)."""
     dev = resolve_device(device)
-    p = theory.plan(eps=eps, c=c, n=g.n, stale_frac=stale_frac)
+    p = theory.plan(eps=eps, delta=delta, c=c, n=g.n,
+                    stale_frac=stale_frac)
     t0 = time.perf_counter()
     if exact_d:
         d = diagonal.exact_diagonal(g, c)
     else:
-        d = diagonal.estimate_diagonal(g, p, seed=seed, device=dev,
-                                       verbose=verbose)
+        d = diagonal.estimate_diagonal(g, p, seed=seed, adaptive=adaptive,
+                                       device=dev, verbose=verbose)
     t1 = time.perf_counter()
     hp = hp_index.build_hp_table(g, theta=p.theta, sqrt_c=p.sqrt_c,
                                  l_max=p.l_max, block=block, device=dev)

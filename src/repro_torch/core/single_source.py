@@ -12,7 +12,7 @@ Alg 6's per-group thresholds.
     references (NumPy);
   * ``horner_push`` -- the plain PyTorch push over a batch of rows;
   * ``batched_single_source`` -- (B,) query ids -> (B, n) scores through
-    the chosen backend: the Hopper step kernel on ``cuda``.
+    the chosen backend: the Hopper push kernel, one launch, on ``cuda``.
 """
 from __future__ import annotations
 
@@ -79,19 +79,21 @@ def single_source_horner(idx, g: csr.Graph, u: int) -> np.ndarray:
 def horner_push(ku, xu, d, layout, tau: float, *, n: int,
                 l_max: int) -> torch.Tensor:
     """Plain PyTorch Horner push: (B, W) packed rows -> (B, n) float32."""
-    return hpk.horner_push(ku, xu, d, layout, tau, n=n, l_max=l_max,
-                           steps=hpk.horner_steps_plain)
+    return hpk.horner_push(ku, xu, d, layout, tau, n=n, l_max=l_max)
 
 
 def batched_single_source(keys, vals, d, layout, us, tau: float, *,
                           n: int, l_max: int,
                           backend: str = "auto") -> torch.Tensor:
     """Horner push for a batch of sources: keys/vals (N, K) packed
-    table, us (B,) int64 ids -> (B, n) float32 on the table's device.
-    ``backend``: "auto" | "kernel" | "plain" (``kernels.horner_push``)."""
-    steps = hpk.steps_for(hpk.resolve_push_backend(backend, keys.device))
-    return hpk.horner_push(keys[us], vals[us], d, layout, tau, n=n,
-                           l_max=l_max, steps=steps)
+    table, us (B,) int32 or int64 ids -> (B, n) float32 on the table's
+    device. ``backend``: "auto" | "kernel" | "plain"
+    (``kernels.horner_push``); the kernel reads the rows through ``us``
+    itself, in one launch."""
+    if n != layout.n:
+        raise ValueError(f"n={n} but the layout has n={layout.n}")
+    push = hpk.push_for(hpk.resolve_push_backend(backend, keys.device))
+    return push(keys, vals, d, us, layout, tau, l_max=l_max)
 
 
 def single_source_device(idx, g: csr.Graph, us,

@@ -1,13 +1,13 @@
-"""Horner-push step kernel (Hopper), its plain version, the CSR layout,
-the Horner loop and backend resolution.
+"""Horner-push kernel (Hopper), its plain version, the Horner loop and
+backend resolution.
 
 Backends for the single-source and top-k paths:
 
-  * ``"kernel"`` -- the Horner loop calls the steps wrapper, which launches
-    the Hopper kernel for CUDA tensors (and takes the plain steps only
-    for tensors on the CPU);
-  * ``"plain"``  -- the Horner loop calls the plain PyTorch steps on any
-    device (the CPU path, and the comparisons on the card);
+  * ``"kernel"`` -- ``horner_push_rows``, which launches the Hopper
+    kernel for CUDA tensors (and takes the plain push only for tensors
+    on the CPU);
+  * ``"plain"``  -- ``horner_push_rows_plain`` on any device (the CPU
+    path, and the comparisons on the card);
   * ``"auto"``   -- resolves by device: ``"kernel"`` on ``cuda``,
     ``"plain"`` on ``cpu``.
 """
@@ -15,9 +15,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.horner_push.horner_push import (horner_steps,
-                                                         horner_steps_plain)
-from repro_torch.kernels.horner_push.ops import horner_push, prepare_rows
+from repro_torch.kernels.horner_push.horner_push import (
+    horner_push_rows, horner_push_rows_plain, persistent_grid,
+    workspace_numel)
+from repro_torch.kernels.horner_push.ops import (horner_push,
+                                                 horner_step_plain,
+                                                 horner_steps_plain,
+                                                 level_runs_plain,
+                                                 prepare_rows)
 
 PUSH_BACKENDS = ("auto", "plain", "kernel")
 
@@ -32,11 +37,14 @@ def resolve_push_backend(name: str | None, device) -> str:
     return name
 
 
-def steps_for(backend: str):
-    """The steps function a resolved backend drives."""
-    return horner_steps if backend == "kernel" else horner_steps_plain
+def push_for(backend: str):
+    """The push function (row ids -> scores) a resolved backend drives."""
+    return horner_push_rows if backend == "kernel" else \
+        horner_push_rows_plain
 
 
-__all__ = ["PUSH_BACKENDS", "horner_push", "horner_steps",
-           "horner_steps_plain", "prepare_rows", "resolve_push_backend",
-           "steps_for"]
+__all__ = ["PUSH_BACKENDS", "horner_push", "horner_push_rows",
+           "horner_push_rows_plain", "horner_step_plain",
+           "horner_steps_plain", "level_runs_plain", "persistent_grid",
+           "prepare_rows", "push_for", "resolve_push_backend",
+           "workspace_numel"]

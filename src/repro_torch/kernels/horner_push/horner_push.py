@@ -1,20 +1,24 @@
-"""The Horner steps of a push, each ``out = seed_l + Â · prune_tau(x)``
-for l = l_max .. 0: the Hopper kernel's wrapper and its plain PyTorch
-version.
+"""The SLING single-source push from row ids to scores: the Hopper
+kernel's wrapper and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/horner_push/horner_push.py``
-(``_step_kernel`` / ``horner_step``). Frontiers are node-major (n, B)
-float32; Â is given in CSR over destinations (``in_ptr``,
-``in_idx``, per-edge ``w``) with the nodes split into light and heavy
-in-degree classes (``spmv_ell.SpmmLayout``); the seed of level
-l places ``contrib[b, j]`` at node ``k`` for every entry whose key
-``keys[b, j]`` equals ``l*n + k``, with duplicate keys adding up.
-``keys`` rows must be sorted ascending (``ops.prepare_rows`` sorts
-them). The kernel (``csrc/horner_push.cu``) sums each output inside
-one block in a fixed order -- one thread per output for light nodes,
-one block per heavy node -- with no atomics. The wrapper launches the
-l_max + 1 steps from one host call (``horner_steps_launch``), so the
-host's per-launch cost is paid in C, not in Python.
+(``_step_kernel`` / ``horner_step``) and the Horner loop that drives it
+(``src/repro/kernels/horner_push/ops.py``). Both versions compute, for
+the rows ``us`` of a packed table ``keys``/``vals`` (N, W) whose rows
+are sorted by key = l*n + k with PAD last,
+
+    acc = 0;  for l = l_max .. 0:  acc = Â prune_tau(acc) + seed_l
+    seed_l[k, b] = sum of vals[us[b], j] * d[k] over the entries j of
+                   row us[b] with key l*n + k (duplicate keys add up)
+
+and return the (B, n) float32 scores; Â is given in CSR over
+destinations (``SpmmLayout``). The kernel (``csrc/horner_push.cu``)
+runs the whole push in one persistent cooperative launch: it reads the
+rows through ``us`` itself, finds each row's level runs in a prologue,
+starts at the highest level that holds a seed, and writes level 0
+straight into the result. The host only allocates the result and one
+workspace. Each output is summed in a fixed order with no atomics, so
+two pushes give the same bits.
 """
 from __future__ import annotations
 
@@ -22,95 +26,118 @@ import ctypes
 
 import torch
 
-from repro_torch.core.hp_index import INT32_PAD_KEY
 from repro_torch.kernels import _build
-from repro_torch.kernels.spmv_ell import spmm_plain
+from repro_torch.kernels.horner_push.ops import horner_push
 
-_launch = []   # the bound C function, filled on first launch
+_launch = []   # the bound C functions, filled on first launch
 
 
 def _launcher():
     if not _launch:
-        fn = _build.load("horner_push").horner_steps_launch
+        lib = _build.load("horner_push")
+        fn = lib.horner_push_launch
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 6 + [i32, ptr, i32, ptr, ptr] + [i32] * 4 \
-            + [ctypes.c_float, ptr]
+        fn.argtypes = ([ptr] * 4 + [i32] * 3 + [ptr] * 4 + [i32] * 6
+                       + [ctypes.c_float] + [ptr] * 3)
         fn.restype = ctypes.c_int
-        _launch.append(fn)
+        lib.horner_push_grid.argtypes = [i32] * 6
+        lib.horner_push_grid.restype = ctypes.c_longlong
+        _launch.extend([fn, lib.horner_push_grid])
     return _launch[0]
 
 
-def horner_step_plain(x, out, layout, keys, contrib, level: int,
-                      tau: float) -> torch.Tensor:
-    """One plain step: prune, CSR pull (``spmm_plain``), and the
-    level-l seed scattered with ``index_add_``; written into ``out``."""
-    n, B = x.shape
-    acc = spmm_plain(torch.where(x > tau, x, 0.0), layout)
-    hit = (keys != INT32_PAD_KEY) & (keys.long() // n == level)
-    b_idx, j_idx = torch.nonzero(hit, as_tuple=True)
-    seed = torch.zeros(n * B, dtype=torch.float32, device=x.device)
-    seed.index_add_(0, (keys[b_idx, j_idx].long() % n) * B + b_idx,
-                    contrib[b_idx, j_idx])
-    return out.copy_(acc + seed.view(n, B))
+def persistent_grid(layout, batch: int) -> int:
+    """The blocks (of 1,024 threads) that the kernel launches for a push
+    of ``batch`` columns over ``layout`` on the current card."""
+    _launcher()
+    grid = _launch[1](*layout.push_tiers, batch,
+                      4 if batch % 4 == 0 else 1)
+    if grid < 0:
+        _build.check(int(-grid), "horner_push_grid")
+    return int(grid)
 
 
-def horner_steps_plain(acc, spare, layout, keys, contrib, l_max: int,
-                       tau: float) -> torch.Tensor:
-    """The plain version of :func:`horner_steps`: the same ping-pong over
-    levels l_max .. 0 with :func:`horner_step_plain`."""
-    for level in range(l_max, -1, -1):
-        horner_step_plain(acc, spare, layout, keys, contrib, level, tau)
-        acc, spare = spare, acc
-    return acc
+def workspace_numel(n: int, batch: int, l_max: int) -> int:
+    """32-bit words of the kernel's scratch: two (n, B) frontiers, two
+    (n, B) seed-staging buffers and the (B, l_max + 3) level runs. It
+    may hold anything when the kernel starts."""
+    return 4 * n * batch + batch * (l_max + 3)
 
 
-def _check(x, out, layout, keys, contrib) -> None:
+def horner_push_rows_plain(keys, vals, d, us, layout, tau: float, *,
+                           l_max: int) -> torch.Tensor:
+    """The plain version of :func:`horner_push_rows`: gather the rows,
+    then :func:`~repro_torch.kernels.horner_push.ops.horner_push`."""
+    ids = us.long()
+    return horner_push(keys[ids], vals[ids], d, layout, tau, n=layout.n,
+                       l_max=l_max)
+
+
+def _check(keys, vals, d, us, layout, l_max, workspace) -> None:
     """The per-call arguments against the layout (whose own arrays
     :class:`SpmmLayout` checked when it was made)."""
-    n, B = x.shape
-    if out.shape != (n, B) or layout.n != n or \
-            keys.dim() != 2 or keys.shape[0] != B or \
-            contrib.shape != keys.shape:
+    n = layout.n
+    if keys.dim() != 2 or vals.shape != keys.shape or d.shape != (n,) \
+            or us.dim() != 1 or l_max < 0:
         raise ValueError(
-            f"horner_steps shapes: x {tuple(x.shape)} out "
-            f"{tuple(out.shape)} layout n={layout.n} keys "
-            f"{tuple(keys.shape)} contrib {tuple(contrib.shape)}")
-    if any(t.dtype != torch.float32 for t in (x, out, contrib)) \
-            or keys.dtype != torch.int32:
-        raise TypeError("horner_steps takes float32 x/out/contrib and "
-                        "int32 keys")
-    ts = (x, out, keys, contrib)
+            f"horner_push_rows shapes: keys {tuple(keys.shape)} vals "
+            f"{tuple(vals.shape)} d {tuple(d.shape)} us {tuple(us.shape)} "
+            f"layout n={n} l_max={l_max}")
+    if keys.dtype != torch.int32 or vals.dtype != torch.float32 or \
+            d.dtype != torch.float32 or \
+            us.dtype not in (torch.int32, torch.int64):
+        raise TypeError("horner_push_rows takes int32 keys, float32 "
+                        "vals/d and int32 or int64 row ids")
+    ts = (keys, vals, d, us) + (() if workspace is None else (workspace,))
     if any(t.device != layout.device for t in ts):
-        raise ValueError("horner_steps arguments must share the layout's "
-                         "device")
+        raise ValueError("horner_push_rows arguments must share the "
+                         "layout's device")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("horner_steps arguments must be contiguous")
+        raise ValueError("horner_push_rows arguments must be contiguous")
+    if workspace is not None and (
+            workspace.dtype != torch.float32 or workspace.numel() <
+            workspace_numel(n, us.shape[0], l_max)):
+        raise ValueError("horner_push_rows workspace must be float32 of "
+                         "at least workspace_numel(n, B, l_max) words")
 
 
-def horner_steps(acc, spare, layout, keys, contrib, l_max: int,
-                 tau: float) -> torch.Tensor:
-    """Run levels l_max .. 0 from the frontier ``acc`` (node-major
-    (n, B)), ping-ponging ``acc`` and ``spare``; returns the buffer that
-    holds the result. On a CUDA device the Hopper kernel runs, one
-    launch per level (it raises if it cannot be built or launched); for
-    CPU tensors the plain version runs. ``horner_steps.launches`` counts
-    kernel launches."""
-    _check(acc, spare, layout, keys, contrib)
-    if acc.device.type == "cpu":
-        return horner_steps_plain(acc, spare, layout, keys, contrib, l_max,
-                                  tau)
-    n, B = acc.shape
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    err = _launcher()(acc.data_ptr(), spare.data_ptr(),
-                      layout.in_ptr.data_ptr(), layout.in_idx.data_ptr(),
-                      layout.w.data_ptr(), layout.heavy.data_ptr(),
-                      layout.heavy.numel(), layout.light.data_ptr(),
-                      layout.light.numel(), keys.data_ptr(),
-                      contrib.data_ptr(), n, B, keys.shape[1], l_max, tau,
+def horner_push_rows(keys, vals, d, us, layout, tau: float, *, l_max: int,
+                     workspace=None) -> torch.Tensor:
+    """(B, n) float32 scores of the rows ``us`` (int32 or int64, each in
+    [0, N)) of the packed table ``keys``/``vals`` (N, W), rows sorted
+    with PAD last. On a CUDA device the Hopper kernel runs the whole
+    push in one cooperative launch (it raises if it cannot be built or
+    launched, or the card refuses the launch); nothing runs before it
+    but the allocation of the result and of the workspace, which the
+    caller may pass instead (``workspace_numel`` words, any contents).
+    For CPU tensors the plain version runs.
+    ``horner_push_rows.launches`` counts kernel launches (one a push),
+    ``horner_push_rows.steps`` the levels they cover (l_max + 1 a
+    push)."""
+    _check(keys, vals, d, us, layout, l_max, workspace)
+    if keys.device.type == "cpu":
+        return horner_push_rows_plain(keys, vals, d, us, layout, tau,
+                                      l_max=l_max)
+    n, B = layout.n, us.shape[0]
+    out = torch.empty((B, n), dtype=torch.float32, device=keys.device)
+    if B == 0 or n == 0:
+        return out
+    if workspace is None:
+        workspace = torch.empty(workspace_numel(n, B, l_max),
+                                dtype=torch.float32, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = _launcher()(keys.data_ptr(), vals.data_ptr(), d.data_ptr(),
+                      us.data_ptr(), int(us.dtype == torch.int64), B,
+                      keys.shape[1], layout.in_ptr.data_ptr(),
+                      layout.in_idx.data_ptr(), layout.w.data_ptr(),
+                      layout.push_order.data_ptr(), *layout.push_tiers, n,
+                      l_max, tau, workspace.data_ptr(), out.data_ptr(),
                       stream)
-    _build.check(err, "horner_steps")
-    horner_steps.launches += l_max + 1
-    return spare if (l_max + 1) % 2 else acc
+    _build.check(err, "horner_push_rows")
+    horner_push_rows.launches += 1
+    horner_push_rows.steps += l_max + 1
+    return out
 
 
-horner_steps.launches = 0
+horner_push_rows.launches = 0
+horner_push_rows.steps = 0

@@ -1,18 +1,18 @@
-"""Layout builder and Horner loop for the Horner-push step kernel.
+"""The plain PyTorch Horner push: row preparation, the per-level step,
+the Horner loop, and the level runs that the kernel's prologue finds.
 
-Port of the layout and loop half of ``repro/kernels/horner_push/ops.py``. The
-TPU layout groups edges into destination blocks for a one-hot matmul;
-the port's layout is the graph's own CSR over destinations, the
-``spmm`` kernel's :class:`~repro_torch.kernels.spmv_ell.ops.SpmmLayout`,
-which the step kernel walks per output node, with the nodes split by
-in-degree: a heavy node (in-degree above ``HEAVY_DEGREE``) gets a block
-of its own.
+Port of the loop half of ``repro/kernels/horner_push/ops.py``. The TPU
+layout groups edges into destination blocks for a one-hot matmul; the
+port's layout is the graph's own CSR over destinations, the ``spmm``
+kernel's :class:`~repro_torch.kernels.spmv_ell.ops.SpmmLayout`.
 
 The Horner recursion runs the reference's uniform form
 
     acc = 0;  for l = l_max .. 0:  acc = Â prune_tau(acc) + seed_l
 
-over two ping-ponged node-major (n, B) buffers (``horner_steps``).
+over two ping-ponged node-major (n, B) buffers (``horner_steps_plain``).
+This is the CPU path, and the version the Hopper kernel
+(``horner_push.horner_push_rows``) is held against on the card.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hp_index import INT32_PAD_KEY
-from repro_torch.kernels.horner_push.horner_push import horner_steps
+from repro_torch.kernels.spmv_ell import spmm_plain
 from repro_torch.kernels.spmv_ell.ops import SpmmLayout
 
 
@@ -34,14 +34,62 @@ def prepare_rows(ku: torch.Tensor, xu: torch.Tensor, d: torch.Tensor,
     return keys.contiguous(), contrib.gather(1, perm).contiguous()
 
 
+def horner_step_plain(x, out, layout, keys, contrib, level: int,
+                      tau: float) -> torch.Tensor:
+    """One plain step: prune, CSR pull (``spmm_plain``), and the
+    level-l seed scattered with ``index_add_``; written into ``out``."""
+    n, B = x.shape
+    acc = spmm_plain(torch.where(x > tau, x, 0.0), layout)
+    hit = (keys != INT32_PAD_KEY) & (keys.long() // n == level)
+    b_idx, j_idx = torch.nonzero(hit, as_tuple=True)
+    seed = torch.zeros(n * B, dtype=torch.float32, device=x.device)
+    seed.index_add_(0, (keys[b_idx, j_idx].long() % n) * B + b_idx,
+                    contrib[b_idx, j_idx])
+    return out.copy_(acc + seed.view(n, B))
+
+
+def horner_steps_plain(acc, spare, layout, keys, contrib, l_max: int,
+                       tau: float) -> torch.Tensor:
+    """Levels l_max .. 0 from the frontier ``acc`` (node-major (n, B)),
+    ping-ponging ``acc`` and ``spare`` with :func:`horner_step_plain`;
+    returns the buffer that holds the result."""
+    for level in range(l_max, -1, -1):
+        horner_step_plain(acc, spare, layout, keys, contrib, level, tau)
+        acc, spare = spare, acc
+    return acc
+
+
 def horner_push(ku, xu, d, layout: SpmmLayout, tau: float, *, n: int,
-                l_max: int, steps=horner_steps) -> torch.Tensor:
-    """Horner push for a batch of packed rows: (B, W) keys ``ku`` and
-    values ``xu`` -> (B, n) float32 scores. ``steps`` runs the levels:
-    the kernel wrapper (default) or ``horner_steps_plain``."""
+                l_max: int) -> torch.Tensor:
+    """Plain Horner push for a batch of packed rows in any order: (B, W)
+    keys ``ku`` and values ``xu`` -> (B, n) float32 scores."""
     keys, contrib = prepare_rows(ku, xu, d, n)
     acc = torch.zeros((n, ku.shape[0]), dtype=torch.float32,
                       device=ku.device)
-    out = steps(acc, torch.empty_like(acc), layout, keys, contrib, l_max,
-                float(np.float32(tau)))
+    out = horner_steps_plain(acc, torch.empty_like(acc), layout, keys,
+                             contrib, l_max, float(np.float32(tau)))
     return out.t().contiguous()
+
+
+def level_runs_plain(keys: torch.Tensor, n: int, l_max: int):
+    """What the kernel's prologue finds in rows ``keys`` (B, W), each
+    sorted ascending with PAD last: ``runs`` (B, l_max + 2) int64, where
+    ``runs[b, l]`` is the first j whose level (key // n, PAD counted as
+    l_max + 1) is >= l, so level l's entries are ``runs[b, l] ..
+    runs[b, l + 1] - 1``; and ``last`` (B,) int64, the level of each
+    row's last entry, -1 for an all-PAD row. A push from a zero frontier
+    is exactly zero above ``last.max()``."""
+    B, W = keys.shape
+    if W == 0:
+        return (torch.zeros((B, l_max + 2), dtype=torch.long,
+                            device=keys.device),
+                torch.full((B,), -1, dtype=torch.long, device=keys.device))
+    lv = torch.where(keys == INT32_PAD_KEY, l_max + 1,
+                     (keys.long() // n).clamp(max=l_max + 1))
+    bounds = torch.arange(l_max + 2, device=keys.device)
+    runs = torch.searchsorted(lv.contiguous(),
+                              bounds.expand(B, -1).contiguous())
+    count = runs[:, -1:]
+    last = torch.where(count > 0, lv.gather(1, (count - 1).clamp(min=0)),
+                       -1).flatten()
+    return runs, last

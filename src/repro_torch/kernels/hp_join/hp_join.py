@@ -10,9 +10,10 @@ Replaces the TPU kernel ``src/repro/kernels/hp_join/hp_join.py``
 over a packed table whose rows are sorted ascending with PAD
 (INT32_PAD_KEY) trailing and whose values are pre-multiplied by
 sqrt(d_k) (``ops.fold_sqrt_d``). The kernel (``csrc/hp_join.cu``) reads
-the rows through ``us``/``vs`` itself; one warp per pair, a binary
-search per entry, a fixed-order shuffle reduction. It is bound by the
-bytes of the two rows each pair reads.
+the rows through ``us``/``vs`` itself: one block a pair, row v copied
+into shared memory with 16-byte loads, a binary search of it per entry
+of row u, and a fixed-order reduction (warp shuffles, then the warps in
+order), so two calls give the same bits.
 """
 from __future__ import annotations
 

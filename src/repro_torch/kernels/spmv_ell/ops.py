@@ -27,6 +27,10 @@ from repro_torch.graph import csr
 
 # in-degree above which the kernels give a row a block of its own
 HEAVY_DEGREE = 32
+# in-degree bounds of the Horner push's tiers of rows: low (one thread
+# a column group), mid and wide (16 and 32 threads a row); above the
+# last, big (a block of its own)
+PUSH_TIERS = (8, 32, 128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +43,11 @@ class SpmmLayout:
     w: torch.Tensor        # (m,) float32 per-edge weights
     heavy: torch.Tensor    # int32 ids with in-degree > HEAVY_DEGREE
     light: torch.Tensor    # int32 ids of the other rows
+    # the Horner push's view: every row id once, by tier of in-degree
+    # (PUSH_TIERS: low, mid, wide, big; ascending ids within a tier), and
+    # the four tiers' sizes; derived from in_ptr when the layout is made
+    push_order: torch.Tensor = dataclasses.field(init=False, repr=False)
+    push_tiers: tuple = dataclasses.field(init=False)
 
     def __post_init__(self):
         """Check the arrays once, here, so that a kernel wrapper called
@@ -56,6 +65,12 @@ class SpmmLayout:
                 not all(t.is_contiguous() for t in ts):
             raise ValueError("SpmmLayout arrays must be contiguous on one "
                              "device")
+        deg = self.in_ptr[1:] - self.in_ptr[:-1]
+        tier = sum((deg > bound).int() for bound in PUSH_TIERS)
+        order = torch.sort(tier, stable=True).indices
+        object.__setattr__(self, "push_order", order.int().contiguous())
+        object.__setattr__(self, "push_tiers", tuple(
+            torch.bincount(tier, minlength=len(PUSH_TIERS) + 1).tolist()))
 
     @property
     def device(self) -> torch.device:

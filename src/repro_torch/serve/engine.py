@@ -97,6 +97,13 @@ class EngineConfig:
     cache_size: int = 256        # LRU entries across all query types
     pair_backend: str = "auto"   # "auto" | "join" | "kernel"
     push_backend: str = "auto"   # "auto" | "plain" | "kernel"
+    # hot-swap shape stability: the packed table is padded to a capacity
+    # bucket with this headroom, so a repaired index whose packed width
+    # grew a little swaps in under the same dispatch shapes; a swap
+    # grows the bucket only when the new index overflows it (counted in
+    # stats())
+    swap_headroom: float = 1.25
+    cap_quantum: int = 64        # buckets are multiples of this
     # serve an index whose diagonal carries no eps_d certificate; off by
     # default because the Theorem-1 bound then does not hold
     allow_uncertified: bool = False
@@ -136,10 +143,14 @@ class QueryEngine:
         self._in_warmup = False
         self._swaps = {"swaps": 0, "last_swap_ms": 0.0,
                        "swap_recompiles": 0, "invalidated": 0}
-        self._width_cap = hp_index.capacity_bucket(index.hp.width)
+        self._width_cap = self._bucket(index.hp.width)
         self._install(index, g)
 
     # ------------------------------------------------------------------
+    def _bucket(self, x: int) -> int:
+        return hp_index.capacity_bucket(x, self.cfg.cap_quantum,
+                                        self.cfg.swap_headroom)
+
     def _padded(self, t: torch.Tensor, fill) -> torch.Tensor:
         out = torch.full((t.shape[0], self._width_cap), fill,
                          dtype=t.dtype, device=self.device)
@@ -194,7 +205,7 @@ class QueryEngine:
         if index.plan.l_max != self.index.plan.l_max:
             recompiles += 1
         if index.hp.width > self._width_cap:
-            self._width_cap = hp_index.capacity_bucket(index.hp.width)
+            self._width_cap = self._bucket(index.hp.width)
             recompiles += 1
         self._install(index, g)
         dropped = self.invalidate(affected)

@@ -2,7 +2,10 @@
 zoo: the dense Alg-2 HP table (keys equal, values to 1e-5, entries
 within float32 rounding of theta counted), ``build_index(exact_d=True)``,
 the pair queries on the result, and the Alg-4 walk diagonal held to
-its certificate |d~ - d| <= eps_d."""
+its certificate |d~ - d| <= eps_d. ``build_index`` takes the
+reference's positional order through ``block``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -100,6 +103,66 @@ def test_build_index_exact_d_matches_reference(built, name):
     np.testing.assert_allclose(ti.hp.vals.numpy(), ri.hp.vals, atol=ATOL,
                                rtol=0)
     assert ti.build_seconds.keys() == {"d", "hp"}
+
+
+PLAN_ARGS = (0.1, 1e-3, 0.5)     # eps, delta, c: c = 0.001 if misread
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+def test_build_index_argument_order_matches_reference(how):
+    """``build_index(g, eps, delta, c)`` reads its arguments as the
+    reference does, by position and by keyword: the plan equals the
+    reference build's and ``theory.plan``'s, field for field."""
+    r, t = _graphs("powerlaw")
+    eps, delta, c = PLAN_ARGS
+    if how == "positional":
+        ti = tbuild.build_index(t, eps, delta, c, exact_d=True,
+                                device="cpu")
+        ri = rbuild.build_index(r, eps, delta, c, exact_d=True)
+    else:
+        ti = tbuild.build_index(t, eps=eps, delta=delta, c=c, exact_d=True,
+                                device="cpu")
+        ri = rbuild.build_index(r, eps=eps, delta=delta, c=c, exact_d=True)
+    want = dataclasses.asdict(rtheory.plan(eps=eps, delta=delta, c=c,
+                                           n=r.n))
+    assert dataclasses.asdict(ri.plan) == want
+    got = dataclasses.asdict(ti.plan)
+    assert got == {k: want[k] for k in got}
+    assert ti.plan.c == c and ti.plan.delta == delta
+    np.testing.assert_array_equal(ti.hp.keys.numpy(), ri.hp.keys)
+
+
+def test_build_index_passes_delta_and_adaptive_to_the_walks(monkeypatch):
+    """A positional ``delta`` reaches the plan that sizes the walks, and
+    a positional ``adaptive`` reaches ``estimate_diagonal``: the build's
+    d equals a direct Algorithm-1 estimate on the same seed."""
+    _, t = _graphs("powerlaw")
+    seen = []
+    real = tdiagonal.estimate_diagonal
+
+    def spy(g, plan, seed=0, adaptive=True, **kw):
+        seen.append((plan, seed, adaptive))
+        return real(g, plan, seed=seed, adaptive=adaptive, **kw)
+
+    monkeypatch.setattr(tbuild.diagonal, "estimate_diagonal", spy)
+    idx = tbuild.build_index(t, 0.3, 0.01, 0.6, 5, False, 16, device="cpu")
+    (plan, seed, adaptive), = seen
+    assert plan == idx.plan and plan.delta == 0.01 and seed == 5
+    assert adaptive is False
+    assert plan.n_r1 != ttheory.plan(eps=0.3, c=0.6, n=t.n).n_r1
+    monkeypatch.undo()
+    direct = tdiagonal.estimate_diagonal(t, plan, seed=5, adaptive=False,
+                                         device="cpu")
+    np.testing.assert_array_equal(idx.d.numpy(), direct)
+
+
+def test_build_index_takes_nothing_positional_after_block():
+    """The reference's eighth positional parameter is ``spill_dir``,
+    which the port does not take: everything after ``block`` is
+    keyword-only."""
+    _, t = _graphs("powerlaw")
+    with pytest.raises(TypeError):
+        tbuild.build_index(t, 0.1, None, 0.6, 0, True, 16, True)
 
 
 @pytest.mark.parametrize("name", ZOO)

@@ -16,13 +16,15 @@ from repro_torch.kernels.cin import (cin_forward, cin_forward_reference,
                                      cin_layer, cin_layer_ref)
 from repro_torch.kernels.cin.cin import (depth_split, split_weights,
                                          split_weights_on_card)
-from repro_torch.kernels.horner_push import (horner_push, horner_steps,
-                                             horner_steps_plain)
-from repro_torch.kernels.hp_join import hp_join
+from repro_torch.graph import generators
+from repro_torch.kernels.horner_push import (horner_push_rows,
+                                             horner_push_rows_plain,
+                                             persistent_grid,
+                                             workspace_numel)
+from repro_torch.kernels.hp_join import hp_join, hp_join_plain
 from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout,
                                           segment_live, spmm, spmm_plain)
-from torch_cases import JOIN_CASES, join_rows, port_join, port_push, \
-    rand_case
+from torch_cases import JOIN_CASES, join_rows, port_join, table_case
 
 ATOL = 1e-5
 
@@ -55,9 +57,11 @@ def test_wrappers_raise_without_library_on_card(card, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         hp_join(keys, keys.float(), ids, ids)
     lay = SpmmLayout.from_edges([0], [1], [0.5], 2, card)
-    x = torch.zeros((2, 2), device=card)
+    before = horner_push_rows.launches
     with pytest.raises(RuntimeError, match="nvcc"):
-        horner_steps(x, torch.empty_like(x), lay, keys, keys.float(), 0, 0.0)
+        horner_push_rows(keys, keys.float(), torch.ones(2, device=card), ids,
+                         lay, 0.0, l_max=0)
+    assert horner_push_rows.launches == before
 
 
 @pytest.mark.cuda
@@ -76,31 +80,159 @@ def test_hp_join_kernel_matches_plain_on_card(card, case):
                                port_join(ku, vu, kv, vv), atol=ATOL, rtol=0)
 
 
+def _push_on_card(case, n, l_max, card, B, ids=torch.int64, seed=0,
+                  workspace=None):
+    """The kernel push and the plain push on the card on B rows of the
+    case's table, picked by id: (kernel result, plain result)."""
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
+    keys, vals, d = (torch.as_tensor(case[k], device=card)
+                     for k in ("ku", "xu", "d"))
+    us = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, keys.shape[0], B), dtype=ids, device=card)
+    tau = float(case["tau"])
+    launches, steps = horner_push_rows.launches, horner_push_rows.steps
+    got = horner_push_rows(keys, vals, d, us, lay, tau, l_max=l_max,
+                           workspace=workspace)
+    assert horner_push_rows.launches == launches + 1
+    assert horner_push_rows.steps == steps + l_max + 1
+    plain = horner_push_rows_plain(keys, vals, d, us, lay, tau, l_max=l_max)
+    torch.cuda.synchronize()
+    return got, plain
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", range(6))
 def test_horner_kernel_matches_plain_on_card(card, seed):
-    """Random graphs with hubs above the heavy split, batch widths that
-    do and do not divide the block (1, 3, 8, 9, 32, 300)."""
+    """Random graphs with a hub above the heavy split, batch widths that
+    do and do not divide the kernel's column groups (1, 3, 8, 9, 32,
+    300), int32 and int64 row ids, one push of one launch each."""
     rng = np.random.default_rng(seed)
     n, l_max = 40 + 7 * seed, 4
     B = [1, 3, 8, 9, 32, 300][seed]
-    case = rand_case(rng, n=n, B=B, W=6, l_max=l_max, m=4 * n,
+    case = table_case(rng, n=n, rows=64, W=6, l_max=l_max, m=4 * n,
+                      hubs=(seed % n,),
                       tau=[0.0, 1e-4, 5e-2, 1e9, 1e-4, 0.0][seed])
-    hub = np.full(3 * 40, seed % n)              # one node of in-degree 120
-    case["src"] = np.concatenate([case["src"],
-                                  rng.integers(0, n, len(hub))])
-    case["dst"] = np.concatenate([case["dst"], hub]).astype(np.int32)
-    case["w"] = np.concatenate([case["w"], rng.uniform(0.05, 0.6,
-                                                       len(hub))])
-    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
-    assert lay.heavy.numel() >= 1
-    args = [torch.as_tensor(case[k], device=card) for k in ("ku", "xu", "d")]
-    before = horner_steps.launches
-    got = horner_push(*args, lay, float(case["tau"]), n=n, l_max=l_max)
-    assert horner_steps.launches == before + l_max + 1
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               port_push(case, n, l_max, horner_steps_plain),
+    got, plain = _push_on_card(case, n, l_max, card, B, seed=seed,
+                               ids=torch.int32 if seed % 2 else torch.int64)
+    assert got.shape == (B, n)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 16, 300])
+def test_push_rows_with_hubs_match_plain_on_card(card, B):
+    """Hubs of in-degree 120 and more (above the heavy split of 32),
+    duplicate keys in the rows, every level seeded."""
+    rng = np.random.default_rng(B)
+    n, l_max = 500, 6
+    case = table_case(rng, n=n, rows=400, W=40, l_max=l_max, m=6 * n,
+                      hubs=(0, 7, 7, 19, 250), dup=True)
+    got, plain = _push_on_card(case, n, l_max, card, B, seed=B)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 16, 300])
+def test_push_rows_on_a_graph_smaller_than_the_grid_on_card(card, B):
+    """n = 5 nodes: the grid is capped at a level's work, and most
+    threads of a block have nothing to do."""
+    rng = np.random.default_rng(10 + B)
+    n, l_max = 5, 3
+    case = table_case(rng, n=n, rows=9, W=4, l_max=l_max, m=12, hubs=(2,))
+    assert persistent_grid(
+        SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n,
+                              card), B) >= 1
+    got, plain = _push_on_card(case, n, l_max, card, B, seed=B)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def enron_case():
+    """The Enron regime: n = 36,692, m = 146,712 (paper_scale), rows of
+    width 832 holding keys at levels 0 .. 12 of l_max = 29."""
+    g = generators.paper_scale("Enron", seed=0)
+    rng = np.random.default_rng(0)
+    rows, W, l_max = 64, 832, 29
+    lv = np.minimum(rng.geometric(0.3, (rows, W)) - 1, 12)
+    ku = np.sort((lv * g.n + rng.integers(0, g.n, (rows, W))).astype(
+        np.int32), axis=1)
+    ku[:, 700:] = np.iinfo(np.int32).max
+    w = (0.7745967 / np.maximum(np.bincount(g.edge_dst, minlength=g.n), 1)
+         )[g.edge_dst].astype(np.float32)
+    return dict(src=g.edge_src, dst=g.edge_dst, w=w, ku=ku,
+                xu=rng.uniform(1e-4, 0.05, (rows, W)).astype(np.float32),
+                d=rng.uniform(0.4, 1.0, g.n).astype(np.float32),
+                tau=np.float32(7.3e-7)), g.n, l_max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 16])
+def test_push_rows_at_the_enron_size_on_card(card, enron_case, B):
+    case, n, l_max = enron_case
+    got, plain = _push_on_card(case, n, l_max, card, B, seed=B)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_push_rows_two_pushes_give_the_same_bits_on_card(card, enron_case):
+    case, n, l_max = enron_case
+    a, _ = _push_on_card(case, n, l_max, card, 8, seed=3)
+    b, _ = _push_on_card(case, n, l_max, card, 8, seed=3)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 9])
+def test_push_rows_ignore_a_nan_workspace_on_card(card, B):
+    """The workspace may hold anything: a NaN-filled one leaves no NaN
+    in the result, for 4-column and 1-column thread walks."""
+    rng = np.random.default_rng(B)
+    n, l_max = 300, 5
+    case = table_case(rng, n=n, rows=50, W=30, l_max=l_max, m=5 * n,
+                      hubs=(3,))
+    ws = torch.full((workspace_numel(n, B, l_max),), float("nan"),
+                    device=card)
+    got, plain = _push_on_card(case, n, l_max, card, B, workspace=ws)
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=ATOL, rtol=0)
+
+
+HP_JOIN_EDGES = {
+    "duplicate-keys-K37": dict(B=40, K=37, key_range=12, dup=True),
+    "all-pad-rows-K130": dict(B=24, K=130, key_range=400,
+                              pad_rows=(0, 5, 23)),
+    "K-832": dict(B=256, K=832, key_range=3000),
+    "K-837": dict(B=64, K=837, key_range=2500, dup=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HP_JOIN_EDGES)
+def test_hp_join_block_a_pair_edge_cases_on_card(card, case):
+    """One block a pair: duplicate keys, all-PAD rows, K not a multiple
+    of 4, 32 or the block (scalar copies into shared memory), u == v,
+    and two calls with the same bits."""
+    rng = np.random.default_rng(sorted(HP_JOIN_EDGES).index(case))
+    ku, vu, kv, vv = join_rows(rng, **HP_JOIN_EDGES[case])
+    # folded values h * sqrt(d) are small: scale the rows so that a
+    # pair's score stays at SimRank's scale (<= 1) at every K
+    vu, vv = vu * 0.05, vv * 0.05
+    B = ku.shape[0]
+    keys = torch.as_tensor(np.concatenate([ku, kv]), device=card)
+    vals = torch.as_tensor(np.concatenate([vu, vv]), device=card)
+    us = torch.arange(B, dtype=torch.int32, device=card)
+    for vs in (us + B, us, us.flip(0)):   # u != v, u == v, mixed
+        got = hp_join(keys, vals, us, vs)
+        np.testing.assert_allclose(
+            got.cpu().numpy(), hp_join_plain(keys, vals, us, vs).cpu().numpy(),
+            atol=ATOL, rtol=0)
+        assert torch.equal(got, hp_join(keys, vals, us, vs))
 
 
 @pytest.mark.cuda

@@ -157,6 +157,36 @@ def test_fixed_shape_set_after_warmup(carried):
     assert st["batches"] > 0 and st["pad_slots"] > 0
 
 
+def test_width_bucket_follows_headroom_and_quantum():
+    """``EngineConfig(swap_headroom=, cap_quantum=)`` sizes the width
+    bucket as the reference's engine does with the same config: at
+    install, after a swap that fits the bucket, and after one that grows
+    it (eps 0.1 -> 0.05 -> 0.02 widens the packed rows)."""
+    g = oracle.cases()["powerlaw"]
+    ris = [rbuild.build_index(g, eps=e, exact_d=True)
+           for e in (0.1, 0.05, 0.02)]
+    tis = [_carry(ri, g) for ri in ris]
+    kw = dict(swap_headroom=2.0, cap_quantum=32, source_batch=4,
+              pair_batch=32)
+    reng = RQueryEngine(ris[0], g, REngineConfig(**kw))
+    teng = QueryEngine(*tis[0], EngineConfig(**kw), device="cpu")
+    default = QueryEngine(*tis[0], device="cpu")
+    assert teng._width_cap == reng._width_cap
+    assert default._width_cap != teng._width_cap
+    caps = [teng._width_cap]
+    for ri, (ti, tg) in zip(ris[1:], tis[1:]):
+        rs = reng.swap_index(ri, g)
+        ts = teng.swap_index(ti, tg)
+        assert teng._width_cap == reng._width_cap
+        assert ts["recompiles"] == rs["recompiles"]
+        assert teng.stats()["width_cap"] == teng._width_cap
+        caps.append(teng._width_cap)
+    # the first swap fits the bucket, the second grows it
+    assert caps[0] == caps[1] < caps[2]
+    assert teng.stats()["swap_recompiles"] == \
+        reng.stats()["swap_recompiles"]
+
+
 def test_lru_hits_are_counted(carried):
     _, _, ti, tg = carried
     eng = QueryEngine(ti, tg, EngineConfig(cache_size=64), device="cpu")

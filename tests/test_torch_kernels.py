@@ -2,17 +2,20 @@
 reference kernels (Pallas interpret mode) and their references, on the
 CPU; and the wrappers' argument contracts.
 
-On the CPU the wrappers (``hp_join``, ``horner_steps``, ``spmm``) take
+On the CPU the wrappers (``hp_join``, ``horner_push_rows``, ``spmm``) take
 the plain versions because the tensors lie on the CPU. The kernels
 themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
+import oracle
 import pytest
 import torch
 
 from repro.core.hp_index import INT32_PAD_KEY
+from repro.core import build as rbuild
+from repro.core import single_source as rss
 from repro.core.single_source import horner_push as rhorner_push
 from repro.graph import csr as rcsr
 from repro.graph import generators as rgen
@@ -23,16 +26,19 @@ from repro.kernels.hp_join.ref import join_ref
 from repro.kernels.spmv_ell import ops as rspmm
 from repro.kernels.spmv_ell.ref import spmm_ref
 from repro_torch import convert
+from repro_torch.core import device_state as tdevice_state
 from repro_torch.core import single_source as tss
 from repro_torch.graph import generators as tgen
-from repro_torch.kernels.horner_push import (horner_steps,
-                                             horner_steps_plain,
-                                             resolve_push_backend)
+from repro_torch.kernels.horner_push import (horner_push_rows,
+                                             horner_step_plain,
+                                             level_runs_plain,
+                                             resolve_push_backend,
+                                             workspace_numel)
 from repro_torch.kernels.hp_join import hp_join, hp_join_plain
-from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout, spmm,
-                                          spmm_plain)
+from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, PUSH_TIERS,
+                                          SpmmLayout, spmm, spmm_plain)
 from torch_cases import JOIN_CASES, join_rows, port_join, port_push, \
-    rand_case
+    rand_case, table_case
 
 ATOL = 1e-5
 
@@ -80,7 +86,7 @@ def test_hp_join_wrapper_rejects_bad_arguments():
 def _check_push(case, *, n, l_max, bn=8, eb=16):
     """Port plain push vs the reference Pallas kernel (interpret), its
     float64 blocked mirror, and the lax push; also the CPU wrapper."""
-    got = port_push(case, n, l_max, horner_steps_plain)
+    got = port_push(case, n, l_max)
     bs, bdl, bw = rhp_ops.block_align_edges(case["src"], case["dst"],
                                             case["w"], n, bn=bn, eb=eb)
     pallas = np.asarray(rhp_ops.horner_push_pallas(
@@ -97,9 +103,14 @@ def _check_push(case, *, n, l_max, bn=8, eb=16):
     assert got.shape == pallas.shape == blocked.shape == lax.shape
     for ref in (pallas, blocked, lax):
         np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
-    # the wrapper on CPU tensors is the plain step
-    np.testing.assert_array_equal(port_push(case, n, l_max, horner_steps),
-                                  got)
+    # the wrapper on CPU tensors, reading the rows by id, is the plain push
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n,
+                                "cpu")
+    B = case["ku"].shape[0]
+    rows = horner_push_rows(
+        *map(torch.as_tensor, (case["ku"], case["xu"], case["d"])),
+        torch.arange(B), lay, float(case["tau"]), l_max=l_max)
+    np.testing.assert_array_equal(rows.numpy(), got)
     return got
 
 
@@ -171,8 +182,33 @@ def test_plain_push_is_single_source_horner_push():
                           torch.as_tensor(case["xu"]),
                           torch.as_tensor(case["d"]), lay,
                           float(case["tau"]), n=30, l_max=5)
-    np.testing.assert_array_equal(
-        got.numpy(), port_push(case, 30, 5, horner_steps_plain))
+    np.testing.assert_array_equal(got.numpy(), port_push(case, 30, 5))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("name", ["powerlaw", "multigraph"])
+def test_push_rows_on_an_index_table_match_reference(name, B):
+    """The id-driven push on an index's own packed table (rows sorted,
+    PAD last), on the CPU, against the reference's batched push
+    (``repro.core.single_source.single_source_device``) on the same
+    index bytes, within BACKEND_ATOL; the kernel and plain backends are
+    one path here."""
+    g = oracle.cases()[name]
+    ri = rbuild.build_index(g, eps=0.1, exact_d=True)
+    tg = convert.graph_from_arrays(g.n, g.edge_src, g.edge_dst)
+    ti = convert.index_from_arrays(
+        {f: getattr(ri.plan, f) for f in ri.plan.__dataclass_fields__},
+        ri.d, ri.hp.keys, ri.vals_f32(), ri.hp.counts, builder=ri.builder,
+        device="cpu")
+    us = np.random.default_rng(B).integers(0, g.n, B)
+    want = np.asarray(rss.single_source_device(ri, g, us))
+    st = tdevice_state.serving_arrays(ti, tg)
+    for backend in ("kernel", "plain"):
+        got = tss.batched_single_source(
+            st.keys, st.vals, st.d, st.layout, torch.as_tensor(us), st.tau,
+            n=g.n, l_max=ti.plan.l_max, backend=backend)
+        np.testing.assert_allclose(got.numpy(), want,
+                                   atol=oracle.BACKEND_ATOL, rtol=0)
 
 
 def test_push_layout_groups_edges_by_destination():
@@ -192,24 +228,116 @@ def test_push_layout_groups_edges_by_destination():
 
 
 def test_horner_steps_wrapper_rejects_bad_arguments():
-    n, B, W = 6, 2, 3
-    x = torch.zeros((n, B))
+    """The push wrapper (``horner_push_rows``) checks its arguments
+    against the layout before it takes any path."""
+    n, N, W, l_max = 6, 4, 3, 2
     lay = SpmmLayout.from_edges([0, 1], [2, 3], [0.5, 0.5], n, "cpu")
-    keys = torch.zeros((B, W), dtype=torch.int32)
-    contrib = torch.zeros((B, W))
-    args = (lay, keys, contrib, 2, 0.0)
+    keys = torch.zeros((N, W), dtype=torch.int32)
+    vals, d = torch.zeros((N, W)), torch.ones(n)
+    us = torch.tensor([0, 2])
+
+    def push(keys=keys, vals=vals, d=d, us=us, lay=lay, **kw):
+        return horner_push_rows(keys, vals, d, us, lay, 0.0, l_max=l_max,
+                                **kw)
+
     with pytest.raises(ValueError):
-        horner_steps(x, torch.zeros((n, B + 1)), *args)
-    with pytest.raises(TypeError):
-        horner_steps(x.double(), x.double(), *args)
-    with pytest.raises(ValueError):
-        horner_steps(torch.zeros((B, n)).t(), x, *args)
+        push(vals=torch.zeros((N, W + 1)))
     with pytest.raises(ValueError):   # a layout of another graph size
-        horner_steps(torch.zeros((n + 1, B)), torch.zeros((n + 1, B)),
-                     *args)
-    spare = torch.empty_like(x)
-    # three levels ping-pong x -> spare -> x -> spare
-    assert horner_steps(x, spare, *args) is spare
+        push(lay=SpmmLayout.from_edges([0], [1], [0.5], n + 1, "cpu"))
+    with pytest.raises(ValueError):
+        push(us=us.view(2, 1))
+    with pytest.raises(TypeError):
+        push(vals=vals.double())
+    with pytest.raises(TypeError):
+        push(us=us.float())
+    with pytest.raises(ValueError):
+        push(keys=torch.zeros((W, N), dtype=torch.int32).t())
+    with pytest.raises(ValueError):
+        push(workspace=torch.empty(workspace_numel(n, 2, l_max) - 1))
+    ws = torch.empty(workspace_numel(n, 2, l_max))
+    assert push(workspace=ws).shape == (2, n)
+    assert push(us=us.int()).shape == (2, n)
+
+
+LEVEL_RUN_CASES = {
+    "ragged": dict(n=11, rows=6, W=9, l_max=4, pad_frac=0.3),
+    "pad-rows": dict(n=7, rows=5, W=6, l_max=3, pad_frac=0.3, pad=(0, 3)),
+    "full-rows": dict(n=13, rows=4, W=8, l_max=2, pad_frac=0.0),
+    "empty-levels": dict(n=9, rows=5, W=7, l_max=6, pad_frac=0.2,
+                         levels=(0, 3)),
+    "duplicates": dict(n=5, rows=6, W=10, l_max=3, pad_frac=0.2, dup=True),
+}
+
+
+def _level_rows(rng, *, n, rows, W, l_max, pad_frac, pad=(), levels=None,
+                dup=False):
+    """Sorted key rows with PAD last; ``levels`` keeps only those levels
+    (so the others are empty), ``pad`` makes those rows all PAD."""
+    lv = rng.integers(0, l_max + 1, (rows, W)) if levels is None else \
+        rng.choice(levels, (rows, W))
+    keys = (lv * n + rng.integers(0, 2 if dup else n, (rows, W))
+            ).astype(np.int32)
+    keys[rng.random((rows, W)) < pad_frac] = INT32_PAD_KEY
+    keys[list(pad)] = INT32_PAD_KEY
+    return np.sort(keys, axis=1)
+
+
+@pytest.mark.parametrize("case", LEVEL_RUN_CASES)
+def test_level_runs_match_a_numpy_count(case):
+    """``level_runs_plain`` -- what the kernel's prologue finds -- against
+    a plain count: level l's run of row b starts after the entries of
+    levels < l, and a row's last level is that of its last live entry
+    (-1 for an all-PAD row)."""
+    spec = LEVEL_RUN_CASES[case]
+    rng = np.random.default_rng(sorted(LEVEL_RUN_CASES).index(case))
+    keys = _level_rows(rng, **spec)
+    n, l_max = spec["n"], spec["l_max"]
+    runs, last = level_runs_plain(torch.as_tensor(keys), n, l_max)
+    live = keys != INT32_PAD_KEY
+    lv = np.where(live, keys // n, l_max + 1)
+    want = np.stack([(lv < level).sum(axis=1)
+                     for level in range(l_max + 2)], axis=1)
+    np.testing.assert_array_equal(runs.numpy(), want)
+    top = np.array([lv[b][live[b]].max() if live[b].any() else -1
+                    for b in range(len(keys))])
+    np.testing.assert_array_equal(last.numpy(), top)
+    for b in range(len(keys)):   # each run holds exactly its level's keys
+        for level in range(l_max + 1):
+            run = keys[b, want[b, level]:want[b, level + 1]]
+            assert np.all(run // n == level)
+    if "pad" in spec:
+        assert np.all(last.numpy()[list(spec["pad"])] == -1)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_plain_push_is_zero_above_the_top_seed_level(seed):
+    """Above the highest level that holds a seed, the plain push from a
+    zero frontier is exactly zero, level by level; so starting there,
+    as the kernel does, gives the push's bits."""
+    rng = np.random.default_rng(seed)
+    n, l_max = 24, 7
+    case = table_case(rng, n=n, rows=4, W=6, l_max=3, m=90, hubs=(1,))
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n,
+                                "cpu")
+    keys = torch.as_tensor(case["ku"])
+    contrib = torch.where(keys == INT32_PAD_KEY, 0.0,
+                          torch.as_tensor(case["xu"]) * torch.as_tensor(
+                              case["d"])[(keys.long() % n).clamp(0, n - 1)])
+    top = int(level_runs_plain(keys, n, l_max)[1].max())
+    assert top <= 3
+    tau = float(case["tau"])
+
+    def run(start):
+        acc = torch.zeros((n, 4))
+        for level in range(start, -1, -1):
+            nxt = torch.empty_like(acc)
+            horner_step_plain(acc, nxt, lay, keys, contrib, level, tau)
+            if level > top:
+                assert torch.count_nonzero(nxt) == 0
+            acc = nxt
+        return acc
+
+    np.testing.assert_array_equal(run(l_max).numpy(), run(top).numpy())
 
 
 def test_push_layout_splits_nodes_by_in_degree():
@@ -221,6 +349,28 @@ def test_push_layout_splits_nodes_by_in_degree():
     assert lay.heavy.tolist() == [3, 7]
     assert sorted(lay.light.tolist() + lay.heavy.tolist()) == list(range(n))
     assert lay.heavy.dtype == lay.light.dtype == torch.int32
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_push_layout_orders_nodes_in_tiers_of_in_degree(seed):
+    """``push_order`` holds every node once, by tier of in-degree
+    (PUSH_TIERS: low, mid, wide, big), ascending ids within a tier, and
+    ``push_tiers`` the tiers' sizes -- the same on every layout route."""
+    rng = np.random.default_rng(seed)
+    n = 300
+    deg = rng.choice([0, 1, 3, 8, 9, 20, 32, 33, 100, 128, 129, 400], n)
+    dst = np.repeat(np.arange(n), deg)
+    src = rng.integers(0, n, len(dst))
+    lay = SpmmLayout.from_edges(src, dst, np.ones(len(dst)), n, "cpu")
+    tier = np.searchsorted(np.asarray(PUSH_TIERS), deg, side="left")
+    want = np.argsort(tier, kind="stable")
+    np.testing.assert_array_equal(lay.push_order.numpy(), want)
+    assert lay.push_order.dtype == torch.int32
+    assert lay.push_tiers == tuple(np.bincount(tier, minlength=4))
+    same = SpmmLayout(n=n, in_ptr=lay.in_ptr, in_idx=lay.in_idx, w=lay.w,
+                      heavy=lay.heavy, light=lay.light)
+    assert torch.equal(same.push_order, lay.push_order)
+    assert same.push_tiers == lay.push_tiers
 
 
 def test_push_backend_resolves_by_device():

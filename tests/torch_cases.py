@@ -62,11 +62,32 @@ def rand_case(rng, *, n, B, W, l_max, m, tau=1e-4, pad_frac=0.3):
                 tau=np.float32(tau))
 
 
-def port_push(case, n, l_max, steps):
-    """The port's Horner loop on a case, on the CPU, with ``steps``."""
+def port_push(case, n, l_max):
+    """The port's plain Horner push on a case's rows, on the CPU."""
     lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n,
                                 "cpu")
     return horner_push(torch.as_tensor(case["ku"]),
                        torch.as_tensor(case["xu"]),
                        torch.as_tensor(case["d"]), lay, float(case["tau"]),
-                       n=n, l_max=l_max, steps=steps).numpy()
+                       n=n, l_max=l_max).numpy()
+
+
+def table_case(rng, *, n, rows, W, l_max, m, hubs=(), tau=1e-4,
+               pad_frac=0.3, dup=False):
+    """A packed table as the index stores it -- (rows, W) keys sorted
+    ascending per row with PAD last, float32 values -- over a random
+    graph whose ``hubs`` each get 3 * 40 extra in-edges (in-degree above
+    the heavy split), weighted as Â is: sqrt(c) / |I(v)| with c = 0.6,
+    so that scores stay at SimRank's scale."""
+    case = rand_case(rng, n=n, B=rows, W=W, l_max=l_max, m=m, tau=tau,
+                     pad_frac=pad_frac)
+    if dup:   # duplicate keys inside each row
+        case["ku"][:, 1::2] = case["ku"][:, 0::2][:, :W // 2]
+    case["ku"] = np.sort(case["ku"], axis=1)
+    extra = np.repeat(np.asarray(hubs, np.int64), 3 * 40)
+    case["src"] = np.concatenate([case["src"], rng.integers(0, n, len(extra))
+                                  ]).astype(np.int32)
+    case["dst"] = np.concatenate([case["dst"], extra]).astype(np.int32)
+    indeg = np.bincount(case["dst"], minlength=n)
+    case["w"] = (np.sqrt(0.6) / indeg[case["dst"]]).astype(np.float32)
+    return case
