@@ -36,6 +36,23 @@ Phases (any failure raises and the script exits non-zero):
      all launch. Checks (outside the counts): logits against the plain
      CIN on the card, top-128 against a stable sort, fused - base =
      sim_w * prior;
+  3d. the index artifact at the Enron regime, in a temporary directory
+     under ``build/`` that is removed after: phase 3's float32 index is
+     saved as v3 (bytes and seconds printed), loaded eagerly onto the
+     card and mapped (``mmap=True``), and served from the mapped file
+     through ``QueryEngine.from_index_file`` (install ms); the sample
+     must equal phase 3's answers bit for bit. A v2 ``.npz`` round
+     trip follows. Then, with the counters zeroed: ``build_index(
+     quant_frac=0.2)`` on the card, ``quantize_index(int16)``, a v3
+     save, the mapped file served; ``hp_join``, ``horner_push`` and
+     ``spmm`` must launch, and the answers must lie within
+     ``quant_charge`` of the same plan's float32 index on the card, the
+     float payload at most 0.6x, and ``quantize_index(bf16)`` must be
+     refused at this plan. Last, ``build_index(space_reduce=True,
+     enhance=True)``: rows reduced, bytes saved, a v3 round trip of the
+     ``reduced`` and ``marks`` members, ``QueryEngine``'s refusal, and
+     64 ``query_pair_host(u, v, g)`` answers beside the unreduced
+     index's;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -62,7 +79,10 @@ Phases (any failure raises and the script exits non-zero):
      shapes);
   5. accuracy: on a 64-node graph built with the exact diagonal, every
      pair, single-source and top-k answer is within eps + 1e-5 of exact
-     SimRank (power method);
+     SimRank (power method), for the float32 index, an int16 index
+     (quant_frac 0.25) and a bf16 index (eps 0.2, quant_frac 0.8, d in
+     float32), each mapped from a v3 file and served on the card; and
+     every host pair of the reduced, enhanced index;
   6. output: a ``{"kernels": [...]}`` line, the card's name and power
      limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -75,11 +95,13 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent / "src"
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): memory
 # bandwidth, non-tensor-core float32 rate and dense TF32 tensor-core rate.
@@ -98,6 +120,7 @@ N_CAND = 1_000_000     # retrieval_cand (launch/specs.py RECSYS_SHAPE_DEFS)
 N_CHECK = 4_096        # candidates recomputed on the plain CIN
 CLICK_GRAPH = (10_000, 30_000, 150_000)   # users, items, clicks
 N_PRIOR_USERS = 8
+QUANT_FRAC = 0.2       # eps share reserved for quantization (phase 3d)
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -415,10 +438,10 @@ def xdeepfm_phase(dev, cfg=None, n_cand: int = N_CAND,
     items = np.array([rng.choice(g.in_neighbors(u)) for u in users])
     sources = np.concatenate([users, items])
     t0 = time.perf_counter()
-    sim = single_source_device(idx, g, sources)
+    sim = single_source_device(idx, g, sources, device=dev)
     t_first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sim = single_source_device(idx, g, sources)
+    sim = single_source_device(idx, g, sources, device=dev)
     t_warm = time.perf_counter() - t0
     item_ids = torch.as_tensor(rng.integers(0, cfg.vocab_per_field,
                                             (n_items, n_item)), device=dev)
@@ -453,8 +476,8 @@ def xdeepfm_phase(dev, cfg=None, n_cand: int = N_CAND,
     e_prior = max(float((fused[2 * u + k] - base[u] - w * torch.as_tensor(
         sim[k * len(users) + u, n_users:], device=dev)).abs().max())
         for u in range(len(users)) for k in (0, 1))
-    e_sim = float(np.abs(single_source_device(
-        idx, g, sources, backend="plain") - sim).max())   # not counted
+    e_sim = float(np.abs(single_source_device(          # not counted
+        idx, g, sources, backend="plain", device=dev) - sim).max())
     user_mass = np.abs(sim[:len(users), n_users:]).sum(1)
     item_mass = sim[len(users):, n_users:].sum(1)
     print(f"[prior] fused - base vs sim_w * prior: max {e_prior:.3g} "
@@ -594,6 +617,307 @@ def cin_row(model, batch, dev, launches: int) -> dict:
     return row
 
 
+def accuracy(label: str, eng, S, eps: float) -> None:
+    """Every pair, single-source and top-k (k = 10) answer of ``eng``
+    within eps + 1e-5 of the exact SimRank matrix ``S``."""
+    import numpy as np
+    n = S.shape[0]
+    tol = eps + 1e-5
+    uu, vv = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    acc = {"pair": float(np.abs(eng.pairs(uu.ravel(), vv.ravel())
+                                .reshape(n, n) - S).max()),
+           "source": float(np.abs(eng.single_source(np.arange(n))
+                                  - S).max())}
+    sv, si = eng.topk(np.arange(n), 10)
+    acc["topk"] = float(np.abs(sv - S[np.arange(n)[:, None], si]).max())
+    # a returned node's exact score is at most 2 tol below the exact
+    # 10th best (both sides are within tol of exact)
+    kth = np.sort(S, axis=1)[:, ::-1][:, 9]
+    gap = float(max(0.0, (kth[:, None] - S[np.arange(n)[:, None], si]).max()))
+    st = eng.stats()
+    print(f"[accuracy] {label}: n={n} eps={eps} max |err| {acc} (bound "
+          f"{tol:.6g}); top-k rank gap {gap:.3g} (bound {2 * tol:.6g}); "
+          f"pair={st['pair_backend']} push={st['push_backend']} "
+          f"quantized={st['quantized']}")
+    if max(acc.values()) > tol or gap > 2 * tol:
+        raise RuntimeError(f"{label} answers beyond eps of exact "
+                           f"SimRank: {acc}")
+
+
+def accuracy_phase(dev) -> None:
+    """Phase 5: on a 64-node graph with the exact diagonal, the float32
+    index, an int16 and a bf16 index mapped from v3 files and served by
+    the engine, and the reduced, enhanced index's host pairs, each
+    within its eps + 1e-5 of exact SimRank (power method)."""
+    import numpy as np
+
+    from repro_torch.baselines import power
+    from repro_torch.core import build, quantize
+    from repro_torch.graph import generators
+    from repro_torch.serve import EngineConfig, QueryEngine
+
+    small = generators.barabasi_albert(64, 3, seed=1, directed=False)
+    S = power.all_pairs(small, c=0.6, iters=power.iterations_for(1e-9, 0.6))
+    sidx = build.build_index(small, eps=EPS, c=0.6, exact_d=True,
+                             device=dev)
+    accuracy("float32", QueryEngine(sidx, small, EngineConfig(
+        cache_size=0), device=dev), S, sidx.plan.eps)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # int16 (quant_frac 0.25) and bf16 (eps 0.2, quant_frac 0.8,
+        # float32 d: vmax = 1 needs 2^-8 <= the vals bound), each through
+        # a v3 file mapped and served on the card
+        for scheme, eps, frac, qd in (("int16", EPS, 0.25, True),
+                                      ("bf16", 0.2, 0.8, False)):
+            qidx = quantize.quantize_index(build.build_index(
+                small, eps=eps, c=0.6, exact_d=True, quant_frac=frac,
+                device=dev), scheme, quantize_d=qd)
+            f = str(Path(tmp) / f"{scheme}.sling")
+            qidx.save(f)
+            qeng = QueryEngine.from_index_file(
+                f, small, EngineConfig(cache_size=0), mmap=True, device=dev)
+            accuracy(f"{scheme} mmap", qeng, S, eps)
+    ridx = build.build_index(small, eps=EPS, c=0.6, exact_d=True,
+                             space_reduce=True, enhance=True, device=dev)
+    n = small.n
+    host = np.array([[ridx.query_pair_host(u, v, small) for v in range(n)]
+                     for u in range(n)])
+    e_host = float(np.abs(host - S).max())
+    print(f"[accuracy] reduced + enhanced ({int(ridx.reduced.sum())} of "
+          f"{n} rows reduced): query_pair_host(u, v, g) max |err| "
+          f"{e_host:.3g} (bound {EPS + 1e-5:.6g})")
+    if not e_host <= EPS + 1e-5:
+        raise RuntimeError(f"host pairs beyond eps of exact: {e_host}")
+
+
+def serve_sample(eng, pair_u, pair_v, src_q, top_q):
+    """Phase 3's sample through ``eng``: pairs in batches of 64, then
+    single-source and top-k (k = 10) batches of 8 in turn. Returns
+    ({kind: answers per batch}, {kind: host seconds per batch})."""
+    answers = {"pair": [], "source": [], "topk": []}
+    lat = {"pair": [], "source": [], "topk": []}
+    for lo in range(0, len(pair_u), 64):
+        t = time.perf_counter()
+        answers["pair"].append(eng.pairs(pair_u[lo:lo + 64],
+                                         pair_v[lo:lo + 64]))
+        lat["pair"].append(time.perf_counter() - t)
+    for lo in range(0, len(src_q), 8):
+        t = time.perf_counter()
+        answers["source"].append(eng.single_source(src_q[lo:lo + 8]))
+        lat["source"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        answers["topk"].append(eng.topk(top_q[lo:lo + 8], 10))
+        lat["topk"].append(time.perf_counter() - t)
+    return answers, lat
+
+
+def answer_arrays(answers) -> dict:
+    """{pair, source, topk, topk_ids}: each kind's answers as one array."""
+    import numpy as np
+    return {"pair": np.concatenate(answers["pair"]),
+            "source": np.concatenate(answers["source"]),
+            "topk": np.concatenate([a[0] for a in answers["topk"]]),
+            "topk_ids": np.concatenate([a[1] for a in answers["topk"]])}
+
+
+def answer_diff(a, b) -> dict:
+    """max |a - b| of two samples' scores, kind by kind."""
+    import numpy as np
+    x, y = answer_arrays(a), answer_arrays(b)
+    return {k: float(np.abs(x[k] - y[k]).max())
+            for k in ("pair", "source", "topk")}
+
+
+def artifact_phase(g, idx, answers, queries, dev, tmp) -> dict:
+    """Phase 3d, the index artifact at the Enron regime (see the module
+    docstring). ``idx`` and ``answers`` are phase 3's index and sample,
+    ``queries`` the sample's (pair_u, pair_v, src_q, top_q); the files
+    go to ``tmp``. The counters are zeroed before the quantized build and
+    read after its mapped index served; that index's answers are then
+    held against the same plan's float32 index on the card.
+    Returns the launches of the path."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build, quantize, theory
+    from repro_torch.core.index import SlingIndex
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.horner_push import horner_push_rows
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.serve import EngineConfig, QueryEngine
+
+    def timed(fn):
+        synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        return out, time.perf_counter() - t
+
+    def same_tensors(a, b) -> bool:
+        return all(torch.equal(x.to(dev), y.to(dev)) for x, y in (
+            (a.d, b.d), (a.hp.keys, b.hp.keys), (a.hp.vals, b.hp.vals),
+            (a.hp.counts, b.hp.counts)))
+
+    ref = answer_arrays(answers)
+    kv_bytes = idx.hp.keys.nbytes + idx.hp.vals.nbytes
+
+    # ---- the float32 index of phase 3: v3 and v2 round trips ----------
+    path = os.path.join(tmp, "enron.sling")
+    _, t_save = timed(lambda: idx.save(path))
+    eager, t_eager = timed(lambda: SlingIndex.load(path, device=dev))
+    mapped, t_map = timed(lambda: SlingIndex.load(path, mmap=True))
+    if not (same_tensors(eager, idx) and same_tensors(mapped, idx)
+            and eager.plan == idx.plan and mapped.read_only):
+        raise RuntimeError("the v3 round trip changed the index")
+    del eager, mapped
+    feng, t_inst = timed(lambda: QueryEngine.from_index_file(
+        path, g, EngineConfig(), mmap=True, device=dev))
+    feng.warmup()
+    got, lat = serve_sample(feng, *queries)
+    got = answer_arrays(got)
+    bit_equal = {k: bool(np.array_equal(got[k], ref[k])) for k in ref}
+    print(f"[artifact] v3 float32: {os.path.getsize(path):,} bytes "
+          f"(keys + vals {kv_bytes:,}); save {t_save:.3f}s, load eager "
+          f"on the card {t_eager:.3f}s, load mmap {t_map * 1e3:.3f} ms, "
+          f"from_index_file(mmap) install {t_inst * 1e3:.1f} ms; served "
+          + " ".join(f"{k} p50 {1e3 * np.median(v):.3f} ms"
+                     for k, v in lat.items())
+          + f"; equal bits to phase 3: {bit_equal}")
+    if not all(bit_equal.values()):
+        raise RuntimeError(f"the mapped artifact's answers differ from "
+                           f"phase 3's: {bit_equal}")
+    del feng
+    os.remove(path)
+    path2 = os.path.join(tmp, "enron.npz")
+    _, t_save2 = timed(lambda: idx.save(path2, version=2))
+    v2, t_load2 = timed(lambda: SlingIndex.load(path2, device=dev))
+    print(f"[artifact] v2 .npz: {os.path.getsize(path2):,} bytes; save "
+          f"{t_save2:.3f}s, load eager on the card {t_load2:.3f}s; equal: "
+          f"{same_tensors(v2, idx)}")
+    if not same_tensors(v2, idx):
+        raise RuntimeError("the v2 round trip changed the index")
+    del v2
+    os.remove(path2)
+
+    # ---- quantized: build, int16, save, map, serve --------------------
+    kernels = {"hp_join": hp_join, "horner_push": horner_push_rows,
+               "spmm": spmm}
+    for kern in kernels.values():
+        kern.launches = 0
+    horner_push_rows.steps = 0
+    qbase, t_build = timed(lambda: build.build_index(
+        g, eps=EPS, c=0.6, seed=0, block=BLOCK, quant_frac=QUANT_FRAC,
+        device=dev))
+    p = qbase.plan
+    b_vals = theory.quant_vals_bound(p, d_channel=True)
+    b_d = theory.quant_d_bound(p)
+    iq, t_quant = timed(lambda: quantize.quantize_index(qbase, "int16"))
+    qpath = os.path.join(tmp, "enron-int16.sling")
+    _, t_qsave = timed(lambda: iq.save(qpath))
+    qeng, t_qinst = timed(lambda: QueryEngine.from_index_file(
+        qpath, g, EngineConfig(), mmap=True, device=dev))
+    qeng.warmup()
+    qans, qlat = serve_sample(qeng, *queries)
+    synchronize(dev)
+    path_launches = {k: kern.launches for k, kern in kernels.items()}
+    path_launches["horner_push_steps"] = horner_push_rows.steps
+    quantized = qeng.stats()["quantized"]
+    del qeng
+    # checks, outside the count: the same plan's float32 index on the card
+    feng = QueryEngine(qbase, g, EngineConfig(), device=dev)
+    fans, _ = serve_sample(feng, *queries)
+    del feng
+    diff = answer_diff(qans, fans)
+    charge = theory.quant_charge(p, b_vals, b_d)
+    pay_fp = qbase.hp.vals.nbytes + 4 * qbase.n
+    pay_q = iq.hp.vals.nbytes + 2 * iq.n
+    try:
+        quantize.quantize_index(qbase, "bf16")
+        bf16 = "not refused"
+    except ValueError as e:
+        bf16 = f"refused ({e})"
+    print(f"[artifact] quant_frac={QUANT_FRAC}: eps_quant={p.eps_quant:.6g}"
+          f" b_vals={b_vals:.6g} b_d={b_d:.6g} quant_charge={charge:.6g}; "
+          f"build {t_build:.2f}s, quantize_index(int16) on the card "
+          f"{t_quant * 1e3:.1f} ms (scale {iq.quant.scale:.6g}, d_scale "
+          f"{iq.quant.d_scale:.6g}), save {t_qsave:.3f}s, "
+          f"{os.path.getsize(qpath):,} bytes; from_index_file(mmap) "
+          f"install with the dequantize {t_qinst * 1e3:.1f} ms; "
+          f"stats quantized={quantized}")
+    print(f"[artifact] int16 served: "
+          + " ".join(f"{k} p50 {1e3 * np.median(v):.3f} ms"
+                     for k, v in qlat.items())
+          + f"; launches {path_launches}; max |int16 - float32| {diff} "
+          f"(bound {charge:.6g}); float payload {pay_q:,} / {pay_fp:,} = "
+          f"{pay_q / pay_fp:.4f} (gate 0.6); bf16 at this plan: {bf16}")
+    os.remove(qpath)
+    if quantized != "int16" or max(diff.values()) > charge \
+            or pay_q > 0.6 * pay_fp or not bf16.startswith("refused"):
+        raise RuntimeError("the quantized artifact failed its checks")
+    del iq, qbase
+
+    # ---- Section 5: space reduction and enhancement ---------------------
+    red, t_red = timed(lambda: build.build_index(
+        g, eps=EPS, c=0.6, seed=0, block=BLOCK, space_reduce=True,
+        enhance=True, device=dev))
+    entries = int(idx.hp.counts.sum())
+    saved = 8 * (entries - int(red.hp.counts.sum()))
+    spath = os.path.join(tmp, "enron-reduced.sling")
+    _, t_ssave = timed(lambda: red.save(spath))
+    round_trip = {}
+    for mmap in (False, True):
+        back = SlingIndex.load(spath, mmap=mmap,
+                               device=None if mmap else dev)
+        round_trip["mmap" if mmap else "eager"] = bool(
+            np.array_equal(back.reduced, red.reduced)
+            and np.array_equal(back.marks, red.marks)
+            and same_tensors(back, red))
+        del back
+    try:
+        QueryEngine(red, g, device=dev)
+        refused = "served"
+    except ValueError:
+        refused = "refused"
+    rng = np.random.default_rng(4)
+    hu, hv = rng.integers(0, g.n, (2, 64))
+    t = time.perf_counter()
+    host_red = np.array([red.query_pair_host(int(u), int(v), g)
+                         for u, v in zip(hu, hv)])
+    t_host = (time.perf_counter() - t) / len(hu)
+    host_full = np.array([idx.query_pair_host(int(u), int(v))
+                          for u, v in zip(hu, hv)])
+    gap = float(np.abs(host_red - host_full).max())
+    print(f"[section5] build_index(space_reduce, enhance) {t_red:.2f}s "
+          f"(d {red.build_seconds['d']:.2f}s, hp "
+          f"{red.build_seconds['hp']:.2f}s, Section 5 on the host "
+          f"{t_red - sum(red.build_seconds.values()):.2f}s): "
+          f"{int(red.reduced.sum()):,} of {g.n:,} rows reduced, "
+          f"{saved:,} bytes saved ({entries:,} -> "
+          f"{int(red.hp.counts.sum()):,} entries), rows marked "
+          f"{int((red.marks >= 0).any(1).sum()):,} (budget "
+          f"{red.marks.shape[1]}); v3 {os.path.getsize(spath):,} bytes, "
+          f"save {t_ssave:.3f}s, round trip equal {round_trip}; "
+          f"QueryEngine: {refused}")
+    print(f"[section5] 64 host pairs, query_pair_host(u, v, g) "
+          f"{t_host * 1e3:.2f} ms each; reduced+enhanced vs unreduced, "
+          f"max |diff| {gap:.3g}:")
+    cells = [f"s({u},{v})={a:.6f}/{b:.6f}"
+             for u, v, a, b in zip(hu, hv, host_red, host_full)]
+    for lo in range(0, len(cells), 8):
+        print("[section5]   " + " ".join(cells[lo:lo + 8]))
+    os.remove(spath)
+    if not all(round_trip.values()) or refused != "refused" \
+            or not gap <= 2 * EPS:
+        raise RuntimeError("the Section-5 index failed its checks")
+    if min(path_launches.values()) <= 0:
+        raise RuntimeError(f"a kernel did not launch on the artifact "
+                           f"path: {path_launches}")
+    return path_launches
+
+
 def update_phase(g, dev) -> dict:
     """The dynamic-graph path on the card at the Enron regime: build
     with ``STALE_FRAC``, warm an engine, then for each churn level in
@@ -685,7 +1009,7 @@ def update_phase(g, dev) -> dict:
                   f"per batch {pct(ls)}")
         # checks, outside the path's launch count
         e_pair = float(np.abs(np.concatenate(served["pair"]) - np.concatenate(
-            [idx.query_pairs(q[lo:lo + 32], q[lo + 32:lo + 64])
+            [idx.query_pairs(q[lo:lo + 32], q[lo + 32:lo + 64], dev)
              for lo in (0, 64)])).max())
         g_new, touched, tv = csr.apply_edges(g_cur, delta)
         rows, targets, _, _, _ = update.affected_sets(
@@ -921,7 +1245,7 @@ def hp_join_row(eng, idx, pair_u, pair_v, launches: int) -> dict:
     K = eng._width_cap
     us = torch.as_tensor(pair_u, device=dev)
     vs = torch.as_tensor(pair_v, device=dev)
-    fk, fv = eng._folded_keys, eng._folded_vals
+    fk, fv = eng._keys, eng._folded_vals
     got = hp_join(fk, fv, us, vs)
     e_join = float((got - hp_join_plain(fk, fv, us, vs)).abs().max())
     if not torch.equal(got, hp_join(fk, fv, us, vs)):
@@ -1207,7 +1531,6 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
-    from repro_torch.baselines import power
     from repro_torch.core import build
     from repro_torch.graph import generators
     from repro_torch.kernels import _build
@@ -1263,25 +1586,12 @@ def main() -> int:
     shapes = eng.stats()["unique_shapes"]
     rng = np.random.default_rng(0)
     nodes = rng.permutation(g.n)
-    lat = {"pair": [], "source": [], "topk": []}
-    answers = {}
     pair_u = nodes[:256].astype(np.int32)
     pair_v = nodes[256:512].astype(np.int32)
-    for lo in range(0, 256, 64):
-        t = time.perf_counter()
-        answers.setdefault("pair", []).append(
-            eng.pairs(pair_u[lo:lo + 64], pair_v[lo:lo + 64]))
-        lat["pair"].append(time.perf_counter() - t)
     src_q = nodes[512:576].astype(np.int32)
     top_q = nodes[576:640].astype(np.int32)
-    for lo in range(0, 64, 8):
-        t = time.perf_counter()
-        answers.setdefault("source", []).append(
-            eng.single_source(src_q[lo:lo + 8]))
-        lat["source"].append(time.perf_counter() - t)
-        t = time.perf_counter()
-        answers.setdefault("topk", []).append(eng.topk(top_q[lo:lo + 8], 10))
-        lat["topk"].append(time.perf_counter() - t)
+    queries = (pair_u, pair_v, src_q, top_q)
+    answers, lat = serve_sample(eng, *queries)
     launches = {"hp_join": hp_join.launches,
                 "horner_push": horner_push_rows.launches,
                 "spmm": spmm.launches,
@@ -1341,6 +1651,14 @@ def main() -> int:
     total["cin"] = rec["cin"]
     print(f"[xdeepfm] launches {rec}; all paths {total}")
 
+    # ---- 3d. the index artifact: save, load, mmap, quantize, Section 5 --
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        art = artifact_phase(g, idx, answers, queries, dev, tmp)
+    for k in art:
+        total[k] += art[k]
+    print(f"[artifact] launches {art}; all paths {total}")
+
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),
                horner_row(g, p, eng, nodes, total["horner_push"],
@@ -1362,28 +1680,7 @@ def main() -> int:
     del eng, idx
 
     # ---- 5. accuracy against exact SimRank -------------------------------
-    small = generators.barabasi_albert(64, 3, seed=1, directed=False)
-    sidx = build.build_index(small, eps=EPS, c=0.6, exact_d=True,
-                             device=dev)
-    S = power.all_pairs(small, c=0.6, iters=power.iterations_for(1e-9, 0.6))
-    tol = sidx.plan.eps + 1e-5
-    seng = QueryEngine(sidx, small, EngineConfig(cache_size=0), device=dev)
-    n = small.n
-    uu, vv = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-    acc = {"pair": float(np.abs(seng.pairs(uu.ravel(), vv.ravel())
-                                .reshape(n, n) - S).max()),
-           "source": float(np.abs(seng.single_source(np.arange(n))
-                                  - S).max())}
-    sv, si = seng.topk(np.arange(n), 10)
-    acc["topk"] = float(np.abs(sv - S[np.arange(n)[:, None], si]).max())
-    # a returned node's exact score is at most 2 tol below the exact
-    # 10th best (both sides are within tol of exact)
-    kth = np.sort(S, axis=1)[:, ::-1][:, 9]
-    gap = float(max(0.0, (kth[:, None] - S[np.arange(n)[:, None], si]).max()))
-    print(f"[accuracy] n={n} eps={sidx.plan.eps} max |err| {acc} "
-          f"(bound {tol:.6g}); top-k rank gap {gap:.3g} (bound {2 * tol:.6g})")
-    if max(acc.values()) > tol or gap > 2 * tol:
-        raise RuntimeError(f"answers beyond eps of exact SimRank: {acc}")
+    accuracy_phase(dev)
 
     # ---- 6. output --------------------------------------------------------
     print(json.dumps({"kernels": [{k: v for k, v in kk.items()

@@ -2,14 +2,19 @@
 one-shot query helpers (port of ``repro/core/device_state.py``).
 
 ``single_source_device`` and ``topk_device`` take host objects per
-call (an index and a graph). The port's index already lives on its
-device; what a call would otherwise rebuild and upload each time is the
-``Â`` operator's CSR layout (:class:`~repro_torch.kernels.spmv_ell.
-SpmmLayout`, the port's counterpart of the reference's Pallas blocked
-layout) and the prune threshold. This module keeps them warm per
-(index, graph) and invalidates them by a cheap fingerprint: the
-index's ``epoch`` (which every ``update_index`` batch bumps) and the
-identities of the arrays, so a rebound array is a new entry.
+call (an index and a graph) and run on the device they are given
+(``cuda`` unless ``device="cpu"``), wherever the index's storage lies:
+a mapped index lives in host memory and still serves on the card. What
+a call would otherwise rebuild and upload each time is the packed table
+(dequantized on the device when quantized; no copy for a float32 index
+already there), the ``Â`` operator's CSR layout (:class:`~repro_torch.
+kernels.spmv_ell.SpmmLayout`, the port's counterpart of the
+reference's Pallas blocked layout) and the prune threshold. This module
+keeps them warm per (index, graph, device) and invalidates them by a
+cheap fingerprint: the index's ``epoch`` (which every ``update_index``
+batch bumps) and the identities of the arrays, so a rebound array is a
+new entry. A space-reduced index is refused: its packed rows lack the
+entries only the host path re-materializes.
 
 Entries are evicted by weakref finalizers when the index or the graph
 dies, plus an LRU cap of 8 as a backstop against id reuse. Long-lived
@@ -24,6 +29,7 @@ from collections import OrderedDict
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.graph import csr
 
 _MAX_ENTRIES = 8
@@ -32,8 +38,8 @@ _cache: "OrderedDict[tuple, tuple]" = OrderedDict()
 
 @dataclasses.dataclass(frozen=True)
 class ServingArrays:
-    """The single-source/top-k working set on the index's device: the
-    packed index (the index's own tensors), Â's layout and tau."""
+    """The single-source/top-k working set on one device: the packed
+    index (float32), Â's layout and tau."""
     keys: torch.Tensor   # (n, width) int32
     vals: torch.Tensor   # (n, width) float32
     d: torch.Tensor      # (n,) float32
@@ -46,19 +52,22 @@ def _fingerprint(idx, g: csr.Graph) -> tuple:
             id(idx.d), idx.hp.width, id(g.edge_src), id(g.edge_dst), g.m)
 
 
-def serving_arrays(idx, g: csr.Graph) -> ServingArrays:
-    """The single-source/top-k working set, Â's layout built and
-    uploaded to the index's device once per (index epoch, graph)."""
+def serving_arrays(idx, g: csr.Graph, device=None) -> ServingArrays:
+    """The single-source/top-k working set on ``device`` (``cuda``
+    unless ``device="cpu"``), uploaded and Â's layout built once per
+    (index epoch, graph, device)."""
     from repro_torch.core.single_source import prune_tau
     from repro_torch.kernels.spmv_ell import SpmmLayout
-    key, fp = (id(idx), id(g)), _fingerprint(idx, g)
+    idx.refuse_reduced("serving_arrays")
+    dev = resolve_device(device)
+    key, fp = (id(idx), id(g), str(dev)), _fingerprint(idx, g)
     hit = _cache.get(key)
     if hit is not None and hit[0] == fp:
         _cache.move_to_end(key)
         return hit[1]
     value = ServingArrays(
-        keys=idx.hp.keys, vals=idx.vals_f32(), d=idx.d,
-        layout=SpmmLayout.pull(g, idx.plan.sqrt_c, idx.device),
+        keys=idx.hp.keys.to(dev), vals=idx.vals_f32(device=dev),
+        d=idx.d.to(dev), layout=SpmmLayout.pull(g, idx.plan.sqrt_c, dev),
         tau=prune_tau(idx.plan))
     _cache[key] = (fp, value)
     _cache.move_to_end(key)

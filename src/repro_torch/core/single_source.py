@@ -28,16 +28,16 @@ def prune_tau(plan) -> float:
     return float(plan.theta * plan.sqrt_c ** plan.l_max)
 
 
-def _seed_matrix(idx, u: int) -> np.ndarray:
-    """(L+1, n) float64: seeds[l, k] = h~^(l)(u,k) * d_k (duplicate keys
-    add up)."""
+def _seed_matrix(idx, u: int, g: csr.Graph) -> np.ndarray:
+    """(L+1, n) float64: seeds[l, k] = h~^(l)(u,k) * d_k over H(u) as
+    ``_host_entries`` gives it (dequantized, step-1/2 entries of a
+    reduced row re-materialized, enhanced); duplicate keys add up."""
     n = idx.n
-    c = int(idx.hp.counts[u])
-    keys = idx.hp.keys[u, :c].cpu().numpy().astype(np.int64)
-    vals = idx.hp.vals[u, :c].cpu().numpy().astype(np.float64)
-    d = idx.d.cpu().numpy().astype(np.float64)
+    keys, vals = idx._host_entries(u, g)
+    d = idx.d.cpu().numpy()
     seeds = np.zeros((idx.plan.l_max + 1, n), dtype=np.float64)
-    np.add.at(seeds, (keys // n, keys % n), vals * d[keys % n])
+    np.add.at(seeds, (keys // n, keys % n),
+              vals * d[keys % n].astype(np.float64))
     return seeds
 
 
@@ -51,7 +51,7 @@ def single_source_paper(idx, g: csr.Graph, u: int) -> np.ndarray:
     """Faithful Alg 6 on dense n-vectors (host, float64)."""
     sc, theta = idx.plan.sqrt_c, idx.plan.theta
     w = csr.normalized_pull_weights(g, sc).astype(np.float64)
-    seeds = _seed_matrix(idx, u)
+    seeds = _seed_matrix(idx, u, g)
     out = np.zeros(idx.n, dtype=np.float64)
     for l in range(seeds.shape[0]):
         rho = seeds[l]
@@ -67,7 +67,7 @@ def single_source_paper(idx, g: csr.Graph, u: int) -> np.ndarray:
 def single_source_horner(idx, g: csr.Graph, u: int) -> np.ndarray:
     """Horner-stacked push (host, float64)."""
     w = csr.normalized_pull_weights(g, idx.plan.sqrt_c).astype(np.float64)
-    seeds = _seed_matrix(idx, u)
+    seeds = _seed_matrix(idx, u, g)
     L = seeds.shape[0] - 1
     tau = prune_tau(idx.plan)
     acc = seeds[L].copy()
@@ -97,14 +97,16 @@ def batched_single_source(keys, vals, d, layout, us, tau: float, *,
 
 
 def single_source_device(idx, g: csr.Graph, us,
-                         backend: str | None = None) -> np.ndarray:
-    """One-shot batched path on the index's device: (B,) ids -> (B, n)
-    float32 NumPy. Â's layout is warm after the first call
+                         backend: str | None = None,
+                         device=None) -> np.ndarray:
+    """One-shot batched path on ``device`` (``cuda`` unless
+    ``device="cpu"``, wherever the index's storage lies): (B,) ids ->
+    (B, n) float32 NumPy. The working set is warm after the first call
     (``core/device_state.py``), so repeated calls measure the push, not
-    the layout build. ``backend``: "auto"/None | "kernel" | "plain"."""
+    the upload. ``backend``: "auto"/None | "kernel" | "plain"."""
     from repro_torch.core import device_state
-    st = device_state.serving_arrays(idx, g)
-    us = torch.as_tensor(np.asarray(us, np.int64), device=idx.device)
+    st = device_state.serving_arrays(idx, g, device)
+    us = torch.as_tensor(np.asarray(us, np.int64), device=st.d.device)
     return batched_single_source(
         st.keys, st.vals, st.d, st.layout, us, st.tau, n=idx.n,
         l_max=idx.plan.l_max, backend=backend).cpu().numpy()

@@ -9,9 +9,12 @@ Lemma 7, every SimRank estimate satisfies |s~ - s| <= eps provided
 does (paper Section 7.1: eps_d = 0.005, theta = 0.000725 at eps = 0.025,
 c = 0.6) and reserves the walk-cap bias (sqrt c)^t_max inside eps_d.
 ``stale_frac`` reserves a share of eps for incremental maintenance
-(``stale_increment`` charges each update batch against it). The
-reference's quantization reserve is not ported; its plan field stays
-(at 0) so plans carry across.
+(``stale_increment`` charges each update batch against it) and
+``eps_quant_frac`` a share for quantization (``quant_charge`` and the
+per-entry bounds ``quant_vals_bound`` / ``quant_d_bound`` that
+``core/quantize.py`` certifies against). Every field and bound equals
+the reference's bit for bit: a v3 artifact's header is the plan as
+JSON.
 """
 from __future__ import annotations
 
@@ -53,21 +56,30 @@ class SlingPlan:
 
 def plan(eps: float = 0.025, delta: float | None = None, c: float = 0.6,
          n: int = 1 << 20, eps_d_frac: float = 0.5,
-         walk_tail: float = 1e-4, stale_frac: float = 0.0) -> SlingPlan:
+         walk_tail: float = 1e-4, stale_frac: float = 0.0,
+         eps_quant_frac: float = 0.0) -> SlingPlan:
     """Choose (eps_d, theta, delta_d, t_max, l_max, n_r1) for a target eps.
 
     ``stale_frac`` reserves eps_stale = stale_frac * eps for incremental
-    maintenance: the static index is planned against
-    eps_static = eps * (1 - stale_frac), and ``update_index`` spends the
-    reserve across batches until the rebuild trigger fires.
+    maintenance (``update_index`` spends it across batches until the
+    rebuild trigger fires); ``eps_quant_frac`` reserves eps_quant =
+    eps_quant_frac * eps for quantization (``quantize_index`` refuses
+    without it). The static index is planned against
+    eps_static = eps * (1 - stale_frac - eps_quant_frac).
     """
     if not (0 < eps < 1):
         raise ValueError("eps must be in (0,1)")
     if not (0 <= stale_frac < 1):
         raise ValueError("stale_frac must be in [0,1)")
+    if not (0 <= eps_quant_frac < 1):
+        raise ValueError("eps_quant_frac must be in [0,1)")
+    if stale_frac + eps_quant_frac >= 1:
+        raise ValueError(
+            "stale_frac + eps_quant_frac reserve the whole eps budget; "
+            "nothing is left for the static index")
     sc = math.sqrt(c)
     delta = delta if delta is not None else 1.0 / n
-    eps_static = eps * (1 - stale_frac)
+    eps_static = eps * (1 - stale_frac - eps_quant_frac)
     eps_d_raw = eps_d_frac * eps_static * (1 - c)
     theta = (1 - eps_d_frac) * eps_static * (1 - c) * (1 - sc) / (2 * sc)
     t_max = max(1, int(math.ceil(math.log(walk_tail) / math.log(sc))))
@@ -82,7 +94,8 @@ def plan(eps: float = 0.025, delta: float | None = None, c: float = 0.6,
     n_r1 = int(math.ceil(14.0 / (3.0 * eps_star) * math.log(4.0 / delta_d)))
     return SlingPlan(c=c, eps=eps, delta=delta, eps_d=eps_d, theta=theta,
                      delta_d=delta_d, t_max=t_max, l_max=l_max, n_r1=n_r1,
-                     walk_tail=tail, eps_stale=stale_frac * eps)
+                     walk_tail=tail, eps_stale=stale_frac * eps,
+                     eps_quant=eps_quant_frac * eps)
 
 
 def stale_increment(p: SlingPlan, theta_r: float, m_rows: float,
@@ -111,6 +124,44 @@ def phase2_pairs_vec(mu_hat, eps_d: float, delta_d: float, c: float):
     return np.ceil((2 * mu_star + (2.0 / 3.0) * eps_star)
                    / (eps_star ** 2)
                    * math.log(4.0 / delta_d)).astype(np.int64)
+
+
+# A pair score is a bilinear form in the stored vals with d~ in between.
+# Per-entry errors b on vals and b_d on d~ cost at most
+# 2b/(1 - sqrt c) (first order, |H(.)|_1 <= 1/(1 - sqrt c)),
+# b^2/((1 - sqrt c) theta) (second order, Lemma 7's entry count) and
+# b_d/(1 - c) (Theorem 1's d-term); single-source and top-k are batches
+# of the same form.
+def quant_charge(p: SlingPlan, b_vals: float, b_d: float = 0.0) -> float:
+    """Worst-case additive score error from per-entry quantization
+    bounds ``b_vals`` (HP vals) and ``b_d`` (diagonal)."""
+    sc = p.sqrt_c
+    return (2.0 * b_vals / (1.0 - sc)
+            + b_vals * b_vals / ((1.0 - sc) * p.theta)
+            + b_d / (1.0 - p.c))
+
+
+def quant_vals_bound(p: SlingPlan, d_channel: bool = False) -> float:
+    """Largest per-entry HP-val error whose ``quant_charge`` fits the
+    plan's eps_quant reserve (half of it when ``d_channel`` leaves the
+    other half to the diagonal): b = theta (sqrt(1 + budget (1 - sqrt c)
+    / theta) - 1)."""
+    if p.eps_quant <= 0:
+        raise ValueError("plan reserved no quantization budget; "
+                         "re-plan with eps_quant_frac > 0")
+    budget = p.eps_quant * (0.5 if d_channel else 1.0)
+    sc = p.sqrt_c
+    return p.theta * (math.sqrt(1.0 + budget * (1.0 - sc) / p.theta)
+                      - 1.0)
+
+
+def quant_d_bound(p: SlingPlan) -> float:
+    """Largest per-entry d~ error for the diagonal's half of the
+    eps_quant reserve."""
+    if p.eps_quant <= 0:
+        raise ValueError("plan reserved no quantization budget; "
+                         "re-plan with eps_quant_frac > 0")
+    return 0.5 * p.eps_quant * (1.0 - p.c)
 
 
 def alg1_pairs(eps_d: float, delta_d: float, c: float) -> int:

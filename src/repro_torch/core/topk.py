@@ -32,14 +32,15 @@ def batched_topk(keys, vals, d, layout, us, tau: float, *, n: int,
 
 
 def topk_device(idx, g: csr.Graph, us, k: int,
-                backend: str | None = None):
-    """One-shot batched top-k on the index's device, k clamped to n:
-    (scores (B, k) float32, nodes (B, k) int32) as NumPy. The layout is
-    warm after the first call (``core/device_state.py``)."""
+                backend: str | None = None, device=None):
+    """One-shot batched top-k on ``device`` (``cuda`` unless
+    ``device="cpu"``), k clamped to n: (scores (B, k) float32, nodes
+    (B, k) int32) as NumPy. The working set is warm after the first call
+    (``core/device_state.py``)."""
     from repro_torch.core import device_state
     k = min(int(k), idx.n)
-    st = device_state.serving_arrays(idx, g)
-    us = torch.as_tensor(np.asarray(us, np.int64), device=idx.device)
+    st = device_state.serving_arrays(idx, g, device)
+    us = torch.as_tensor(np.asarray(us, np.int64), device=st.d.device)
     top_v, top_i = batched_topk(st.keys, st.vals, st.d, st.layout, us,
                                 st.tau, n=idx.n, l_max=idx.plan.l_max, k=k,
                                 backend=backend)

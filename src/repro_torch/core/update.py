@@ -22,10 +22,10 @@ charged to the plan's staleness reserve (``theory.stale_increment``).
 Once the reserve is spent the report raises ``needs_rebuild``.
 
 ``update_index`` changes the index's device tensors in place (d, the
-packed rows, stale, epoch); a serving ``QueryEngine`` holds its own
-copies and picks the repaired state up with ``swap_index``. The
-reference's Section-5.3 ``marks`` step is not here: the port's index
-carries no Section-5 optimizations yet, so it has no marks to clear.
+packed rows, the Section-5.3 marks of repaired rows, stale, epoch); a
+serving ``QueryEngine`` holds its own copies and picks the repaired
+state up with ``swap_index``. Quantized and mapped indexes are
+read-only and refused before anything is written.
 """
 from __future__ import annotations
 
@@ -124,9 +124,15 @@ def update_index(idx, g: csr.Graph, delta: csr.GraphDelta, seed: int = 0,
     ``idx.stale``, and ``needs_rebuild`` is set once it exceeds
     ``plan.eps_stale``. ``secs`` holds the wall seconds of the phases
     apply_edges, affected_sets, hp_repair and diagonal (each ends in a
-    device synchronize). The reference's Section-5.3 ``marks`` step has
-    no counterpart: the port's index carries no marks.
+    device synchronize). Refuses a quantized or mapped (read-only)
+    index before it writes anything.
     """
+    if idx.quant is not None or idx.read_only:
+        raise ValueError(
+            "quantized/mmap'd indexes are read-only: in-place row "
+            "repair would write fp32 values into quantization codes "
+            "or into a read-only mapping. Rebuild, or update the "
+            "fp32 index and re-quantize/re-save.")
     plan = idx.plan
     dev = idx.device
     theta_r = plan.theta if theta_r is None else theta_r
@@ -166,6 +172,13 @@ def update_index(idx, g: csr.Graph, delta: csr.GraphDelta, seed: int = 0,
     idx.d.copy_(torch.as_tensor(d_new, dtype=torch.float32))
     synchronize(dev)
     secs["diagonal"] = time.perf_counter() - t0
+
+    # Section-5.3 marks point at entries the repair may have moved or
+    # deleted; dropping them only forgoes an enhancement. The 5.2
+    # ``reduced`` flags stay: a reduced row's step-1/2 entries are
+    # re-materialized from the current graph at query time.
+    if idx.marks is not None:
+        idx.marks[rows] = -1
 
     idx.stale += theory.stale_increment(plan, theta_r, m_rows, m_d)
     idx.epoch += 1

@@ -12,13 +12,14 @@ import torch
 from repro_torch.core.hp_index import INT32_PAD_KEY
 
 
-def fold_sqrt_d(index):
-    """(keys, folded_vals) of ``index``'s packed table, on its device;
-    PAD slots carry value 0. Computed in float64, stored as float32."""
-    n = index.n
-    keys = index.hp.keys
+def fold_sqrt_d(keys: torch.Tensor, vals: torch.Tensor,
+                d: torch.Tensor) -> torch.Tensor:
+    """The folded values of a packed table -- ``vals * sqrt(d_k)`` at
+    each entry's key, 0 at PAD -- where the tensors lie. Computed in
+    float64, stored as float32."""
+    n = d.numel()
     ks = (keys.long() % n).clamp_(0, n - 1)
-    sd = torch.sqrt(index.d.double().clamp(min=0.0))
-    folded = (index.vals_f32().double() * sd[ks]).float()
+    sd = torch.sqrt(d.double().clamp(min=0.0))
+    folded = (vals.double() * sd[ks]).float()
     folded[keys == INT32_PAD_KEY] = 0.0
-    return keys, folded
+    return folded

@@ -9,6 +9,17 @@ Port of the direct-engine path of ``repro/launch/serve.py``. Runs on
 ``cuda`` unless ``--device cpu``. The last serving line says whether the
 set of dispatch shapes grew after warmup.
 
+Artifacts: ``--quantize int16|bf16`` with ``--quant-frac F`` builds with
+F of eps reserved for quantization and serves the quantized index;
+``--save-index PATH`` writes the index (format v3) after building, and
+``--index PATH`` serves a saved one instead of building (``--mmap``
+maps it read-only, zero-copy); the graph is regenerated from
+``--n``/``--deg``/``--seed`` and must match:
+
+    python -m repro_torch.launch.serve --n 2000 --quantize int16 \
+        --quant-frac 0.25 --save-index /tmp/i.sling
+    python -m repro_torch.launch.serve --n 2000 --index /tmp/i.sling --mmap
+
 ``--mutate N`` appends an edge-churn replay: N random insert/delete
 batches of ``--churn`` of the edges each go through ``update_index``
 and are hot-swapped into the live engine between query batches
@@ -25,7 +36,8 @@ import time
 
 import numpy as np
 
-from repro_torch.core import build, update
+from repro_torch.core import build, quantize, update
+from repro_torch.core.index import SlingIndex
 from repro_torch.graph import generators
 from repro_torch.serve import EngineConfig, QueryEngine
 
@@ -55,19 +67,60 @@ def main(argv=None) -> None:
                     help="fraction of edges mutated per --mutate batch")
     ap.add_argument("--stale-frac", type=float, default=0.2,
                     help="fraction of eps reserved for update staleness")
+    ap.add_argument("--index", default=None, metavar="PATH",
+                    help="serve a persisted index artifact instead of "
+                         "building one (graph is regenerated from "
+                         "--n/--deg/--seed and must match)")
+    ap.add_argument("--mmap", action="store_true",
+                    help="with --index: map the artifact read-only "
+                         "(format v3; O(1) load, replicas share pages)")
+    ap.add_argument("--save-index", default=None, metavar="PATH",
+                    help="persist the index (format v3) after building")
+    ap.add_argument("--quantize", default="none",
+                    choices=("none", "int16", "bf16"),
+                    help="serve a quantized index (needs --quant-frac "
+                         "> 0)")
+    ap.add_argument("--quant-frac", type=float, default=0.0,
+                    help="fraction of eps reserved for quantization "
+                         "error (plan eps_quant_frac)")
     args = ap.parse_args(argv)
     if args.queries < 1 or args.batch < 1:
         ap.error("--queries and --batch must be >= 1")
+    if args.quantize != "none" and args.quant_frac <= 0:
+        ap.error("--quantize needs --quant-frac > 0 (the plan must "
+                 "reserve the quantization budget)")
+    if args.mutate and (args.quantize != "none" or args.mmap):
+        ap.error("--mutate needs a writable fp32 index; quantized/"
+                 "mmap'd artifacts are read-only")
 
     g = generators.barabasi_albert(args.n, args.deg, seed=args.seed,
                                    directed=False)
     print(f"graph: n={g.n} m={g.m}")
     t0 = time.perf_counter()
-    idx = build.build_index(g, eps=args.eps, seed=args.seed,
-                            stale_frac=args.stale_frac if args.mutate
-                            else 0.0, device=args.device, verbose=True)
-    print(f"index built in {time.perf_counter() - t0:.2f}s "
-          f"({idx.nbytes() / 1e6:.1f} MB)")
+    if args.index:
+        idx = SlingIndex.load(args.index, mmap=args.mmap,
+                              device=None if args.mmap else args.device)
+        if idx.n != g.n:
+            raise SystemExit(f"--index has n={idx.n}, graph has "
+                             f"n={g.n}; pass matching --n/--deg/--seed")
+        print(f"index loaded in {time.perf_counter() - t0:.3f}s "
+              f"({idx.nbytes() / 1e6:.1f} MB"
+              f"{', mmap' if args.mmap else ''}"
+              f"{', ' + idx.quant.scheme if idx.quant else ''})")
+    else:
+        idx = build.build_index(g, eps=args.eps, seed=args.seed,
+                                stale_frac=args.stale_frac if args.mutate
+                                else 0.0, quant_frac=args.quant_frac,
+                                device=args.device, verbose=True)
+        if args.quantize != "none":
+            idx = quantize.quantize_index(idx, scheme=args.quantize)
+            print(f"index quantized ({args.quantize}): "
+                  f"{idx.nbytes() / 1e6:.1f} MB")
+        print(f"index built in {time.perf_counter() - t0:.2f}s "
+              f"({idx.nbytes() / 1e6:.1f} MB)")
+    if args.save_index:
+        idx.save(args.save_index)
+        print(f"index saved -> {args.save_index}")
 
     eng = QueryEngine(idx, g, EngineConfig(
         source_batch=args.batch, pair_batch=max(args.batch, 16)),

@@ -28,7 +28,13 @@ reference's:
     over sqrt(d)-folded rows) or "join" (the searchsorted join);
     ``push_backend``: "kernel" (the Hopper Horner step) or "plain".
     "auto" resolves by the engine's device: the kernels on ``cuda``,
-    the plain versions on ``cpu``.
+    the plain versions on ``cpu``;
+  * **artifacts** -- ``from_index_file`` serves a saved index; a mapped
+    (host-resident) or quantized index is uploaded as stored and
+    dequantized on the engine's device at install and at a swap. A
+    space-reduced index is refused: its packed rows lack the step-1/2
+    entries that only ``SlingIndex.query_pair_host(u, v, g)``
+    re-materializes.
 """
 from __future__ import annotations
 
@@ -116,6 +122,7 @@ class QueryEngine:
     def __init__(self, index: SlingIndex, g: csr.Graph,
                  config: EngineConfig | None = None, device=None):
         self.cfg = config or EngineConfig()
+        index.refuse_reduced("QueryEngine")
         if index.uncertified_d and not self.cfg.allow_uncertified:
             raise ValueError(
                 "index diagonal is uncertified: the Theorem-1 eps bound "
@@ -162,17 +169,19 @@ class QueryEngine:
         padded to the width bucket (PAD keys, zero values: inert in every
         path). Every tensor is the engine's own copy, never the index's,
         so an in-place update of the index reaches the engine only
-        through ``swap_index``."""
+        through ``swap_index``. Wherever the index's storage lies (a
+        mapped artifact is host memory), it is uploaded as stored --
+        int16 or bf16 codes when quantized -- and dequantized on the
+        engine's device (``vals_f32``)."""
         self._keys = self._padded(index.hp.keys, INT32_PAD_KEY)
-        self._vals = self._padded(index.vals_f32(), 0.0)
+        self._vals = self._padded(index.vals_f32(device=self.device), 0.0)
         self._d = index.d.to(self.device, torch.float32, copy=True)
         self._layout = SpmmLayout.pull(g, index.plan.sqrt_c, self.device)
         self._tau = prune_tau(index.plan)
-        self._folded_keys = self._folded_vals = None
+        self._folded_vals = None
         if self._pair_backend == "kernel":
-            fk, fv = fold_sqrt_d(index)
-            self._folded_keys = self._padded(fk, INT32_PAD_KEY)
-            self._folded_vals = self._padded(fv, 0.0)
+            self._folded_vals = fold_sqrt_d(self._keys, self._vals,
+                                            self._d)
         self.index = index
         self.g = g
 
@@ -193,6 +202,7 @@ class QueryEngine:
         drops the whole cache. Returns swap metrics (also in
         ``stats()``)."""
         t0 = time.perf_counter()
+        index.refuse_reduced("swap_index")
         if index.uncertified_d and not self.cfg.allow_uncertified:
             raise ValueError(
                 "refusing to hot-swap in an uncertified-diagonal index; "
@@ -298,7 +308,7 @@ class QueryEngine:
             self._record("pair", (B, self._pair_backend,
                                   self._width_cap))
             if self._pair_backend == "kernel":
-                chunk = hp_join(self._folded_keys, self._folded_vals,
+                chunk = hp_join(self._keys, self._folded_vals,
                                 u_b, v_b)
             else:
                 chunk = _pair_query_batch(self._keys, self._vals, self._d,
@@ -457,4 +467,19 @@ class QueryEngine:
             "push_backend": self._push_backend,
             "device": str(self.device),
             "width_cap": self._width_cap,
+            "quantized": (self.index.quant.scheme
+                          if self.index.quant is not None else None),
         }
+
+    @classmethod
+    def from_index_file(cls, path: str, g: csr.Graph,
+                        config: EngineConfig | None = None,
+                        mmap: bool = False, device=None) -> "QueryEngine":
+        """Serve an index persisted with ``SlingIndex.save`` on
+        ``device`` (``cuda`` unless ``device="cpu"``). ``mmap=True``
+        (format v3) maps the artifact read-only in host memory -- O(1)
+        load, pages shared between processes -- and install uploads and
+        dequantizes it; an eager load reads it onto ``device``."""
+        return cls(SlingIndex.load(path, mmap=mmap,
+                                   device=None if mmap else device),
+                   g, config, device=device)

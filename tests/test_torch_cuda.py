@@ -517,3 +517,75 @@ def test_cin_weight_split_on_card(card, shape):
     w = W.reshape(hp, K).double()
     assert bool(((w2[0, :, :K].double() + w2[1, :, :K].double() - w).abs()
                  <= 2.0 ** -22 * w.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["int16", "bf16"])
+def test_quantize_on_card_equals_cpu_bits(card, scheme):
+    """Codes, scales and the dequantized values computed on the card
+    equal the CPU's bit for bit (the CPU's equal the reference's,
+    tests/test_torch_quantize.py): the divide is one float32 IEEE divide
+    by a device tensor, not a multiply by a host reciprocal."""
+    from repro_torch.core import quantize
+    rng = np.random.default_rng(7)
+    k = rng.integers(0, 32767, 4096)
+    v = np.concatenate([(k + 0.5) / 32767, [1.0],
+                        rng.lognormal(-6, 1.5, 4096)]).astype(np.float32)
+    bound = 1e-3 if scheme == "int16" else 2.0 ** -7
+    cpu, s_cpu = quantize.quantize_array(torch.as_tensor(v), scheme, bound)
+    gpu, s_gpu = quantize.quantize_array(torch.as_tensor(v, device=card),
+                                         scheme, bound)
+    assert s_gpu == s_cpu and gpu.dtype == cpu.dtype
+    as_int = (lambda t: t.view(torch.int16)) if scheme == "bf16" \
+        else (lambda t: t)
+    assert torch.equal(as_int(gpu).cpu(), as_int(cpu))
+    assert torch.equal(
+        quantize.dequantize_array(gpu, scheme, s_gpu).cpu().view(torch.int32),
+        quantize.dequantize_array(cpu, scheme, s_cpu).view(torch.int32))
+    info = quantize.QuantInfo(scheme="int16", scale=1.0, bound=1.0,
+                              d_scale=s_cpu if scheme == "int16" else 1.0)
+    d = torch.as_tensor(v[:100])
+    assert torch.equal(quantize.quantize_d_codes(d.to(card), info).cpu(),
+                       quantize.quantize_d_codes(d, info))
+
+
+@pytest.mark.cuda
+def test_mapped_quantized_index_serves_on_card(card, tmp_path):
+    """A mapped file serves on the card through the kernels: float32
+    equal in bits to the eagerly loaded index on the card, int16 and
+    bf16 uploaded as codes and dequantized there, equal to the same
+    index's dequantized values served from the card."""
+    from repro_torch.core import build, quantize
+    from repro_torch.core.index import SlingIndex
+    from repro_torch.serve import EngineConfig, QueryEngine
+    g = generators.barabasi_albert(300, 4, seed=3, directed=False)
+    cfg = EngineConfig(source_batch=8, pair_batch=64, cache_size=0)
+    q = np.arange(0, 300, 11, dtype=np.int32)
+    for scheme, eps, frac in ((None, 0.1, 0.25), ("int16", 0.1, 0.25),
+                              ("bf16", 0.2, 0.8)):
+        idx = build.build_index(g, eps=eps, exact_d=True, quant_frac=frac,
+                                device="cpu")
+        if scheme:
+            idx = quantize.quantize_index(idx, scheme,
+                                          quantize_d=scheme == "int16")
+        p = str(tmp_path / f"{scheme}.sling")
+        idx.save(p)
+        mapped = QueryEngine.from_index_file(p, g, cfg, mmap=True,
+                                             device=card)
+        assert mapped.index.device.type == "cpu"
+        assert mapped.stats()["quantized"] == scheme
+        eager = QueryEngine(SlingIndex.load(p, device=card), g, cfg,
+                            device=card)
+        before = (hp_join.launches, horner_push_rows.launches)
+        for eng in (mapped, eager):
+            assert eng.stats()["pair_backend"] == "kernel"
+        a = (mapped.pairs(q, q[::-1]), mapped.single_source(q[:8]),
+             mapped.topk(q[:8], 10))
+        b = (eager.pairs(q, q[::-1]), eager.single_source(q[:8]),
+             eager.topk(q[:8], 10))
+        assert hp_join.launches > before[0]
+        assert horner_push_rows.launches > before[1]
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[2][0], b[2][0])
+        np.testing.assert_array_equal(a[2][1], b[2][1])

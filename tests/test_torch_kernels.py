@@ -202,7 +202,7 @@ def test_push_rows_on_an_index_table_match_reference(name, B):
         device="cpu")
     us = np.random.default_rng(B).integers(0, g.n, B)
     want = np.asarray(rss.single_source_device(ri, g, us))
-    st = tdevice_state.serving_arrays(ti, tg)
+    st = tdevice_state.serving_arrays(ti, tg, "cpu")
     for backend in ("kernel", "plain"):
         got = tss.batched_single_source(
             st.keys, st.vals, st.d, st.layout, torch.as_tensor(us), st.tau,

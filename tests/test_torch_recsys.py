@@ -290,11 +290,11 @@ def test_sim_prior_retrieval_end_to_end_equals_reference():
     users = np.array([7, 31])
     sources = np.concatenate([users, [rg.in_neighbors(u)[-1] for u in users]])
     rsim = rss.single_source_device(ridx, rg, sources)
-    tsim = tss.single_source_device(tidx, tg, sources)
+    tsim = tss.single_source_device(tidx, tg, sources, device="cpu")
     np.testing.assert_allclose(tsim, rsim, atol=1e-5, rtol=0)
     assert not rsim[:2, n_users:].any() and not tsim[:2, n_users:].any()
     assert (tsim[2:, n_users:].sum(1) > 0).all()
-    tv, ti = ttopk.topk_device(tidx, tg, sources, 10)
+    tv, ti = ttopk.topk_device(tidx, tg, sources, 10, device="cpu")
     rv, ri = rtopk.topk_device(ridx, rg, sources, 10)
     np.testing.assert_allclose(tv, rv, atol=1e-5, rtol=0)
     np.testing.assert_allclose(tsim[np.arange(4)[:, None], ti], rv,
@@ -334,15 +334,15 @@ def _small_index(seed=0):
 def test_device_state_warm_second_call():
     device_state.cache_clear()
     g, idx = _small_index()
-    a = device_state.serving_arrays(idx, g)
-    assert device_state.serving_arrays(idx, g) is a
+    a = device_state.serving_arrays(idx, g, "cpu")
+    assert device_state.serving_arrays(idx, g, "cpu") is a
     assert device_state.cache_len() == 1
     assert a.keys is idx.hp.keys and a.d is idx.d     # no copy
     us = np.array([0, 5, 9])
-    first = tss.single_source_device(idx, g, us)
-    assert device_state.serving_arrays(idx, g) is a
-    np.testing.assert_array_equal(tss.single_source_device(idx, g, us),
-                                  first)
+    first = tss.single_source_device(idx, g, us, device="cpu")
+    assert device_state.serving_arrays(idx, g, "cpu") is a
+    np.testing.assert_array_equal(
+        tss.single_source_device(idx, g, us, device="cpu"), first)
     for u, row in zip(us, first):
         np.testing.assert_allclose(row, tss.single_source_horner(idx, g, u),
                                    atol=1e-5, rtol=0)
@@ -352,15 +352,15 @@ def test_device_state_invalidated_by_update_epoch():
     device_state.cache_clear()
     g, idx = _small_index(1)
     us = np.array([1, 2])
-    before = device_state.serving_arrays(idx, g)
-    tss.single_source_device(idx, g, us)
+    before = device_state.serving_arrays(idx, g, "cpu")
+    tss.single_source_device(idx, g, us, device="cpu")
     delta = tupdate.random_delta(g, n_add=8, n_del=8, seed=4)
     rep = tbuild.update_index(idx, g, delta, exact_d=True)
     assert idx.epoch == 1
     # the same graph object: only the epoch tells the entry is stale
-    assert device_state.serving_arrays(idx, g) is not before
+    assert device_state.serving_arrays(idx, g, "cpu") is not before
     g2 = rep.graph
-    after = tss.single_source_device(idx, g2, us)
+    after = tss.single_source_device(idx, g2, us, device="cpu")
     for u, row in zip(us, after):
         np.testing.assert_allclose(row, tss.single_source_horner(idx, g2, u),
                                    atol=1e-5, rtol=0)
@@ -369,7 +369,7 @@ def test_device_state_invalidated_by_update_epoch():
 def test_device_state_evicts_dead_index_and_caps_lru():
     device_state.cache_clear()
     g, idx = _small_index(2)
-    device_state.serving_arrays(idx, g)
+    device_state.serving_arrays(idx, g, "cpu")
     assert device_state.cache_len() == 1
     del idx
     gc.collect()
@@ -379,8 +379,8 @@ def test_device_state_evicts_dead_index_and_caps_lru():
         dataclasses.asdict(idx.plan), idx.d.numpy(), idx.hp.keys.numpy(),
         idx.hp.vals.numpy(), idx.hp.counts.numpy(), device="cpu")
         for _ in range(device_state._MAX_ENTRIES + 2)]
-    first = device_state.serving_arrays(keep[0], g)
+    first = device_state.serving_arrays(keep[0], g, "cpu")
     for ii in keep[1:]:
-        device_state.serving_arrays(ii, g)
+        device_state.serving_arrays(ii, g, "cpu")
     assert device_state.cache_len() == device_state._MAX_ENTRIES
-    assert device_state.serving_arrays(keep[0], g) is not first
+    assert device_state.serving_arrays(keep[0], g, "cpu") is not first
