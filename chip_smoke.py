@@ -53,12 +53,35 @@ Phases (any failure raises and the script exits non-zero):
      ``reduced`` and ``marks`` members, ``QueryEngine``'s refusal, and
      64 ``query_pair_host(u, v, g)`` answers beside the unreduced
      index's;
+  3e. the scale path at 10^6 nodes (the reference's run_scale setting,
+     ``benchmarks/bench_space.py:148``), in a temporary directory under
+     ``build/``: ``powerlaw_fast(10^6, k=6, seed=0)``, then
+     ``build_index_scale(eps=0.5, quant_frac=0.2, int16)`` on the card
+     with ``builder="auto"`` (it must pick prsim, with the chunked
+     certified diagonal) and again with ``builder="sling"`` (the two
+     files must be equal byte for byte outside the header's builder);
+     the prsim file loaded mapped and served by two
+     ``from_index_file(mmap=True)`` engines: single-source and top-k
+     batches of 2 and 8 (the graph's hub among the sources) and 64
+     pairs. The counters are zeroed before the first build and read
+     after the last batch; ``hp_join`` and ``horner_push`` must launch.
+     Then, outside the counts, every answer against an engine on the
+     plain backends on the card (BACKEND_ATOL); the build, load and
+     install times, entries, width, bytes, the peak host RSS of the
+     phase (statm sampled) and of the process, and the peak device
+     memory are printed. Last, the
+     build options on phase 3's graph: ``build_hp_table`` with
+     ``spill_dir`` and a width 64 above the table's, equal to phase 3's
+     table with the extra columns PAD; ``spmm`` must launch. With
+     ``--profile``, four hub batches and four tail blocks of the sparse
+     build are traced;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
      exists (``hp_join`` at B = 256 pairs by the profiler's device time,
      with two calls held to equal bits and ``launch_floor_ms``, a
-     one-element ``add_``, beside it; ``horner_push`` at B = 8 and 16:
+     one-element ``add_``, beside it; ``horner_push`` at B = 8 and 16
+     on the Enron engine and at B = 2 and 8 on phase 3e's 10^6 engine:
      the whole push from the row ids on the card to the (B, n) result,
      the kernel's device time, the allocations before its one launch,
      the levels it runs, two pushes held to equal bits, the bound
@@ -121,6 +144,8 @@ N_CHECK = 4_096        # candidates recomputed on the plain CIN
 CLICK_GRAPH = (10_000, 30_000, 150_000)   # users, items, clicks
 N_PRIOR_USERS = 8
 QUANT_FRAC = 0.2       # eps share reserved for quantization (phase 3d)
+N_SCALE = 1_000_000    # phase 3e: benchmarks/bench_space.py:148 run_scale
+SCALE_EPS = 0.5        # its eps: the packed width stays ~64
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -918,6 +943,289 @@ def artifact_phase(g, idx, answers, queries, dev, tmp) -> dict:
     return path_launches
 
 
+class RssPeak:
+    """The peak resident set of this process from its making to
+    ``stop()``, from ``/proc/self/statm`` read every 5 ms on a thread
+    (VmHWM cannot be reset, or is absent, on some kernels): ``peak_mb``,
+    and ``start_mb`` at the making; ``None`` where statm cannot be
+    read. ``whole_mb`` is ``ru_maxrss``, the peak of the whole
+    process."""
+
+    def __init__(self):
+        import os
+        import threading
+        self.peak_mb = None
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._sample()
+        self.start_mb = self.peak_mb
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _sample(self) -> None:
+        try:
+            with open("/proc/self/statm") as f:
+                mb = int(f.read().split()[1]) * self._page / 2**20
+        except (OSError, ValueError, IndexError):
+            return
+        self.peak_mb = max(self.peak_mb or 0.0, mb)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            self._sample()
+
+    def stop(self) -> None:
+        import resource
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._sample()
+        self.whole_mb = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+def same_but_builder(a: str, b: str) -> bool:
+    """Two v3 files equal byte for byte outside the header's ``builder``
+    field: the preambles and headers equal with ``builder`` dropped,
+    and every byte after the header equal (read in 64 MiB pieces)."""
+    import struct
+    heads = []
+    for path in (a, b):
+        with open(path, "rb") as f:
+            magic, version, hlen = struct.unpack("<8sII", f.read(16))
+            head = json.loads(f.read(hlen))
+        head.pop("builder")
+        heads.append((magic, version, head, 16 + hlen))
+    if heads[0] != heads[1]:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        fa.seek(heads[0][3])
+        fb.seek(heads[1][3])
+        while True:
+            x, y = fa.read(1 << 26), fb.read(1 << 26)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def profile_sparse_build(g, p, dev, blocks: int = 4) -> None:
+    """Trace ``blocks`` tail blocks of 4,096 targets and ``blocks`` hub
+    batches of 128 of the scale build's sparse propagation."""
+    import numpy as np
+
+    from repro_torch.core import hp_index
+    from repro_torch.prsim import hub_set, reverse_pagerank
+    og = hp_index.OutGraph.from_graph(g, p.sqrt_c, dev)
+    hubs = hub_set(reverse_pagerank(g, device=dev)[0])
+    tail = np.setdiff1d(np.arange(g.n), hubs)
+
+    def run():
+        for i in range(blocks):
+            hp_index._sparse_targets_coo(og, hubs[128 * i:128 * (i + 1)],
+                                         p.theta, p.l_max)
+            hp_index._sparse_targets_coo(og, tail[4096 * i:4096 * (i + 1)],
+                                         p.theta, p.l_max)
+    run()                                               # warm
+    trace(f"sparse build at n={g.n:,}: {blocks} hub batches of 128 and "
+          f"{blocks} tail blocks of 4,096 targets", run)
+
+
+def scale_phase(dev, tmp, profile: bool = False):
+    """Phase 3e, the scale path at 10^6 nodes (see the module docstring):
+    ``build_index_scale`` with ``builder="auto"`` and again with
+    ``"sling"``, the mapped file loaded and served by two engines
+    (single-source and top-k batches of 2 and of 8, pairs in a batch of
+    64). The counters are zeroed before the first build and read after
+    the last batch; the comparison with the plain-backend engine runs
+    after. Returns the path's launches and (g, plan, the B = 8 engine)
+    for phase 4."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build
+    from repro_torch.core.index import SlingIndex
+    from repro_torch.device import synchronize
+    from repro_torch.graph import generators
+    from repro_torch.kernels.horner_push import horner_push_rows
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.serve import EngineConfig, QueryEngine
+
+    def timed(fn):
+        synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        return out, time.perf_counter() - t
+
+    rss = RssPeak()
+    torch.cuda.reset_peak_memory_stats()
+    g, t_gen = timed(lambda: generators.powerlaw_fast(N_SCALE, k=6, seed=0))
+    print(f"[scale] powerlaw_fast({N_SCALE:,}, k=6, seed=0) in "
+          f"{t_gen:.2f}s: n={g.n:,} m={g.m:,} max in-degree="
+          f"{int(g.in_deg.max()):,}")
+    kernels = {"hp_join": hp_join, "horner_push": horner_push_rows,
+               "spmm": spmm}
+    for kern in kernels.values():
+        kern.launches = 0
+    horner_push_rows.steps = 0
+    files, stats = {}, {}
+    for builder in ("auto", "sling"):
+        files[builder] = os.path.join(tmp, f"scale-{builder}.sling")
+        stats[builder], wall = timed(lambda: build.build_index_scale(
+            g, files[builder], eps=SCALE_EPS, quant_frac=QUANT_FRAC,
+            quantize="int16", builder=builder, device=dev))
+        st = stats[builder]
+        print(f"[scale] build_index_scale(eps={SCALE_EPS}, quant_frac="
+              f"{QUANT_FRAC}, int16, builder={builder!r}) -> "
+              f"{st['builder']}, d_mode={st['d_mode']}: d "
+              f"{st['d_wall_s']:.3f}s, hp {st['hp_wall_s']:.3f}s, pack "
+              f"{st['pack_wall_s']:.3f}s, total {wall:.3f}s; entries "
+              f"{st['entries']:,}, width {st['width']}, "
+              f"{st['bytes']:,} bytes; prsim {st.get('prsim')}; skew "
+              f"{st.get('skew')}")
+    auto = stats["auto"]
+    if auto["builder"] != "prsim" or auto["d_mode"] != "estimate" \
+            or stats["sling"]["builder"] != "sling":
+        raise RuntimeError(f"the scale build chose {auto['builder']} / "
+                           f"{auto['d_mode']}, not prsim / estimate")
+    same = same_but_builder(files["auto"], files["sling"])
+    print(f"[scale] prsim file == sling file outside the header's "
+          f"builder field: {same}")
+    if not same:
+        raise RuntimeError("the prsim and sling scale files differ")
+    os.remove(files["sling"])
+    path = files["auto"]
+    idx, t_load = timed(lambda: SlingIndex.load(path, mmap=True))
+    p = idx.plan
+    engines, t_inst = {}, {}
+    for B in (2, 8):
+        engines[B], t_inst[B] = timed(lambda: QueryEngine.from_index_file(
+            path, g, EngineConfig(pair_batch=64, source_batch=B),
+            mmap=True, device=dev))
+    rng = np.random.default_rng(5)
+    q = rng.choice(g.n, 160, replace=False).astype(np.int32)
+    # the hub and the widest row among the sources, and 8 pairs (u, u)
+    q[0] = int(np.argmax(g.in_deg))
+    q[1] = int(np.argmax(idx.hp.counts.numpy()))
+    lat, got = {}, {}
+    for B, eng in engines.items():
+        for kind, fn in (("source", eng.single_source),
+                         ("topk", lambda us: eng.topk(us, 10))):
+            for lo in range(0, 2 * B, B):
+                us = q[lo:lo + B] if kind == "source" \
+                    else q[16 + lo:16 + lo + B]
+                out, t = timed(lambda: fn(us))
+                lat.setdefault(f"{kind} B={B}", []).append(t)
+                got.setdefault((kind, B), []).append((us, out))
+    pair_u, pair_v = q[32:96], q[96:160].copy()
+    pair_v[:8] = pair_u[:8]
+    pairs, t_pair = timed(lambda: engines[2].pairs(pair_u, pair_v))
+    lat["pair 64"] = [t_pair]
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    launches["horner_push_steps"] = horner_push_rows.steps
+    rss.stop()
+    dev_peak = torch.cuda.max_memory_allocated() / 2**30
+    st = engines[8].stats()
+    print(f"[scale] SlingIndex.load(mmap) {t_load * 1e3:.3f} ms; "
+          f"from_index_file(mmap) install B=2 {t_inst[2] * 1e3:.1f} ms, "
+          f"B=8 {t_inst[8] * 1e3:.1f} ms (width bucket "
+          f"{engines[8]._width_cap}); backends pair={st['pair_backend']} "
+          f"push={st['push_backend']} quantized={st['quantized']}")
+    print("[scale] served: " + "; ".join(
+        f"{k} " + "/".join(f"{1e3 * t:.3f}" for t in v) + " ms"
+        for k, v in lat.items()) + f"; launches {launches}")
+    phase_peak = ("not measured (no /proc/self/statm)"
+                  if rss.peak_mb is None else f"{rss.peak_mb:.1f} MiB "
+                  f"(at its start {rss.start_mb:.1f} MiB)")
+    print(f"[scale] peak host RSS of the phase {phase_peak} (statm "
+          f"every 5 ms), of the whole process {rss.whole_mb:.1f} MiB "
+          f"(ru_maxrss); peak device memory {dev_peak:.3f} GiB; card "
+          f"{card_line()}")
+    if launches["hp_join"] <= 0 or launches["horner_push"] <= 0:
+        raise RuntimeError(f"a kernel did not launch on the scale path: "
+                           f"{launches}")
+    if st["pair_backend"] != "kernel" or st["push_backend"] != "kernel":
+        raise RuntimeError(f"the scale path did not use the kernels: {st}")
+
+    # checks, outside the count: the plain backends on the card
+    plain = QueryEngine(idx, g, EngineConfig(
+        pair_backend="join", push_backend="plain", pair_batch=64,
+        source_batch=8, cache_size=0), device=dev)
+    err = {"pair": float(np.abs(plain.pairs(pair_u, pair_v) - pairs).max())}
+    for (kind, B), outs in got.items():
+        for us, out in outs:
+            full = plain.single_source(us)
+            if kind == "source":
+                e = np.abs(full - out).max()
+                ok = out.shape == (len(us), g.n) and np.isfinite(out).all()
+            else:
+                vals, ids = out
+                pv, _ = plain.topk(us, 10)
+                e = max(np.abs(pv - vals).max(), np.abs(
+                    full[np.arange(len(us))[:, None], ids] - vals).max())
+                ok = bool((np.diff(vals, axis=1) <= 0).all())
+            if not ok:
+                raise RuntimeError(f"{kind} B={B} answers are malformed")
+            err[f"{kind} B={B}"] = max(err.get(f"{kind} B={B}", 0.0),
+                                       float(e))
+    print(f"[scale] kernels vs plain backends on the card: {err} "
+          f"(BACKEND_ATOL {TOL_KERNEL}); pairs in [{pairs.min():.4g}, "
+          f"{pairs.max():.4g}]")
+    if max(err.values()) > TOL_KERNEL or not (0 <= pairs.min()
+                                              <= pairs.max() <= 1):
+        raise RuntimeError(f"the scale path's answers disagree: {err}")
+    del plain, engines[2]
+    if profile:
+        profile_sparse_build(g, p, dev)
+    return launches, (g, p, engines[8])
+
+
+def options_phase(g, idx, dev, tmp) -> dict:
+    """Phase 3e's second part, the build options on phase 3's graph:
+    ``build_hp_table`` with ``spill_dir`` and a ``width`` 64 above the
+    table's, held against phase 3's in-memory table (equal, the extra
+    columns PAD). The counters are zeroed before and read after the
+    build. Returns its launches."""
+    import os
+
+    import torch
+
+    from repro_torch.core import hp_index
+    from repro_torch.kernels.spmv_ell import spmm
+
+    p, hp = idx.plan, idx.hp
+    spill = os.path.join(tmp, "spill")
+    spmm.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    wide = hp_index.build_hp_table(g, p.theta, p.sqrt_c, p.l_max,
+                                   block=BLOCK, width=hp.width + 64,
+                                   spill_dir=spill, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    launches = {"spmm": spmm.launches}
+    W = hp.width
+    files = os.listdir(spill)
+    spilled = sum(os.path.getsize(os.path.join(spill, f)) for f in files)
+    ok = {"width": wide.width == W + 64,
+          "keys": torch.equal(wide.keys[:, :W], hp.keys),
+          "vals": torch.equal(wide.vals[:, :W], hp.vals),
+          "counts": torch.equal(wide.counts, hp.counts),
+          "pad": bool((wide.keys[:, W:] == hp_index.INT32_PAD_KEY).all()
+                      and (wide.vals[:, W:] == 0).all())}
+    print(f"[options] build_hp_table(width={W + 64}, spill_dir) on "
+          f"{g.n:,} nodes: {t:.2f}s, {len(files)} spill files, "
+          f"{spilled:,} bytes; launches {launches}; equal to the "
+          f"in-memory table with the extra columns PAD: {ok}")
+    if not all(ok.values()) or launches["spmm"] <= 0:
+        raise RuntimeError(f"the spilled, widened build failed: {ok}, "
+                           f"{launches}")
+    return launches
+
+
 def update_phase(g, dev) -> dict:
     """The dynamic-graph path on the card at the Enron regime: build
     with ``STALE_FRAC``, warm an engine, then for each churn level in
@@ -1209,16 +1517,21 @@ def device_ms(fn, key: str, reps: int) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(r.self_device_time_total for r in prof.key_averages()
-             if r.device_type == DeviceType.CUDA and key in r.key)
-    if us <= 0:
-        raise RuntimeError(f"the profiler saw no device time for {key}")
-    return us / reps / 1e3
+    for window in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(r.self_device_time_total for r in prof.key_averages()
+                 if r.device_type == DeviceType.CUDA and key in r.key)
+        if us > 0:
+            return us / reps / 1e3
+        # a window can come back without the kernel's activity records
+        # though its launches ran (seen at n = 10^6): profile again
+        print(f"[profile] no device time for {key} in profiler window "
+              f"{window} of 3")
+    raise RuntimeError(f"the profiler saw no device time for {key}")
 
 
 def launch_floor(dev) -> tuple[float, float]:
@@ -1328,7 +1641,7 @@ def horner_push_case(g, p, eng, sources) -> dict:
     for _ in range(reps):
         allocations()
     alloc_ms = (time.perf_counter() - t0) / reps * 1e3
-    live = int(eng.index.hp.counts.long()[us].sum())
+    live = int(eng.index.hp.counts.to(dev).long()[us].sum())
     csr_bytes = 8 * g.m + 4 * (n + 1)
     # inputs once: the ids, the live entries of the B rows (key, value
     # and d_k), the CSR; the (B, n) result once
@@ -1390,7 +1703,8 @@ def horner_push_parts(g, p, eng, us) -> dict:
     per = {"bookkeeping, seeds and barrier":
            (out["no edges"] - out["level 0 only"]) / runs,
            "in-edges": (out["all edges"] - out["no edges"]) / runs}
-    print(f"[kernel] horner_push B={len(us)} parts (device ms a push): "
+    print(f"[kernel] horner_push n={g.n:,} B={len(us)} parts (device ms a "
+          f"push): "
           + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
           + "; per level after the first: "
           + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in per.items()))
@@ -1398,22 +1712,36 @@ def horner_push_parts(g, p, eng, us) -> dict:
                       for k, v in per.items()}}
 
 
-def horner_row(g, p, eng, nodes, launches: int, steps: int) -> dict:
+def horner_row(g, p, eng, nodes, launches: int, steps: int,
+               scale) -> dict:
     """``horner_push`` at B = 8 (serving, the row) and B = 16 (the
     prior's batch, under ``b16``), each on a batch of the main path's
-    nodes; see :func:`horner_push_case`."""
+    nodes, and at B = 2 and 8 on phase 3e's 10^6-node engine (under
+    ``n1e6``; ``scale`` is its (g, plan, engine)); see
+    :func:`horner_push_case`."""
+    import numpy as np
+
     from repro_torch.kernels.horner_push import persistent_grid
     cases = [horner_push_case(g, p, eng, nodes[512:512 + B])
              for B in (8, 16)]
-    for c in cases:
-        print(f"[kernel] horner_push B={c['B']}: {c['levels_run']} of "
-              f"{p.l_max + 1} levels run in one launch (grid "
-              f"{persistent_grid(eng._layout, c['B'])} blocks of 1,024); "
+    # at 10^6: the hub and the widest rows, whose seeds reach the
+    # deepest levels (most rows hold level 0 alone at this eps)
+    sg, sp, seng = scale
+    wide = np.argsort(-seng.index.hp.counts.numpy(), kind="stable")
+    big = [horner_push_case(sg, sp, seng, np.r_[np.argmax(sg.in_deg),
+                                                wide[:B - 1]])
+           for B in (2, 8)]
+    for c, (gg, pp, ee) in [(c, (g, p, eng)) for c in cases] + \
+            [(c, scale) for c in big]:
+        print(f"[kernel] horner_push n={gg.n:,} B={c['B']}: "
+              f"{c['levels_run']} of "
+              f"{pp.l_max + 1} levels run in one launch (grid "
+              f"{persistent_grid(ee._layout, c['B'])} blocks of 1,024); "
               f"whole push {c['push_ms']:.4f} ms (row ids on the card to "
               f"the (B, n) result, CUDA events); kernel {c['ms']:.4f} ms "
               f"(device time); before the launch only allocations, "
               f"{c['alloc_ms']:.4f} ms of host time; plain "
-              f"{c['plain_ms']:.4f} ms; torch.sparse.mm x {p.l_max + 1} "
+              f"{c['plain_ms']:.4f} ms; torch.sparse.mm x {pp.l_max + 1} "
               f"{c['library_ms']:.4f} ms; bound {c['bound_ms']:.5f} ms "
               f"({c['bound_by']}: inputs once, result once); streamed over "
               f"the levels run {c['streamed_bound_ms']:.5f} ms; max_abs_err "
@@ -1422,8 +1750,8 @@ def horner_row(g, p, eng, nodes, launches: int, steps: int) -> dict:
     return {"name": "horner_push", "route": "cuda",
             "source": "src/repro_torch/csrc/horner_push.cu",
             "replaces": "src/repro/kernels/horner_push/horner_push.py:69",
-            "launches": launches, "max_abs_err": max(row["max_abs_err"],
-                                                     b16["max_abs_err"]),
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases + big),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "steps": steps,
@@ -1432,6 +1760,9 @@ def horner_row(g, p, eng, nodes, launches: int, steps: int) -> dict:
             "streamed_bound_ms": row["streamed_bound_ms"],
             "parts": row["parts"],
             "b16": {k: v for k, v in b16.items() if k not in ("B", "parts")},
+            "n1e6": {f"B={c['B']}": {k: v for k, v in c.items()
+                                     if k not in ("B", "parts")}
+                     for c in big},
             "shape": f"B=8 W={eng._width_cap} n={g.n} m={g.m} "
                      f"levels={p.l_max + 1}"}
 
@@ -1514,9 +1845,10 @@ def main() -> int:
     ap.add_argument("--graph", default="Enron",
                     help="Table-3 regime of generators.paper_scale")
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path and in phase 3c, trace "
-                         "a few more serve batches, four Enron build "
-                         "blocks (and one retrieval) with torch.profiler "
+                    help="after the main path and in phases 3c and 3e, "
+                         "trace a few more serve batches, four Enron "
+                         "build blocks, one retrieval and eight batches "
+                         "of the sparse scale build with torch.profiler "
                          "and print the tables by device and by CPU time")
     args = ap.parse_args()
 
@@ -1659,10 +1991,20 @@ def main() -> int:
         total[k] += art[k]
     print(f"[artifact] launches {art}; all paths {total}")
 
+    # ---- 3e. the scale path at 10^6 nodes, then the build options -------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        sc, scale = scale_phase(dev, tmp, profile=args.profile)
+        opt = options_phase(g, idx, dev, tmp)
+    for k in sc:
+        total[k] += sc[k]
+    total["spmm"] += opt["spmm"]
+    print(f"[scale] launches {sc}; build options {opt}; all paths {total}")
+
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),
                horner_row(g, p, eng, nodes, total["horner_push"],
-                          total["horner_push_steps"])]
+                          total["horner_push_steps"], scale)]
+    del scale
     kernels.append(spmm_row(g, p, dev, nodes, total["spmm"]))
     kernels.append(cin_row(model, serve_batch, dev, total["cin"]))
     del model
@@ -1685,7 +2027,7 @@ def main() -> int:
     # ---- 6. output --------------------------------------------------------
     print(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                    if k not in ("shape", "fma_bound_ms",
-                                                "parts", "b16")}
+                                                "parts", "b16", "n1e6")}
                                   for kk in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Hitting-probability index construction and repair: Algorithm 2,
-dense blocked.
+dense blocked and sparse.
 
-Port of the single-device dense build, the row repair and the mass
-scans of ``repro/core/hp_index.py``. A block of B target nodes is
+Port of the single-device dense and sparse builds, the row repair and
+the mass scans of ``repro/core/hp_index.py``. A block of B target nodes is
 propagated as a dense (n, B) frontier through the pull operator
 
     (Â x)(v) = sqrt(c) / |I(v)| * sum_{u in I(v)} x(u),
@@ -25,11 +25,19 @@ out of H between two builds of one graph.
 
 The kept entries are extracted on the device (``torch.nonzero`` of the
 pruned frontier) and packed and merged on the device; nothing of the
-(steps, n, B) frontier stack reaches the host.
+(steps, n, B) frontier stack reaches the host. A ``_CooSink`` collects
+each block's triples, in memory or in spill files (``spill_dir``).
+
+The dense frontier costs O(n * B) per block whatever its sparsity,
+which stops it near 10^5 nodes; the sparse build
+(:func:`_sparse_targets_coo`) keeps the frontier as (node, column,
+value) triples on the device and scales to 10^6 nodes
+(``build.build_index_scale``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -181,15 +189,85 @@ def propagation_mass(g: csr.Graph, seeds, sqrt_c: float, theta_r: float,
     return tuple(t.cpu().numpy() for t in (colmax, total, skipped))
 
 
+def pad_packed_rows(hp: HPTable, n_pad: int, width_cap: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shard-sliceable packed layout: (n_pad, width_cap) keys/vals on the
+    table's device. Row i < n is H(i) right-padded with the PAD sentinel
+    (every join and push ignores it); rows >= n are all PAD, so a slab
+    of the result is a self-contained packed table for its nodes."""
+    if width_cap < hp.width or n_pad < hp.n:
+        raise ValueError(f"caps below table size: width {width_cap} < "
+                         f"{hp.width} or rows {n_pad} < {hp.n}")
+    dev = hp.keys.device
+    keys = torch.full((n_pad, width_cap), INT32_PAD_KEY, dtype=torch.int32,
+                      device=dev)
+    vals = torch.zeros((n_pad, width_cap), dtype=torch.float32, device=dev)
+    keys[:hp.n, :hp.width] = hp.keys
+    vals[:hp.n, :hp.width] = hp.vals
+    return keys, vals
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class _CooSink:
+    """Collects the COO triples of a build block by block, in memory or
+    in spill files (out-of-core assembly, paper Section 5.4).
+
+    With ``spill_dir`` every non-empty block is written to
+    ``<spill_dir>/<tag>_<b0>.npz`` as host arrays and ``collect`` reads
+    the files back in the order they were added, so spilled and
+    in-memory assembly give the same concatenation. In memory, the
+    triples are kept as given (device tensors stay on their device).
+    """
+
+    def __init__(self, spill_dir: str | None, tag: str = "hp_block"):
+        self.spill_dir = spill_dir
+        self.tag = tag
+        self._acc: list[tuple] = []
+        self._files: list[str] = []
+
+    def add(self, b0: int, src, key, val) -> None:
+        if len(src) == 0:
+            return
+        if self.spill_dir is None:
+            self._acc.append((src, key, val))
+            return
+        os.makedirs(self.spill_dir, exist_ok=True)
+        path = os.path.join(self.spill_dir, f"{self.tag}_{b0}.npz")
+        np.savez(path, src=_host(src), key=_host(key), val=_host(val))
+        self._files.append(path)
+
+    def collect(self, device=None):
+        """(src int32, key int32, val float32) tensors of every block in
+        order, on ``device`` (default: where they lie; spill files are
+        read into host memory)."""
+        parts = self._acc
+        if self.spill_dir is not None:
+            parts = []
+            for path in self._files:
+                with np.load(path) as z:
+                    parts.append(tuple(torch.from_numpy(z[k])
+                                       for k in ("src", "key", "val")))
+        if not parts:
+            parts = [(torch.zeros(0, dtype=torch.int32),
+                      torch.zeros(0, dtype=torch.int32),
+                      torch.zeros(0, dtype=torch.float32))]
+        return tuple(torch.cat([torch.as_tensor(p[i]).to(device)
+                                for p in parts]) for i in range(3))
+
+
 def _pack_coo(src, key, val, n: int, theta: float, sqrt_c: float,
-              l_max: int) -> HPTable:
+              l_max: int, width: int | None = None) -> HPTable:
     """COO triples -> fixed-width packed HPTable (rows sorted by key,
-    PAD sentinel), on the triples' device."""
+    PAD sentinel), on the triples' device. The width is the reference's
+    rule, ``max(width or 0, widest row, 1)``."""
     dev = src.device
     order = torch.argsort(src.long() * (1 << 31) + key.long())
     src, key, val = src[order].long(), key[order], val[order]
     counts = torch.bincount(src, minlength=n)
-    width = max(int(counts.max()) if len(src) else 0, 1)
+    width = max(width or 0, int(counts.max()) if len(src) else 0, 1)
     keys = torch.full((n, width), INT32_PAD_KEY, dtype=torch.int32,
                       device=dev)
     vals = torch.zeros((n, width), dtype=torch.float32, device=dev)
@@ -203,24 +281,31 @@ def _pack_coo(src, key, val, n: int, theta: float, sqrt_c: float,
 
 
 def build_hp_table(g: csr.Graph, theta: float, sqrt_c: float,
-                   l_max: int, block: int = 256, device=None) -> HPTable:
+                   l_max: int, block: int = 256, width: int | None = None,
+                   spill_dir: str | None = None, progress: bool = False,
+                   device=None) -> HPTable:
     """Construct H(v) for all v by blocked dense propagation on
     ``device`` (``cuda`` unless ``device="cpu"``): ``block`` target
-    columns per (n, block) frontier."""
+    columns per (n, block) frontier. ``width`` is the least packed
+    width (wider rows widen the table); ``spill_dir`` writes each
+    block's triples to a spill file (:class:`_CooSink`) instead of
+    holding them; ``progress`` prints every eighth block."""
     n = g.n
     _check_key_space(n, l_max)
     device = resolve_device(device)
     lay = SpmmLayout.pull(g, sqrt_c, device)
     theta32 = float(np.float32(theta))   # the prune compares in float32
-    parts = []
+    sink = _CooSink(spill_dir)
     for b0 in range(0, n, block):
         b1 = min(b0 + block, n)
         tid = torch.arange(b0, b1, device=device)
         h = torch.zeros((n, block), dtype=torch.float32, device=device)
         h[tid, tid - b0] = 1.0
-        parts.append(_propagate_block_coo(h, lay, theta32, l_max, tid))
-    src, key, val = (torch.cat([p[i] for p in parts]) for i in range(3))
-    return _pack_coo(src, key, val, n, theta, sqrt_c, l_max)
+        sink.add(b0, *_propagate_block_coo(h, lay, theta32, l_max, tid))
+        if progress and (b0 // block) % 8 == 0:
+            print(f"  hp block {b0}/{n}")
+    src, key, val = sink.collect(device)
+    return _pack_coo(src, key, val, n, theta, sqrt_c, l_max, width=width)
 
 
 def repair_hp_rows(g: csr.Graph, hp: HPTable, rows, targets,
@@ -316,3 +401,169 @@ def exact_hp_vectors(g: csr.Graph, targets, sqrt_c: float,
         out.append(nxt.copy())
         h = nxt
     return np.stack(out)
+
+
+# ----------------------------------------------------------------------
+# sparse-frontier build (million-node scale, DESIGN.md section 13)
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class OutGraph:
+    """What the sparse build pushes over, on one device: the out-CSR and
+    the pull weight sqrt(c) / max(|I(v)|, 1) of every destination
+    (float64, computed on the host as the reference does)."""
+    n: int
+    out_ptr: torch.Tensor   # (n+1,) int64
+    out_idx: torch.Tensor   # (m,) int64
+    inv_in: torch.Tensor    # (n,) float64
+
+    @staticmethod
+    def from_graph(g: csr.Graph, sqrt_c: float, device) -> "OutGraph":
+        inv_in = sqrt_c / np.maximum(g.in_deg, 1).astype(np.float64)
+        return OutGraph(
+            n=g.n,
+            out_ptr=torch.as_tensor(g.out_ptr.astype(np.int64),
+                                    device=device),
+            out_idx=torch.as_tensor(g.out_idx.astype(np.int64),
+                                    device=device),
+            inv_in=torch.as_tensor(inv_in, device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.out_ptr.device
+
+
+def _segment_sum(x: torch.Tensor, starts: torch.Tensor,
+                 lens: torch.Tensor, max_len: int) -> torch.Tensor:
+    """float64 sum of each segment ``x[starts[i] : starts[i] + lens[i]]``
+    (segments tile ``x`` in order), by a pairwise tree over the position
+    inside the segment: at stride s = 1, 2, 4, ... the element at
+    position r, r a multiple of 2s, adds the one at r + s if that lies in
+    the segment. The adds are plain IEEE float64 adds in an order that
+    depends only on the segment's own length, so a segment sums to the
+    same bits whatever else ``x`` holds, on the CPU and on CUDA alike
+    (``index_add_`` and ``scatter_add_`` use atomics on CUDA, whose order
+    is not fixed)."""
+    T = x.numel()
+    seg = torch.repeat_interleave(
+        torch.arange(len(lens), device=x.device), lens, output_size=T)
+    rank = torch.arange(T, device=x.device) - starts[seg]
+    room = lens[seg] - rank          # elements from r to the segment's end
+    s = 1
+    while s < max_len:
+        take = ((rank & (2 * s - 1)) == 0) & (room > s)
+        nxt = torch.nn.functional.pad(x[s:], (0, s))
+        x = torch.where(take, x + nxt, x)
+        s *= 2
+    return x[starts]
+
+
+def _sparse_targets_coo(og: OutGraph, targets, theta: float, l_max: int):
+    """Alg 2 for the seed columns ``targets`` with the frontier kept
+    sparse, on ``og``'s device: (node, column, value) triples instead of
+    a dense (n, B) slab, whose O(n * B) footprint stops the dense build
+    at ~10^5 nodes.
+
+    Each step prunes the frontier in float32 with a strict ``> theta``,
+    records it (key = l*n + target), and pushes it one step: a ragged
+    gather of the kept nodes' out-edges, a stable sort on
+    ``dst * B + column``, and a float64 :func:`_segment_sum` of each
+    group. A column's groups hold its own contributions in an order set
+    by its own frontier (sorted by node, then out-edge), and the sum's
+    order depends only on the group, so a target's triples are the same
+    bits however the targets are batched -- which makes the prsim and
+    sling schedules emit the same entries. Against the reference
+    (``np.add.reduceat``, another summation order) values agree to
+    float64 rounding, and an entry within a float32 ulp of theta may be
+    kept on one side only. Returns device tensors (src int32, key int32,
+    value float32)."""
+    dev = og.device
+    targets = torch.as_tensor(np.asarray(targets, np.int64), device=dev)
+    B = len(targets)
+    srcs = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    keys = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    vals = [torch.zeros(0, dtype=torch.float32, device=dev)]
+    theta32 = float(np.float32(theta))
+    node = targets.clone()
+    col = torch.arange(B, device=dev)
+    val = torch.ones(B, dtype=torch.float64, device=dev)
+    for l in range(l_max + 1 if B else 0):
+        v32 = val.float()
+        keep = torch.nonzero(v32 > theta32).squeeze(1)
+        if keep.numel() == 0:
+            break
+        node, col, v32 = node[keep], col[keep], v32[keep]
+        srcs.append(node.int())
+        keys.append((l * og.n + targets[col]).int())
+        vals.append(v32)
+        if l == l_max:
+            break
+        # push the pruned frontier one step: a ragged gather of each
+        # node's out-edges, then a sorted segment sum on (dst, column)
+        starts = og.out_ptr[node]
+        lens = og.out_ptr[node + 1] - starts
+        total = int(lens.sum())
+        if total == 0:
+            break
+        rep = torch.repeat_interleave(torch.arange(len(node), device=dev),
+                                      lens, output_size=total)
+        flat = (torch.arange(total, device=dev)
+                + (starts - (torch.cumsum(lens, 0) - lens))[rep])
+        dst = og.out_idx[flat]
+        contrib = v32.double()[rep] * og.inv_in[dst]
+        group = dst * B + col[rep]
+        order = torch.argsort(group, stable=True)
+        group, contrib = group[order], contrib[order]
+        head = torch.ones(total, dtype=torch.bool, device=dev)
+        head[1:] = group[1:] != group[:-1]
+        g_starts = torch.nonzero(head).squeeze(1)
+        g_lens = torch.diff(g_starts, append=torch.tensor([total],
+                                                          device=dev))
+        val = _segment_sum(contrib, g_starts, g_lens, int(g_lens.max()))
+        heads = group[g_starts]
+        node, col = heads // B, heads % B
+    return torch.cat(srcs), torch.cat(keys), torch.cat(vals)
+
+
+def _sparse_block_coo(og: OutGraph, b0: int, b1: int, theta: float,
+                      l_max: int):
+    """The SLING sparse build's seed schedule: the contiguous targets
+    [b0, b1)."""
+    return _sparse_targets_coo(og, np.arange(b0, b1, dtype=np.int64),
+                               theta, l_max)
+
+
+def sparse_hp_coo(g: csr.Graph, theta: float, sqrt_c: float, l_max: int,
+                  block: int, sink: _CooSink, progress: bool = False,
+                  device=None) -> None:
+    """Drive :func:`_sparse_block_coo` over every seed block on
+    ``device`` (``cuda`` unless ``device="cpu"``), handing each block's
+    triples to ``sink`` as host arrays: the front half of the in-memory
+    sparse build and of the streaming v3 scale path
+    (``build.build_index_scale``)."""
+    n = g.n
+    _check_key_space(n, l_max)
+    og = OutGraph.from_graph(g, sqrt_c, resolve_device(device))
+    for b0 in range(0, n, block):
+        b1 = min(b0 + block, n)
+        sink.add(b0, *(_host(t) for t in
+                       _sparse_block_coo(og, b0, b1, theta, l_max)))
+        if progress and (b0 // block) % 8 == 0:
+            print(f"  sparse hp block {b0}/{n}")
+
+
+def build_hp_table_sparse(g: csr.Graph, theta: float, sqrt_c: float,
+                          l_max: int, block: int = 2048,
+                          width: int | None = None,
+                          spill_dir: str | None = None,
+                          progress: bool = False,
+                          device=None) -> HPTable:
+    """Sparse-frontier twin of :func:`build_hp_table`, packed on
+    ``device``: its entries match the dense build's except at the theta
+    prune boundary (:func:`_sparse_targets_coo`), and its footprint is
+    O(live entries), not O(n * block)."""
+    dev = resolve_device(device)
+    sink = _CooSink(spill_dir, tag="hp_sparse")
+    sparse_hp_coo(g, theta, sqrt_c, l_max, block, sink, progress=progress,
+                  device=dev)
+    src, key, val = sink.collect(dev)
+    return _pack_coo(src, key, val, g.n, theta, sqrt_c, l_max, width=width)

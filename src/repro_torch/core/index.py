@@ -496,6 +496,96 @@ def _save_v3(idx: SlingIndex, path: str) -> None:
         raise
 
 
+def pack_coo_to_v3(path: str, plan: theory.SlingPlan, d: np.ndarray,
+                   src: np.ndarray, key: np.ndarray, val: np.ndarray,
+                   n: int, quantize: str | None = None,
+                   quantize_d: bool = True, row_chunk: int = 1 << 16,
+                   builder: str = "sling",
+                   uncertified_d: bool = False) -> dict:
+    """Assemble packed HP rows from COO triples straight into a v3 file
+    on the host: the scale path's twin of ``hp_index._pack_coo`` plus
+    ``save``.
+
+    The triples (the only O(entries) state) are sorted once by (row,
+    key); rows are then packed ``row_chunk`` at a time and written
+    through the :class:`V3Writer` memmaps, so the (n, width) keys and
+    vals never exist whole, in host memory or on a card. ``quantize``
+    ("int16" | "bf16") writes val codes under the plan's eps_quant
+    reserve, certified as ``quantize.quantize_index`` does; int16 codes
+    are ``np.round(v / np.float32(scale))`` on the host, as the
+    reference computes them. The file equals the reference's byte for
+    byte on the same triples and d. Returns build stats."""
+    src = np.ascontiguousarray(src, np.int64)
+    key = np.ascontiguousarray(key, np.int32)
+    val = np.ascontiguousarray(val, np.float32)
+    order = np.lexsort((key, src))
+    src, key, val = src[order], key[order], val[order]
+    counts = np.bincount(src, minlength=n).astype(np.int32)
+    width = max(1, int(counts.max())) if counts.size else 1
+    row_start = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=row_start[1:])
+
+    quant = None
+    vals_dt = np.dtype(np.float32)
+    d = np.ascontiguousarray(d, np.float32)
+    d_codes = None
+    if quantize is not None:
+        b_vals = theory.quant_vals_bound(plan, d_channel=quantize_d)
+        vmax = torch.tensor([val.max() if val.size else 0.0],
+                            dtype=torch.float32)
+        _, scale = quantization.quantize_array(vmax, quantize, b_vals)
+        d_scale = b_d = 0.0
+        if quantize_d:
+            b_d = theory.quant_d_bound(plan)
+            codes, d_scale = quantization.quantize_array(
+                torch.from_numpy(d), "int16", b_d)
+            d_codes = codes.numpy()
+        quant = QuantInfo(scheme=quantize, scale=scale, bound=b_vals,
+                          d_scale=d_scale, d_bound=b_d)
+        vals_dt = _FILE_DTYPES[quantization.vals_dtype(quant)]
+
+    specs = {
+        "d": (np.int16 if d_codes is not None else np.float32, (n,)),
+        "keys": (np.int32, (n, width)),
+        "vals": (vals_dt, (n, width)),
+        "counts": (np.int32, (n,)),
+    }
+    w = V3Writer(path, plan, specs, quant=quant, builder=builder,
+                 uncertified_d=uncertified_d)
+    try:
+        w.array("d")[:] = d_codes if d_codes is not None else d
+        w.array("counts")[:] = counts
+        keys_mm = w.array("keys")
+        vals_mm = w.array("vals")
+        for r0 in range(0, n, row_chunk):
+            r1 = min(n, r0 + row_chunk)
+            e0, e1 = int(row_start[r0]), int(row_start[r1])
+            kk = np.full((r1 - r0, width), INT32_PAD_KEY, np.int32)
+            vv = np.zeros((r1 - r0, width), np.float32)
+            rows = src[e0:e1] - r0
+            rank = np.arange(e0, e1, dtype=np.int64) - row_start[src[e0:e1]]
+            kk[rows, rank] = key[e0:e1]
+            vv[rows, rank] = val[e0:e1]
+            keys_mm[r0:r1] = kk
+            if quant is None:
+                vals_mm[r0:r1] = vv
+            elif quant.scheme == "int16":
+                vals_mm[r0:r1] = np.round(
+                    vv / np.float32(quant.scale)).astype(np.int16)
+            else:       # bf16 bits, stored as int16
+                vals_mm[r0:r1] = torch.from_numpy(vv).to(
+                    torch.bfloat16).view(torch.int16).numpy()
+        w.finalize()
+    except BaseException:
+        w.abort()
+        raise
+    return {"path": path, "n": int(n), "width": int(width),
+            "entries": int(len(src)),
+            "bytes": int(os.path.getsize(path)),
+            "quant": None if quant is None else quant.scheme,
+            "builder": builder, "uncertified_d": bool(uncertified_d)}
+
+
 def _read_v3_header(path: str):
     size = os.path.getsize(path)
     with open(path, "rb") as f:

@@ -47,6 +47,28 @@ def barabasi_albert(n: int, k: int = 4, seed: int = 0,
     return csr.undirected(n, src, dst)
 
 
+def powerlaw_fast(n: int, k: int = 6, alpha: float = 2.2,
+                  seed: int = 0) -> csr.Graph:
+    """Heavy-tailed synthetic for the million-node scale path: ~n*k
+    directed edges, sources uniform, destinations drawn from a
+    bounded-Pareto popularity over node ids (in-degree tail exponent
+    ~ ``alpha``). O(m) NumPy throughout, so 10^6-node graphs take
+    seconds."""
+    if alpha <= 1:
+        raise ValueError("alpha must be > 1")
+    rng = np.random.default_rng(seed)
+    m = n * k
+    src = rng.integers(0, n, size=m, dtype=np.int64)
+    # inverse-CDF sample of a Pareto truncated to [1, n]: the rank of
+    # the destination in the popularity order (rank 1 = hottest hub)
+    u = rng.random(m)
+    lo, s = 1.0, alpha - 1.0
+    rank = (lo ** -s * (1 - u * (1 - (n / lo) ** -s))) ** (-1.0 / s)
+    dst = np.minimum(rank.astype(np.int64) - 1, n - 1)
+    keep = src != dst
+    return csr.from_edges(n, src[keep], dst[keep])
+
+
 def dag(n: int, m: int, seed: int = 0) -> csr.Graph:
     """Random DAG: edges point forward in a shuffled topological order."""
     rng = np.random.default_rng(seed)

@@ -3,7 +3,7 @@ zoo: the dense Alg-2 HP table (keys equal, values to 1e-5, entries
 within float32 rounding of theta counted), ``build_index(exact_d=True)``,
 the pair queries on the result, and the Alg-4 walk diagonal held to
 its certificate |d~ - d| <= eps_d. ``build_index`` takes the
-reference's positional order through ``block``."""
+reference's positional order through ``builder``."""
 import dataclasses
 
 import numpy as np
@@ -157,12 +157,16 @@ def test_build_index_passes_delta_and_adaptive_to_the_walks(monkeypatch):
 
 
 def test_build_index_takes_nothing_positional_after_block():
-    """The reference's eighth positional parameter is ``spill_dir``,
-    which the port does not take: everything after ``block`` is
-    keyword-only."""
+    """The reference's positional parameters run through ``builder``
+    (``spill_dir`` eighth, ``builder`` fourteenth), which the port takes
+    in the same order; its own ``device`` and ``verbose`` are
+    keyword-only, so a fifteenth positional argument is refused."""
     _, t = _graphs("powerlaw")
+    args = (0.1, None, 0.6, 0, True, 16, None, False, False, True, 0.0,
+            0.0, "sling")
+    assert tbuild.build_index(t, *args, device="cpu").builder == "sling"
     with pytest.raises(TypeError):
-        tbuild.build_index(t, 0.1, None, 0.6, 0, True, 16, True)
+        tbuild.build_index(t, *args, "cpu")
 
 
 @pytest.mark.parametrize("name", ZOO)

@@ -589,3 +589,55 @@ def test_mapped_quantized_index_serves_on_card(card, tmp_path):
         np.testing.assert_array_equal(a[1], b[1])
         np.testing.assert_array_equal(a[2][0], b[2][0])
         np.testing.assert_array_equal(a[2][1], b[2][1])
+
+
+def _canonical_bits(triples):
+    """COO triples (tensors or arrays) sorted by (src, key), values as
+    their float32 bits."""
+    src, key, val = (np.asarray(x.cpu() if isinstance(x, torch.Tensor)
+                                else x) for x in triples)
+    order = np.lexsort((key.astype(np.int64), src.astype(np.int64)))
+    return src[order], key[order], val.astype(np.float32)[order].view(
+        np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, eps", [(600, 0.1), (20_000, 0.5)])
+def test_sparse_build_on_card_equals_cpu_build(card, n, eps):
+    """The sparse build's float64 segment sums are a fixed tree of IEEE
+    adds, so the card's table equals the CPU's bit for bit."""
+    from repro_torch.core import hp_index, theory
+    g = generators.powerlaw_fast(n, seed=4)
+    p = theory.plan(eps=eps, c=0.6, n=n)
+    cpu = hp_index.build_hp_table_sparse(g, p.theta, p.sqrt_c, p.l_max,
+                                         block=256, device="cpu")
+    gpu = hp_index.build_hp_table_sparse(g, p.theta, p.sqrt_c, p.l_max,
+                                         block=256, device=card)
+    assert gpu.keys.device.type == "cuda" and gpu.width == cpu.width
+    for a, b in ((gpu.keys, cpu.keys), (gpu.counts, cpu.counts),
+                 (gpu.vals.view(torch.int32), cpu.vals.view(torch.int32))):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, eps", [(600, 0.1), (20_000, 0.5)])
+def test_prsim_equals_sling_on_card(card, n, eps):
+    """prsim's hub/tail schedule and the SLING blocks emit the same
+    triples bit for bit on the card, and the same as on the CPU."""
+    from repro_torch import prsim
+    from repro_torch.core import hp_index, theory
+    g = generators.powerlaw_fast(n, seed=4)
+    p = theory.plan(eps=eps, c=0.6, n=n)
+    runs = {}
+    for name, dev in (("prsim", card), ("sling", card), ("cpu", "cpu")):
+        sink = hp_index._CooSink(None)
+        if name == "prsim":
+            prsim.build_prsim_coo(g, p, sink, hub_batch=64, tail_block=512,
+                                  device=dev)
+        else:
+            hp_index.sparse_hp_coo(g, p.theta, p.sqrt_c, p.l_max, 1024,
+                                   sink, device=dev)
+        runs[name] = _canonical_bits(sink.collect())
+    for name in ("sling", "cpu"):
+        for a, b in zip(runs["prsim"], runs[name]):
+            np.testing.assert_array_equal(a, b)
