@@ -75,6 +75,37 @@ Phases (any failure raises and the script exits non-zero):
      table with the extra columns PAD; ``spmm`` must launch. With
      ``--profile``, four hub batches and four tail blocks of the sparse
      build are traced;
+  3f. the bulk join (``repro_torch.join``): on phase 3's index, an
+     all-sources ``run_join`` with ``JoinConfig(k=16, tile=64)`` (574
+     tiles), a threshold sweep (tau the median 16th score, cap 256) over
+     a seeded 4,096-source subset, and the top-k sweep again with a
+     checkpoint, stopped after 100 tiles and resumed (equal bits to the
+     uninterrupted sweep); the artifact saved, loaded and attached to
+     phase 3's engine, served by ``knn(u)``, refused after a swap to a
+     repaired copy (0.1 % churn) until a fresh join is attached. Then
+     on phase 3e's mapped 10^6 index a seeded 4,096-source subset that
+     holds the hub, stopped and resumed once (the full sweep, 15,625
+     tiles, does not fit the time limit). The counters are zeroed
+     before each part's sweeps and read after; ``horner_push`` must
+     launch once per tile. Outside the counts, 256 sampled rows against
+     ``QueryEngine.topk(u, 16)`` and against a plain-push sweep on the
+     card (scores within BACKEND_ATOL, ids equal outside near-ties);
+     per-tile p50/p99, sources a second, artifact and checkpoint bytes
+     and ms, peak device memory;
+  3g. the serving frontend: ``ServeFrontend.from_index_file(mmap=True)``
+     on phase 3d's v3 file, two replicas on the card with worker
+     threads, least-loaded routing, max_wait 2 ms, a 50 ms deadline;
+     after ``warmup``, 6,000 Zipf(1.1) requests (pair, single-source and
+     top-k in turn) as fast as admission takes them, a 0.1 % churn batch
+     through ``update_index`` and the epoch-barrier ``swap_index``, then
+     500 more. The counters are zeroed before and read after the last
+     ``drain``: ``hp_join``, ``horner_push`` and ``spmm`` must launch.
+     Checks: pure, monotone epochs in the batch log, no shape growth
+     after warmup, no batch whose engine call raised on a worker
+     (``stats()["failed"]``; the frontend sheds such a batch's tickets
+     and keeps serving), a sample of tickets equal bit for bit to
+     direct engines; per kind the ticket latency p50/p99, sheds, batches, fill
+     and cache hit rate, the swap ms and the device bytes a replica;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -759,8 +790,9 @@ def artifact_phase(g, idx, answers, queries, dev, tmp) -> dict:
     ``queries`` the sample's (pair_u, pair_v, src_q, top_q); the files
     go to ``tmp``. The counters are zeroed before the quantized build and
     read after its mapped index served; that index's answers are then
-    held against the same plan's float32 index on the card.
-    Returns the launches of the path."""
+    held against the same plan's float32 index on the card. The v3 file
+    of phase 3's index stays in ``tmp`` (``enron.sling``) for phases 3f
+    and 3g. Returns the launches of the path."""
     import os
 
     import numpy as np
@@ -815,7 +847,6 @@ def artifact_phase(g, idx, answers, queries, dev, tmp) -> dict:
         raise RuntimeError(f"the mapped artifact's answers differ from "
                            f"phase 3's: {bit_equal}")
     del feng
-    os.remove(path)
     path2 = os.path.join(tmp, "enron.npz")
     _, t_save2 = timed(lambda: idx.save(path2, version=2))
     v2, t_load2 = timed(lambda: SlingIndex.load(path2, device=dev))
@@ -1223,6 +1254,505 @@ def options_phase(g, idx, dev, tmp) -> dict:
     if not all(ok.values()) or launches["spmm"] <= 0:
         raise RuntimeError(f"the spilled, widened build failed: {ok}, "
                            f"{launches}")
+    return launches
+
+
+class SweepClock:
+    """Host seconds of each tile and of each checkpoint write of the join
+    sweeps run inside the ``with`` block (``tiles``, ``ckpt``): it wraps
+    ``join.sweep._tile_runner`` and ``_save_checkpoint``. A tile ends in
+    the copy of its (tile, kq) result to the host, so its host time is
+    its device time plus the host's share."""
+
+    def __enter__(self):
+        from repro_torch.join import sweep
+        self.tiles, self.ckpt = [], []
+        self._orig = (sweep._tile_runner, sweep._save_checkpoint)
+        runner, save = self._orig
+
+        def tile_runner(*args, **kw):
+            run = runner(*args, **kw)
+
+            def run_tile(us):
+                t = time.perf_counter()
+                out = run(us)
+                self.tiles.append(time.perf_counter() - t)
+                return out
+            return run_tile
+
+        def save_checkpoint(*args, **kw):
+            t = time.perf_counter()
+            save(*args, **kw)
+            self.ckpt.append(time.perf_counter() - t)
+
+        sweep._tile_runner, sweep._save_checkpoint = (tile_runner,
+                                                      save_checkpoint)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.join import sweep
+        sweep._tile_runner, sweep._save_checkpoint = self._orig
+
+
+def same_knn(a, b) -> bool:
+    """Two KnnGraphs with equal bits in every array."""
+    import numpy as np
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("sources", "indptr", "nbr_ids", "nbr_scores"))
+
+
+def knn_rows(knn, us):
+    """The stored (ids, scores) rows of ``us``, stacked."""
+    import numpy as np
+    rows = [knn.neighbors(int(u)) for u in us]
+    return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]))
+
+
+def topk_agreement(idx, g, us, ids_a, sc_a, ids_b, sc_b, dev) -> dict:
+    """Two top-k answers for the rows ``us``: the largest score
+    difference position by position, and the largest gap between the
+    scores of two different ids at one position, the scores read from
+    the kernel's single-source rows on the card (64 rows at a time, on
+    the device). ids agree outside near-ties when the gap is <= 1e-5."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import device_state
+    from repro_torch.core.single_source import batched_single_source
+    st = device_state.serving_arrays(idx, g, dev)
+    gap = 0.0
+    for lo in range(0, len(us), 64):
+        u = torch.as_tensor(np.asarray(us[lo:lo + 64], np.int64),
+                            device=dev)
+        full = batched_single_source(st.keys, st.vals, st.d, st.layout, u,
+                                     st.tau, n=idx.n, l_max=idx.plan.l_max,
+                                     backend="kernel")
+        a = torch.as_tensor(ids_a[lo:lo + 64], device=dev).long()
+        b = torch.as_tensor(ids_b[lo:lo + 64], device=dev).long()
+        d = (full.gather(1, a) - full.gather(1, b)).abs()
+        gap = max(gap, float(d.max()))
+        del full
+    return {"scores": float(np.abs(sc_a - sc_b).max()), "id_gap": gap,
+            "ids_differ": int((ids_a != ids_b).sum())}
+
+
+def join_sweeps(idx, g, dev, tmp, label: str, sources, stop: int,
+                every: int, threshold: bool):
+    """The sweeps of phase 3f on one index, inside the launch count:
+    the top-k sweep (k = 16, tile = 64) of ``sources`` (None: all n),
+    with ``threshold`` a threshold sweep (tau the median 16th score,
+    cap 256) of a seeded 4,096-source subset, then the top-k sweep again
+    with a checkpoint every ``every`` tiles, stopped after ``stop``
+    tiles and resumed. Returns (the uninterrupted artifact, the tiles
+    computed, the printed facts); the artifact is saved to ``tmp`` and
+    loaded back, and the loaded one returned."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.join import JoinConfig, KnnGraph, run_join
+
+    n_src = g.n if sources is None else len(sources)
+    tiles = -(-n_src // 64)
+    facts = {}
+    with SweepClock() as clock:
+        synchronize(dev)
+        t0 = time.perf_counter()
+        knn = run_join(idx, g, sources, JoinConfig(k=16, tile=64),
+                       device=dev)
+        wall = time.perf_counter() - t0
+    facts["sweep"] = (f"{n_src:,} sources in {tiles} tiles of 64: "
+                      f"{wall:.3f} s, {n_src / wall:,.0f} sources/s, per "
+                      f"tile {pct(clock.tiles)}, nnz {knn.nnz:,}")
+    computed = tiles
+    if threshold:
+        tau = float(np.median(knn.nbr_scores.reshape(-1, 16)[:, 15]))
+        sub = np.sort(np.random.default_rng(3).choice(
+            g.n, min(4096, g.n), replace=False))
+        t0 = time.perf_counter()
+        thr = run_join(idx, g, sub, JoinConfig(tau=tau, cap=256, tile=64),
+                       device=dev)
+        wall_t = time.perf_counter() - t0
+        computed += -(-len(sub) // 64)
+        lens = np.diff(thr.indptr)
+        facts["threshold"] = (
+            f"tau {tau:.6g} (median 16th score), cap 256, {len(sub):,} "
+            f"sources: "
+            f"{wall_t:.3f} s, nnz {thr.nnz:,}, row length min/median/max "
+            f"{lens.min()}/{int(np.median(lens))}/{lens.max()}, truncated "
+            f"{int(thr.truncated.sum())}")
+        if not (thr.mode == "threshold" and (thr.nbr_scores >= tau).all()):
+            raise RuntimeError("the threshold sweep kept a score below tau")
+    ck = os.path.join(tmp, f"{label}.ckpt.npz")
+    cfg = JoinConfig(k=16, tile=64, checkpoint_path=ck,
+                     checkpoint_every=every)
+    with SweepClock() as ck_clock:
+        if run_join(idx, g, sources, cfg, stop_after_tiles=stop,
+                    device=dev) is not None:
+            raise RuntimeError("a stopped sweep returned an artifact")
+        ck_bytes = os.path.getsize(ck)
+        resumed = run_join(idx, g, sources, cfg, device=dev)
+    computed += tiles
+    equal = same_knn(resumed, knn)
+    facts["resume"] = (
+        f"stopped after {stop} tiles ({ck_bytes:,}-byte checkpoint), "
+        f"resumed for {len(ck_clock.tiles) - stop}: equal bits to the "
+        f"uninterrupted sweep {equal}; {len(ck_clock.ckpt)} checkpoint "
+        f"writes, ms " + "/".join(f"{1e3 * t:.1f}" for t in ck_clock.ckpt)
+        + f"; checkpoint removed {not os.path.exists(ck)}")
+    if not equal or os.path.exists(ck) \
+            or len(ck_clock.tiles) != tiles:
+        raise RuntimeError(f"{label}: the resumed sweep differs from the "
+                           "uninterrupted one")
+    path = os.path.join(tmp, f"{label}.knn.npz")
+    t0 = time.perf_counter()
+    knn.save(path)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = KnnGraph.load(path)
+    t_load = time.perf_counter() - t0
+    facts["artifact"] = (f"nbytes {knn.nbytes():,}, file "
+                         f"{os.path.getsize(path):,} bytes, save "
+                         f"{t_save * 1e3:.1f} ms, load {t_load * 1e3:.1f} ms,"
+                         f" equal bits {same_knn(back, knn)}")
+    if not same_knn(back, knn):
+        raise RuntimeError(f"{label}: the artifact's round trip changed it")
+    facts["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    return back, computed, facts
+
+
+def tile_split(idx, g, us, dev) -> str:
+    """One join tile's device time by part (CUDA events, 20 reps): the
+    push of the tile's 64 sources on the kernel, and the stable top-k of
+    its (64, n) slab; outside the launch count."""
+    import torch
+
+    from repro_torch.core import device_state
+    from repro_torch.core.single_source import batched_single_source
+    from repro_torch.core.topk import stable_topk
+    st = device_state.serving_arrays(idx, g, dev)
+    u = torch.as_tensor(us[:64].astype("int64"), device=dev)
+
+    def push():
+        return batched_single_source(st.keys, st.vals, st.d, st.layout, u,
+                                     st.tau, n=idx.n, l_max=idx.plan.l_max,
+                                     backend="kernel")
+    slab = push()
+    t_push = time_ms(push, 20)
+    t_topk = time_ms(lambda: stable_topk(slab, 16), 20)
+    return (f"a tile's parts on the card (CUDA events): push (B = 64) "
+            f"{t_push:.4f} ms, stable top-16 of the (64, {idx.n:,}) slab "
+            f"{t_topk:.4f} ms")
+
+
+def join_checks(idx, g, knn, eng, us, dev) -> dict:
+    """Phase 3f's checks, outside the count: the artifact's rows of
+    ``us`` against ``eng.topk(us, 16)`` and against a sweep of ``us`` on
+    the plain push on the card."""
+    from repro_torch.join import JoinConfig, run_join
+
+    ki, ks = knn_rows(knn, us)
+    ev, ei = eng.topk(us, 16)
+    plain = run_join(idx, g, us, JoinConfig(k=16, tile=64,
+                                            push_backend="plain"),
+                     device=dev)
+    pi, ps = knn_rows(plain, us)
+    out = {"engine": topk_agreement(idx, g, us, ki, ks, ei, ev, dev),
+           "plain": topk_agreement(idx, g, us, ki, ks, pi, ps, dev)}
+    if any(v["scores"] > TOL_KERNEL or v["id_gap"] > 1e-5
+           for v in out.values()):
+        raise RuntimeError(f"the join disagrees: {out}")
+    return out
+
+
+def join_phase(g, idx, eng, scale, dev, tmp, v3_path) -> dict:
+    """Phase 3f, the bulk join (see the module docstring): at the Enron
+    regime on phase 3's index and engine, then on phase 3e's mapped
+    10^6-node index. The counters are zeroed before each part's sweeps
+    and read after them; ``horner_push`` must launch once per tile
+    computed. Phase 3's engine is swapped back to phase 3's index at the
+    end. Returns the launches of both parts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build, device_state, update
+    from repro_torch.core.index import SlingIndex
+    from repro_torch.device import synchronize
+    from repro_torch.join import JoinConfig, run_join
+    from repro_torch.kernels.horner_push import horner_push_rows
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+
+    kernels = {"hp_join": hp_join, "horner_push": horner_push_rows,
+               "spmm": spmm}
+
+    def zero():
+        for kern in kernels.values():
+            kern.launches = 0
+        horner_push_rows.steps = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    def read():
+        out = {k: kern.launches for k, kern in kernels.items()}
+        out["horner_push_steps"] = horner_push_rows.steps
+        return out
+
+    rng = np.random.default_rng(6)
+    sample = np.sort(rng.choice(g.n, 256, replace=False)).astype(np.int32)
+
+    # ---- Enron: all sources, threshold, stop and resume ---------------
+    zero()
+    # stop after 100 tiles (Enron's 574), or halfway on a smaller graph
+    stop = min(100, -(-g.n // 64) // 2)
+    back, tiles, facts = join_sweeps(idx, g, dev, tmp, "enron", None, stop,
+                                     64, True)
+    eng.attach_knn(back)
+    t0 = time.perf_counter()
+    served = [eng.knn(int(u)) for u in sample]
+    t_knn = (time.perf_counter() - t0) / len(sample)
+    lookups_equal = all(
+        np.array_equal(ids, back.neighbors(int(u))[0])
+        for u, (ids, _) in zip(sample, served))
+    # a swap to a repaired copy of the index: lookups refused until a
+    # fresh join at the new epoch is attached
+    w = SlingIndex.load(v3_path, device=dev)
+    m_batch = max(2, int(g.m * CHURN[0]))
+    delta = update.random_delta(g, n_add=m_batch // 2,
+                                n_del=m_batch - m_batch // 2, seed=17)
+    rep = build.update_index(w, g, delta, seed=17)
+    eng.swap_index(w, rep.graph, affected=rep.affected)
+    refused = []
+    try:
+        eng.knn(int(sample[0]))
+    except RuntimeError:
+        refused.append("knn")
+    try:
+        eng.attach_knn(back)
+    except ValueError:
+        refused.append("attach")
+    fresh = run_join(w, rep.graph, sample, JoinConfig(k=16, tile=64),
+                     device=dev)
+    tiles += 4
+    eng.attach_knn(fresh)
+    after = eng.knn(int(sample[0]))
+    synchronize(dev)
+    launches = read()
+    st = eng.stats()
+    eng.swap_index(idx, g)     # phase 4 measures phase 3's index
+    del w, rep
+    print(f"[join] Enron {facts['sweep']}; device peak "
+          f"{facts['peak']:.3f} GiB")
+    print(f"[join] Enron threshold: {facts['threshold']}")
+    print(f"[join] Enron checkpoint: {facts['resume']}")
+    print(f"[join] Enron artifact: {facts['artifact']}; attached to "
+          f"phase 3's engine, "
+          f"knn(u) {t_knn * 1e6:.1f} us a lookup, equal to the rows "
+          f"{lookups_equal}; after a swap ({m_batch} edges) refused "
+          f"{refused}, a fresh 256-source join at epoch {fresh.epoch} "
+          f"served {len(after[0])} ids; stats knn={st['knn']} "
+          f"knn_stale_rejects={st['knn_stale_rejects']}; launches "
+          f"{launches} for {tiles} tiles")
+    if not lookups_equal or refused != ["knn", "attach"] \
+            or st["knn_stale_rejects"] != 1:
+        raise RuntimeError("the artifact's lookups failed their checks")
+    if launches["horner_push"] != tiles:
+        raise RuntimeError(f"horner_push launched {launches['horner_push']}"
+                           f" times for {tiles} tiles")
+    chk = join_checks(idx, g, back, eng, sample, dev)
+    print(f"[join] Enron 256 rows vs QueryEngine.topk(u, 16) and vs a "
+          f"plain-push sweep on the card: {chk} (BACKEND_ATOL "
+          f"{TOL_KERNEL}); {tile_split(idx, g, sample, dev)}; card "
+          f"{card_line()}")
+    del back, fresh
+    device_state.cache_clear()
+    total = launches
+
+    # ---- 10^6: a 4,096-source subset holding the hub -------------------
+    g1, _, eng1 = scale
+    idx1 = eng1.index
+    hub = int(np.argmax(g1.in_deg))
+    sub = np.random.default_rng(8).choice(g1.n, 4096, replace=False)
+    if hub not in sub:
+        sub[0] = hub
+    sub = np.sort(sub).astype(np.int32)
+    zero()
+    knn1, tiles1, facts1 = join_sweeps(idx1, g1, dev, tmp, "scale", sub, 32,
+                                       16, False)
+    synchronize(dev)
+    launches1 = read()
+    print(f"[join] 10^6 (mapped prsim file; the full sweep, 15,625 tiles, "
+          f"is left out for the smoke's time limit): {facts1['sweep']}; "
+          f"hub {hub} among the sources; device peak {facts1['peak']:.3f} "
+          f"GiB")
+    print(f"[join] 10^6 checkpoint: {facts1['resume']}; artifact "
+          f"{facts1['artifact']}; launches {launches1} for {tiles1} tiles")
+    if launches1["horner_push"] != tiles1:
+        raise RuntimeError(f"horner_push launched "
+                           f"{launches1['horner_push']} times for {tiles1} "
+                           "tiles at 10^6")
+    pick = np.random.default_rng(9).choice(len(sub), 255, replace=False)
+    us1 = np.unique(np.append(sub[pick], hub)).astype(np.int32)
+    chk1 = join_checks(idx1, g1, knn1, eng1, us1, dev)
+    print(f"[join] 10^6 {len(us1)} rows vs QueryEngine.topk(u, 16) and vs "
+          f"a plain-push sweep on the card: {chk1}; "
+          f"{tile_split(idx1, g1, np.append(hub, us1[us1 != hub]), dev)} "
+          f"(the hub in the tile); card "
+          f"{card_line()}")
+    del knn1
+    device_state.cache_clear()
+    return {k: total[k] + launches1[k] for k in total}
+
+
+def frontend_phase(g, v3_path, dev) -> dict:
+    """Phase 3g, the serving frontend at the Enron regime (see the module
+    docstring). The counters are zeroed before the frontend is made and
+    read after its last ``drain``; the checks against direct engines
+    run after. Returns the launches of the path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build, update
+    from repro_torch.core.index import SlingIndex
+    from repro_torch.kernels.horner_push import horner_push_rows
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.serve import (EngineConfig, FrontendConfig,
+                                   QueryEngine, ServeFrontend, zipf_nodes)
+
+    kernels = {"hp_join": hp_join, "horner_push": horner_push_rows,
+               "spmm": spmm}
+    for kern in kernels.values():
+        kern.launches = 0
+    horner_push_rows.steps = 0
+    cfg = FrontendConfig(max_batch=8, max_pair_batch=64, max_wait=0.002,
+                         default_timeout=0.05, replicas=2,
+                         routing="least_loaded", engine=EngineConfig())
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fe = ServeFrontend.from_index_file(v3_path, g, cfg, mmap=True,
+                                       device=dev)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    per_replica = (torch.cuda.memory_allocated() - mem0) / cfg.replicas
+    warm = fe.warmup()
+    shapes0 = set(map(tuple, fe.stats()["unique_shapes"]))
+    e0 = fe.stats()["epoch"]
+
+    def traffic(count, seed):
+        us = zipf_nodes(g.n, count, s=1.1, seed=seed)
+        vs = zipf_nodes(g.n, count, s=1.1, seed=seed + 1)
+        made = []
+        t = time.perf_counter()
+        for i, (u, v) in enumerate(zip(us.tolist(), vs.tolist())):
+            kind = ("pair", "source", "topk")[i % 3]
+            made.append((kind, u, v, fe.submit_pair(u, v) if kind == "pair"
+                         else fe.submit_source(u) if kind == "source"
+                         else fe.submit_topk(u, 10)))
+        t_submit = time.perf_counter() - t
+        fe.flush()
+        fe.drain(timeout=600.0)
+        return made, t_submit, time.perf_counter() - t
+
+    pre, sub_s, wall = traffic(6000, 0)
+    log_pre = len(fe.batch_log)
+    w = SlingIndex.load(v3_path, device=dev)
+    m_batch = max(2, int(g.m * CHURN[0]))
+    delta = update.random_delta(g, n_add=m_batch // 2,
+                                n_del=m_batch - m_batch // 2, seed=23)
+    t0 = time.perf_counter()
+    rep = build.update_index(w, g, delta, seed=23)
+    t_upd = time.perf_counter() - t0
+    sw = fe.swap_index(w, rep.graph, affected=rep.affected)
+    post, sub_s2, wall2 = traffic(500, 2)
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    launches["horner_push_steps"] = horner_push_rows.steps
+    st = fe.stats()
+    log = list(fe.batch_log)
+    fe.close()
+
+    # the audit trail: pure, monotone epochs, no shape growth
+    epochs = [r.epoch for r in log]
+    e1 = sw["epoch"]
+    served_pre = sum(not t.shed for *_, t in pre)
+    served_post = sum(not t.shed for *_, t in post)
+    ok = {"log_complete": len(log) == st["batches"],
+          "epochs": set(epochs) <= {e0, e1} and epochs == sorted(epochs),
+          "pre_at_e0": sum(r.size for r in log[:log_pre]
+                           if r.epoch == e0) == served_pre,
+          "post_at_e1": sum(r.size for r in log if r.epoch == e1)
+          == served_post,
+          "shapes": set(map(tuple, st["unique_shapes"])) == shapes0,
+          "launched": min(launches.values()) > 0,
+          "no_failed_batches": st["failed"] == 0}
+    # a sample of tickets against direct engines, bit for bit
+    direct = {e0: QueryEngine.from_index_file(v3_path, g, EngineConfig(),
+                                              mmap=True, device=dev),
+              e1: QueryEngine(w, rep.graph, EngineConfig(), device=dev)}
+    mism = 0
+    checked = 0
+    for made, epoch in ((pre, e0), (post, e1)):
+        ref = direct[epoch]
+        live = [m for m in made if not m[3].shed]
+        for kind, u, v, t in live[:: max(1, len(live) // 96)]:
+            got = t.result(timeout=60.0)
+            if kind == "pair":
+                same = got == ref.pair(u, v)
+            elif kind == "source":
+                same = np.array_equal(got, ref.single_source([u])[0])
+            else:
+                rv, ri = ref.topk([u], 10)
+                same = (np.array_equal(got[0], rv[0])
+                        and np.array_equal(got[1], ri[0]))
+            mism += not same
+            checked += 1
+    ok["bitwise"] = mism == 0
+    del direct, w, rep
+
+    print(f"[frontend] from_index_file(mmap) with 2 replicas "
+          f"{t_make * 1e3:.1f} ms, device bytes a replica "
+          f"{per_replica:,.0f}; warmup (max over replicas) "
+          + " ".join(f"{k}={v:.3f}s" for k, v in warm.items()))
+    print(f"[frontend] 6,000 requests (Zipf 1.1) submitted in "
+          f"{sub_s:.3f} s, served in {wall:.3f} s ({6000 / wall:,.0f} "
+          f"req/s); update_index ({m_batch} edges) {t_upd:.3f} s, swap "
+          f"through the barrier {sw['swap_ms']:.1f} ms (barrier batches "
+          f"{sw['barrier_batches']}, recompiles {sw['recompiles']}, "
+          f"epoch {e0} -> {e1}); 500 more in {wall2:.3f} s")
+    hits, misses = st["cache_hits_by_kind"], st["cache_misses_by_kind"]
+    for kind, tag in (("pair", "pair"), ("source", "src"),
+                      ("topk", "topk")):
+        lat = [t.latency for k, _, _, t in pre + post
+               if k == kind and not t.shed]
+        shed = sum(t.shed for k, _, _, t in pre + post if k == kind)
+        recs = [r for r in log if r.kind == kind]
+        fill = (float(np.mean([r.size / r.cap for r in recs]))
+                if recs else 0.0)
+        h, mi = hits.get(tag, 0), misses.get(tag, 0)
+        print(f"[frontend] {kind}: ticket latency {pct(lat)}, shed "
+              f"{shed}, batches {len(recs)}, mean fill {fill:.3f}, cache "
+              f"hit rate {h / max(1, h + mi):.3f}")
+    # a record's ``closed`` is when a worker took the batch up, so
+    # closed - opened is the wait from the first admission to dispatch
+    waits = {why: [1e3 * (r.closed - r.opened) for r in log
+                   if r.reason == why] for why in ("size", "wait", "flush")}
+    ages = [1e3 * (t.fulfil_t - t.submit_t) for *_, t in pre + post
+            if t.shed]
+    print("[frontend] batches by close reason, first admission to "
+          "dispatch ms p50/max: " + "; ".join(
+              f"{why} {len(w)}" + (f" {np.median(w):.3f}/{max(w):.3f}"
+                                   if w else "")
+              for why, w in waits.items())
+          + f"; shed tickets' age at the shed ms p50/max "
+          + (f"{np.median(ages):.3f}/{max(ages):.3f}" if ages else "none")
+          + f" (deadline {1e3 * cfg.default_timeout:g} ms)")
+    print(f"[frontend] launches {launches}; {checked} tickets vs direct "
+          f"engines, {mism} differ; shed {st['shed']} of which failed on "
+          f"a worker {st['failed']}; checks {ok}; card {card_line()}")
+    if not all(ok.values()):
+        raise RuntimeError(f"the frontend failed its checks: {ok}")
     return launches
 
 
@@ -1983,22 +2513,35 @@ def main() -> int:
     total["cin"] = rec["cin"]
     print(f"[xdeepfm] launches {rec}; all paths {total}")
 
-    # ---- 3d. the index artifact: save, load, mmap, quantize, Section 5 --
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # ---- 3d. the index artifact: save, load, mmap, quantize, §5 ----
         art = artifact_phase(g, idx, answers, queries, dev, tmp)
-    for k in art:
-        total[k] += art[k]
-    print(f"[artifact] launches {art}; all paths {total}")
+        for k in art:
+            total[k] += art[k]
+        print(f"[artifact] launches {art}; all paths {total}")
 
-    # ---- 3e. the scale path at 10^6 nodes, then the build options -------
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # ---- 3e. the scale path at 10^6 nodes, then the build options --
         sc, scale = scale_phase(dev, tmp, profile=args.profile)
         opt = options_phase(g, idx, dev, tmp)
-    for k in sc:
-        total[k] += sc[k]
-    total["spmm"] += opt["spmm"]
-    print(f"[scale] launches {sc}; build options {opt}; all paths {total}")
+        for k in sc:
+            total[k] += sc[k]
+        total["spmm"] += opt["spmm"]
+        print(f"[scale] launches {sc}; build options {opt}; all paths "
+              f"{total}")
+
+        # ---- 3f. the bulk join at Enron and at 10^6 ---------------------
+        v3_path = str(Path(tmp) / "enron.sling")
+        jn = join_phase(g, idx, eng, scale, dev, tmp, v3_path)
+        for k in jn:
+            total[k] += jn[k]
+        print(f"[join] launches {jn}; all paths {total}")
+
+        # ---- 3g. the serving frontend at Enron --------------------------
+        fe = frontend_phase(g, v3_path, dev)
+        for k in fe:
+            total[k] += fe[k]
+        print(f"[frontend] launches {fe}; all paths {total}")
 
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),

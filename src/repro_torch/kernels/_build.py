@@ -30,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("hp_join", "horner_push", "spmm", "cin")
 
 _lock = threading.Lock()
+# the wrappers' launch counters are bumped under this lock: the serving
+# frontend's replica workers launch from several threads
+counter_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}     # name -> nvcc output (ptxas -v report)
 

@@ -134,8 +134,9 @@ def horner_push_rows(keys, vals, d, us, layout, tau: float, *, l_max: int,
                       l_max, tau, workspace.data_ptr(), out.data_ptr(),
                       stream)
     _build.check(err, "horner_push_rows")
-    horner_push_rows.launches += 1
-    horner_push_rows.steps += l_max + 1
+    with _build.counter_lock:
+        horner_push_rows.launches += 1
+        horner_push_rows.steps += l_max + 1
     return out
 
 

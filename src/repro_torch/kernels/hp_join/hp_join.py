@@ -82,7 +82,8 @@ def hp_join(keys: torch.Tensor, vals: torch.Tensor, us: torch.Tensor,
                       vs.data_ptr(), us.shape[0], keys.shape[1],
                       out.data_ptr(), stream)
     _build.check(err, "hp_join")
-    hp_join.launches += 1
+    with _build.counter_lock:
+        hp_join.launches += 1
     return out
 
 

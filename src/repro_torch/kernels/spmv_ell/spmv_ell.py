@@ -149,7 +149,8 @@ def spmm(x: torch.Tensor, layout, out: torch.Tensor | None = None, *,
                       None if live_out is None else live_out.data_ptr(),
                       stream)
     _build.check(err, "spmm")
-    spmm.launches += 1
+    with _build.counter_lock:
+        spmm.launches += 1
     return out
 
 

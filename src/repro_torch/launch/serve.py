@@ -5,9 +5,11 @@ serve a query stream through it and report latency.
     python -m repro_torch.launch.serve --device cpu --n 200 --queries 8
     python -m repro_torch.launch.serve --n 2000 --mutate 3 --churn 0.01
 
-Port of the direct-engine path of ``repro/launch/serve.py``. Runs on
-``cuda`` unless ``--device cpu``. The last serving line says whether the
-set of dispatch shapes grew after warmup.
+Port of ``repro/launch/serve.py`` on one device (``--mesh`` waits for
+the port's sharding). Runs on ``cuda`` unless ``--device cpu``. The last
+serving line says whether the set of dispatch shapes grew after warmup.
+``--pair-backend join|kernel`` picks the pair path (``auto``: the
+kernel on ``cuda``, the join on the CPU).
 
 Artifacts: ``--quantize int16|bf16`` with ``--quant-frac F`` builds with
 F of eps reserved for quantization and serves the quantized index;
@@ -27,7 +29,20 @@ and are hot-swapped into the live engine between query batches
 reserved for staleness. Each batch prints its repair time, swap latency,
 cache entries dropped and the staleness against the reserve; when the
 reserve is spent the index is rebuilt and swapped in. The last line
-says whether any swap grew a bucket or the shape set.
+says whether any swap grew a bucket or the shape set. ``--theta-r``
+overrides the repair threshold (default: the plan's theta).
+
+``--frontend R`` serves through the async SLO-aware admission layer
+(``ServeFrontend``) instead of calling the engine directly: R engine
+replicas over the one index, deadline-aware batch formation
+(``--max-wait-ms``), per-request deadlines with shed-on-expiry
+(``--deadline-ms``), least-loaded or round-robin routing
+(``--routing``) and a Zipf(``--zipf``) query stream. Each mode reports
+p50/p99 admission-to-result latency, sheds and throughput; ``--mutate``
+swaps go through the frontend's epoch barrier:
+
+    python -m repro_torch.launch.serve --device cpu --n 200 --frontend 2 \
+        --mode mixed --queries 16 --deadline-ms 5000 --mutate 2
 """
 from __future__ import annotations
 
@@ -39,7 +54,11 @@ import numpy as np
 from repro_torch.core import build, quantize, update
 from repro_torch.core.index import SlingIndex
 from repro_torch.graph import generators
-from repro_torch.serve import EngineConfig, QueryEngine
+from repro_torch.serve import (EngineConfig, FrontendConfig, QueryEngine,
+                               ServeFrontend, zipf_nodes)
+
+MODES = {"source": ["source"], "pair": ["pair"], "topk": ["topk"],
+         "mixed": ["source", "pair", "topk"]}
 
 
 def _percentiles(lat: list[float]) -> str:
@@ -58,6 +77,8 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", default="source",
                     choices=("source", "pair", "topk", "mixed"))
     ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--pair-backend", default="auto",
+                    choices=("auto", "join", "kernel"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--mutate", type=int, default=0, metavar="N",
@@ -65,8 +86,23 @@ def main(argv=None) -> None:
                          "update_index + hot-swap after the query loop")
     ap.add_argument("--churn", type=float, default=0.01,
                     help="fraction of edges mutated per --mutate batch")
+    ap.add_argument("--theta-r", type=float, default=None,
+                    help="repair threshold override (default: plan "
+                         "theta, the sound operating point)")
     ap.add_argument("--stale-frac", type=float, default=0.2,
                     help="fraction of eps reserved for update staleness")
+    ap.add_argument("--frontend", type=int, default=0, metavar="R",
+                    help="serve through the async SLO-aware frontend "
+                         "with R engine replicas (0 = direct engine)")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="frontend batch-close wait bound")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request deadline; expired requests are "
+                         "shed, not served (0 = no deadline)")
+    ap.add_argument("--zipf", type=float, default=1.1,
+                    help="frontend query-skew exponent (0 = uniform)")
+    ap.add_argument("--routing", default="least_loaded",
+                    choices=("least_loaded", "round_robin"))
     ap.add_argument("--index", default=None, metavar="PATH",
                     help="serve a persisted index artifact instead of "
                          "building one (graph is regenerated from "
@@ -122,18 +158,20 @@ def main(argv=None) -> None:
         idx.save(args.save_index)
         print(f"index saved -> {args.save_index}")
 
-    eng = QueryEngine(idx, g, EngineConfig(
-        source_batch=args.batch, pair_batch=max(args.batch, 16)),
-        device=args.device)
+    ecfg = EngineConfig(source_batch=args.batch,
+                        pair_batch=max(args.batch, 16),
+                        pair_backend=args.pair_backend)
+    if args.frontend > 0:
+        _frontend_serve(args, g, idx, ecfg)
+        return
+    eng = QueryEngine(idx, g, ecfg, device=args.device)
     warm = eng.warmup()
     print("warmup: " + "  ".join(f"{k}={v:.3f}s" for k, v in warm.items()))
 
     rng = np.random.default_rng(args.seed)
     qs = rng.integers(0, g.n, args.queries).astype(np.int32)
-    modes = {"source": ["source"], "pair": ["pair"], "topk": ["topk"],
-             "mixed": ["source", "pair", "topk"]}[args.mode]
     shapes_before = len(eng.stats()["unique_shapes"])
-    for mode in modes:
+    for mode in MODES[args.mode]:
         lat = []
         for lo in range(0, args.queries, args.batch):
             batch = qs[lo:lo + args.batch]
@@ -166,19 +204,115 @@ def main(argv=None) -> None:
         _mutate_replay(args, g, idx, eng, qs)
 
 
+def _frontend_serve(args, g, idx, ecfg: EngineConfig) -> None:
+    """Zipf traffic through the SLO-aware frontend, mode by mode, then
+    the churn replay through its swap barrier."""
+    fe = ServeFrontend(idx, g, FrontendConfig(
+        max_batch=args.batch, max_pair_batch=max(args.batch, 16),
+        max_wait=args.max_wait_ms / 1e3,
+        default_timeout=(args.deadline_ms / 1e3
+                         if args.deadline_ms > 0 else None),
+        replicas=args.frontend, routing=args.routing, engine=ecfg),
+        device=args.device)
+    with fe:
+        warm = fe.warmup()
+        deadline = (f"{args.deadline_ms:g}ms" if args.deadline_ms > 0
+                    else "none")
+        print(f"frontend: {args.frontend} replicas, {args.routing} "
+              f"routing, max_wait {args.max_wait_ms}ms, deadline "
+              f"{deadline}, zipf s={args.zipf}")
+        print("warmup (max over replicas): "
+              + "  ".join(f"{k}={v:.3f}s" for k, v in warm.items()))
+        us = zipf_nodes(g.n, args.queries, s=args.zipf, seed=args.seed)
+        vs = zipf_nodes(g.n, args.queries, s=args.zipf, seed=args.seed + 1)
+        shapes_before = len(fe.stats()["unique_shapes"])
+        for mode in MODES[args.mode]:
+            t0 = time.perf_counter()
+            if mode == "source":
+                tickets = [fe.submit_source(int(u)) for u in us]
+            elif mode == "pair":
+                tickets = [fe.submit_pair(int(u), int(v))
+                           for u, v in zip(us, vs)]
+            else:
+                tickets = [fe.submit_topk(int(u), args.k) for u in us]
+            fe.flush()
+            fe.drain(timeout=120.0)
+            wall = time.perf_counter() - t0
+            lat = [t.latency for t in tickets if not t.shed]
+            shed = sum(t.shed for t in tickets)
+            pct = _percentiles(lat) if lat else "all shed"
+            print(f"[frontend {mode}] {args.queries} requests: {pct}  "
+                  f"shed {shed}/{args.queries}  "
+                  f"{args.queries / wall:.0f} req/s")
+        if args.mutate:
+            _frontend_mutate(args, g, idx, fe, us)
+        st = fe.stats()
+    grew = len(st["unique_shapes"]) - shapes_before
+    print(f"frontend: {st['batches']} batches, occupancy "
+          f"{st['mean_occupancy']:.2f}, cache {st['cache_hits']}/"
+          f"{st['cache_hits'] + st['cache_misses']} hits over "
+          f"{st['replicas']} replicas, device "
+          f"{st['per_replica'][0]['device']}")
+    print(f"dispatch shapes: {len(st['unique_shapes'])} total, {grew} new "
+          f"after warmup "
+          f"({'fixed shape set OK' if grew == 0 else 'SHAPES GREW'})")
+    if grew:
+        raise SystemExit(1)
+
+
+def _frontend_mutate(args, g, idx, fe, us) -> None:
+    """Edge-churn replay through the frontend's epoch swap barrier."""
+    m_batch = max(1, int(g.m * args.churn))
+    print(f"\n[mutate] {args.mutate} batches x {m_batch} edges through "
+          f"the frontend swap barrier")
+    shapes0 = len(fe.stats()["unique_shapes"])
+    recompiles = 0
+    for i in range(args.mutate):
+        rep, t_repair = _churn_step(args, g, idx, i, m_batch)
+        sw = fe.swap_index(idx, rep.graph, affected=rep.affected)
+        recompiles += sw["recompiles"]
+        g = rep.graph
+        tickets = [fe.submit_source(int(u)) for u in us[:args.batch]]
+        fe.flush()
+        fe.drain(timeout=120.0)
+        sample = tickets[0].result(timeout=10.0)[:3]
+        print(f"[mutate {i}] repair={t_repair * 1e3:.0f}ms "
+              f"swap={sw['swap_ms']:.1f}ms barrier_batches="
+              f"{sw['barrier_batches']} recompiles={sw['recompiles']} "
+              f"epoch={sw['epoch']} "
+              f"sample={np.round(np.asarray(sample), 4)}")
+    grew = len(fe.stats()["unique_shapes"]) - shapes0
+    _swap_verdict(f"{args.mutate} swaps through the barrier", recompiles,
+                  grew)
+
+
+def _churn_step(args, g, idx, i: int, m_batch: int):
+    """The i-th seeded churn batch of m_batch edges, repaired into idx
+    in place: returns (UpdateReport, repair seconds)."""
+    delta = update.random_delta(g, n_add=m_batch // 2,
+                                n_del=m_batch - m_batch // 2,
+                                seed=args.seed + 100 + i)
+    t0 = time.perf_counter()
+    rep = build.update_index(idx, g, delta, seed=args.seed + i,
+                             theta_r=args.theta_r)
+    return rep, time.perf_counter() - t0
+
+
+def _swap_verdict(head: str, recompiles: int, grew: int) -> None:
+    ok = grew == 0 and not recompiles
+    print(f"[mutate] {head}, {recompiles} bucket growths, {grew} new "
+          f"shapes ({'fixed-shape swap OK' if ok else 'BUCKETS GREW'})")
+
+
 def _mutate_replay(args, g, idx, eng, qs) -> None:
     """Edge-churn replay: update -> hot-swap -> serve, N times."""
     m_batch = max(1, int(g.m * args.churn))
     print(f"\n[mutate] {args.mutate} batches x {m_batch} edges "
-          f"(churn {args.churn:.2%}), theta_r=plan.theta")
+          f"(churn {args.churn:.2%}), theta_r="
+          f"{args.theta_r if args.theta_r is not None else 'plan.theta'}")
     shapes0 = len(eng.stats()["unique_shapes"])
     for i in range(args.mutate):
-        delta = update.random_delta(g, n_add=m_batch // 2,
-                                    n_del=m_batch - m_batch // 2,
-                                    seed=args.seed + 100 + i)
-        t0 = time.perf_counter()
-        rep = build.update_index(idx, g, delta, seed=args.seed + i)
-        t_repair = time.perf_counter() - t0
+        rep, t_repair = _churn_step(args, g, idx, i, m_batch)
         sw = eng.swap_index(idx, rep.graph, affected=rep.affected)
         g = rep.graph
         scores = eng.single_source(qs[:args.batch])
@@ -199,10 +333,8 @@ def _mutate_replay(args, g, idx, eng, qs) -> None:
                   f"{time.perf_counter() - t0:.1f}s, engine re-armed")
     st = eng.stats()
     grew = len(st["unique_shapes"]) - shapes0
-    ok = grew == 0 and not st["swap_recompiles"]
-    print(f"[mutate] {st['swaps']} swaps, last {st['last_swap_ms']:.1f}ms, "
-          f"{st['swap_recompiles']} bucket growths, {grew} new shapes "
-          f"({'fixed-shape swap OK' if ok else 'BUCKETS GREW'})")
+    _swap_verdict(f"{st['swaps']} swaps, last {st['last_swap_ms']:.1f}ms",
+                  st["swap_recompiles"], grew)
 
 
 if __name__ == "__main__":

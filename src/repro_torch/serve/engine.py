@@ -1,9 +1,8 @@
 """Unified SimRank query engine on one device: pairs, single-source and
 top-k from a built :class:`~repro_torch.core.index.SlingIndex`.
 
-Port of ``repro/serve/engine.py`` (single device; meshes and kNN
-attachments are later slices). The dispatch contract is the
-reference's:
+Port of ``repro/serve/engine.py`` (single device; meshes are a later
+slice). The dispatch contract is the reference's:
 
   * **fixed batch shapes** -- requests are chunked and padded to
     ``pair_batch`` / ``source_batch``; the packed table is padded to a
@@ -34,7 +33,11 @@ reference's:
     dequantized on the engine's device at install and at a swap. A
     space-reduced index is refused: its packed rows lack the step-1/2
     entries that only ``SlingIndex.query_pair_host(u, v, g)``
-    re-materializes.
+    re-materializes;
+  * **materialized kNN lookups** -- ``attach_knn`` installs a bulk-join
+    artifact (:class:`~repro_torch.join.KnnGraph`) and ``knn(u)``
+    answers from it on the host, refused once a swap has moved the
+    served epoch past the artifact's.
 """
 from __future__ import annotations
 
@@ -144,9 +147,11 @@ class QueryEngine:
         self._cache = _LRU(self.cfg.cache_size)
         self._shapes: set = set()
         # warmup dispatches prime shapes but are not traffic
-        self._counts = {"pair": 0, "source": 0, "topk": 0,
+        self._counts = {"pair": 0, "source": 0, "topk": 0, "knn": 0,
+                        "knn_stale_rejects": 0,
                         "batches": 0, "pad_slots": 0,
                         "warmup_batches": 0, "warmup_pad_slots": 0}
+        self._knn = None          # attached KnnGraph artifact (if any)
         self._in_warmup = False
         self._swaps = {"swaps": 0, "last_swap_ms": 0.0,
                        "swap_recompiles": 0, "invalidated": 0}
@@ -426,6 +431,51 @@ class QueryEngine:
         return sv, si
 
     # ------------------------------------------------------------------
+    # materialized kNN lookups (repro_torch.join)
+    # ------------------------------------------------------------------
+    def attach_knn(self, knn, allow_stale: bool = False) -> None:
+        """Attach a materialized :class:`~repro_torch.join.KnnGraph` so
+        ``knn(u)`` answers from the artifact instead of the device. The
+        artifact must cover this engine's graph (same n) and, unless
+        ``allow_stale``, match the served index's epoch: an artifact
+        swept before a hot-swap holds pre-swap scores."""
+        if knn.n != self.index.n:
+            raise ValueError(f"KnnGraph covers n={knn.n} nodes, engine "
+                             f"serves n={self.index.n}")
+        if not allow_stale and knn.epoch != self.index.epoch:
+            raise ValueError(
+                f"KnnGraph was swept at index epoch {knn.epoch}, engine "
+                f"serves epoch {self.index.epoch}; re-run the join "
+                "(repro_torch.join.run_join) or pass allow_stale=True")
+        self._knn = knn
+
+    def knn(self, u: int, k: int | None = None,
+            allow_stale: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, scores) of u's materialized nearest neighbors, from the
+        attached :class:`~repro_torch.join.KnnGraph`: a host lookup, no
+        device dispatch. A ``swap_index`` moves the served epoch past
+        the artifact's, after which lookups raise (counted in
+        ``stats()["knn_stale_rejects"]``) until a fresh join is
+        attached; ``allow_stale=True`` serves the pre-swap scores
+        explicitly. ``k`` truncates the stored row (scores descend)."""
+        self._counts["knn"] += 1
+        if self._knn is None:
+            raise RuntimeError("no KnnGraph attached; run the bulk join "
+                               "(repro_torch.join.run_join) and "
+                               "attach_knn() its artifact")
+        if not allow_stale and self._knn.epoch != self.index.epoch:
+            self._counts["knn_stale_rejects"] += 1
+            raise RuntimeError(
+                f"attached KnnGraph is stale: swept at epoch "
+                f"{self._knn.epoch}, index now at epoch "
+                f"{self.index.epoch} (hot-swap); re-run the join or "
+                "pass allow_stale=True")
+        ids, scores = self._knn.neighbors(int(u))
+        if k is not None:
+            ids, scores = ids[:int(k)], scores[:int(k)]
+        return ids, scores
+
+    # ------------------------------------------------------------------
     def warmup(self) -> dict:
         """Dispatch every fixed shape once before traffic arrives
         (builds the kernels on ``cuda``). Returns {path: seconds}.
@@ -462,6 +512,7 @@ class QueryEngine:
             "cache_hits_by_kind": dict(self._cache.hits_by_kind),
             "cache_misses_by_kind": dict(self._cache.misses_by_kind),
             "cache_entries": len(self._cache),
+            "knn_attached": self._knn is not None,
             "unique_shapes": sorted(self._shapes),
             "pair_backend": self._pair_backend,
             "push_backend": self._push_backend,

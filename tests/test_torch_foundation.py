@@ -149,12 +149,35 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.models.recsys, repro_torch.kernels.cin\n"
             "import repro_torch.core.device_state, repro_torch.train.steps\n"
             "import repro_torch.data.pipeline, repro_torch.configs.xdeepfm\n"
-            "import repro_torch.launch.specs\n"
+            "import repro_torch.launch.specs, repro_torch.join\n"
+            "import repro_torch.serve.frontend, repro_torch.serve.clock\n"
+            "import repro_torch.serve.load\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_serve_cli_frontend_with_churn_on_cpu():
+    """The serving CLI's frontend path: two replicas, a deadline, Zipf
+    traffic in every mode, then two churn batches through the swap
+    barrier; no request shed, no shape or bucket growth."""
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--n", "200", "--frontend", "2", "--mode", "mixed", "--queries",
+         "16", "--deadline-ms", "5000", "--mutate", "2"],
+        env=env, capture_output=True, text=True, timeout=300,
+        cwd=PORT.parent.parent)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1].endswith("0 new after warmup (fixed shape set OK)")
+    for mode in ("source", "pair", "topk"):
+        assert any(ln.startswith(f"[frontend {mode}] 16 requests")
+                   and "shed 0/16" in ln for ln in lines), mode
+    assert sum(ln.startswith("[mutate ") for ln in lines) == 2
+    assert any("(fixed-shape swap OK)" in ln for ln in lines)
 
 
 def test_entry_points_refuse_missing_card(monkeypatch):
