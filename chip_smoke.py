@@ -106,6 +106,22 @@ Phases (any failure raises and the script exits non-zero):
      and keeps serving), a sample of tickets equal bit for bit to
      direct engines; per kind the ticket latency p50/p99, sheds, batches, fill
      and cache hit rate, the swap ms and the device bytes a replica;
+  3h. node-sharded SLING, every shard on the one card (so the exchange
+     between levels stays on it): ``build_index(mesh=)`` over 2 shards at
+     phase 3's regime, whose d and HP table must equal phase 3's bit for
+     bit; a ``QueryEngine`` with ``EngineConfig(mesh=)`` over 4 shards,
+     serving phase 3's sample after ``warmup``, a 0.1 % churn batch
+     through ``update_index`` and ``swap_index``, the sample again;
+     ``batched_single_source_sharded`` on a 2 x 2 (data, model) mesh;
+     ``run_join(JoinConfig(k=16, tile=64, mesh=))`` over phase 3f's
+     4,096-source subset; phase 3e's mapped 10^6 index sharded 4 ways
+     with batches of 2 and 8 that hold the hub. The counters are zeroed
+     before the build and read after the last batch:
+     ``horner_push_slab_step``, ``spmm`` and ``hp_join`` must launch.
+     Checks: no shape growth, ``swap_recompiles == 0``; the answers
+     within BACKEND_ATOL of phase 3's engine (before the swap), of a
+     one-device engine on the repaired index (after), of phase 3f's
+     rows and of phase 3e's engine, top-k ids equal outside near-ties;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -119,7 +135,12 @@ Phases (any failure raises and the script exits non-zero):
      (inputs read once, the result written once) and the bytes streamed
      through the levels run, ``torch.sparse.mm`` over all l_max + 1
      levels, and the kernel's time on cut inputs -- no edges, level-0
-     keys only -- to split it per level;
+     keys only -- to split it per level; ``horner_push_slab_step`` at the
+     Enron regime with S = 4 and B = 8: every step of one sharded push
+     against the plain step, a middle level timed per launch, the whole
+     sharded push (its launches) beside the persistent push, the bound
+     (the slab's edges, the frontier entries they need and the output,
+     each once) and ``torch.sparse.mm`` of a slab's pull;
      ``spmm`` on every step of one build block and of one push
      mass-scan block, as the path calls it, with the prune threshold and
      the live-segment masks: equal bits to the dense kernel, live_out
@@ -180,7 +201,8 @@ SCALE_EPS = 0.5        # its eps: the packed width stays ~64
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
-              "streamed_bound_ms", "b16", "parts")
+              "streamed_bound_ms", "b16", "parts", "launches_per_push",
+              "push_kernel_ms", "persistent_push_ms", "push_err")
 
 
 def card_line() -> str:
@@ -1336,6 +1358,13 @@ def topk_agreement(idx, g, us, ids_a, sc_a, ids_b, sc_b, dev) -> dict:
             "ids_differ": int((ids_a != ids_b).sum())}
 
 
+def subset_4096(g):
+    """Phase 3f's seeded 4,096-source subset (sorted)."""
+    import numpy as np
+    return np.sort(np.random.default_rng(3).choice(
+        g.n, min(4096, g.n), replace=False))
+
+
 def join_sweeps(idx, g, dev, tmp, label: str, sources, stop: int,
                 every: int, threshold: bool):
     """The sweeps of phase 3f on one index, inside the launch count:
@@ -1369,8 +1398,7 @@ def join_sweeps(idx, g, dev, tmp, label: str, sources, stop: int,
     computed = tiles
     if threshold:
         tau = float(np.median(knn.nbr_scores.reshape(-1, 16)[:, 15]))
-        sub = np.sort(np.random.default_rng(3).choice(
-            g.n, min(4096, g.n), replace=False))
+        sub = subset_4096(g)
         t0 = time.perf_counter()
         thr = run_join(idx, g, sub, JoinConfig(tau=tau, cap=256, tile=64),
                        device=dev)
@@ -1467,13 +1495,15 @@ def join_checks(idx, g, knn, eng, us, dev) -> dict:
     return out
 
 
-def join_phase(g, idx, eng, scale, dev, tmp, v3_path) -> dict:
+def join_phase(g, idx, eng, scale, dev, tmp, v3_path):
     """Phase 3f, the bulk join (see the module docstring): at the Enron
     regime on phase 3's index and engine, then on phase 3e's mapped
     10^6-node index. The counters are zeroed before each part's sweeps
     and read after them; ``horner_push`` must launch once per tile
     computed. Phase 3's engine is swapped back to phase 3's index at the
-    end. Returns the launches of both parts."""
+    end. Returns the launches of both parts, and (sources, ids, scores)
+    of the all-sources artifact's rows for the seeded 4,096-source
+    subset, which phase 3h sweeps again on a mesh."""
     import numpy as np
     import torch
 
@@ -1565,6 +1595,8 @@ def join_phase(g, idx, eng, scale, dev, tmp, v3_path) -> dict:
           f"plain-push sweep on the card: {chk} (BACKEND_ATOL "
           f"{TOL_KERNEL}); {tile_split(idx, g, sample, dev)}; card "
           f"{card_line()}")
+    sub = subset_4096(g)
+    enron_rows = (sub, *knn_rows(back, sub))
     del back, fresh
     device_state.cache_clear()
     total = launches
@@ -1602,7 +1634,7 @@ def join_phase(g, idx, eng, scale, dev, tmp, v3_path) -> dict:
           f"{card_line()}")
     del knn1
     device_state.cache_clear()
-    return {k: total[k] + launches1[k] for k in total}
+    return {k: total[k] + launches1[k] for k in total}, enron_rows
 
 
 def frontend_phase(g, v3_path, dev) -> dict:
@@ -1754,6 +1786,316 @@ def frontend_phase(g, v3_path, dev) -> dict:
     if not all(ok.values()):
         raise RuntimeError(f"the frontend failed its checks: {ok}")
     return launches
+
+
+def id_gap(full, ids_a, ids_b) -> float:
+    """The largest gap between the scores (rows of ``full``, host) of two
+    top-k answers' ids at one position: ids agree outside near-ties when
+    it is <= 1e-5."""
+    import numpy as np
+    rows = np.arange(len(full))[:, None]
+    return float(np.abs(full[rows, ids_a] - full[rows, ids_b]).max())
+
+
+def sharded_phase(g, idx, eng0, answers, queries, enron_rows, scale, dev,
+                  v3_path) -> dict:
+    """Phase 3h, node-sharded SLING on the card (see the module
+    docstring): every shard on ``dev``, so the slab kernel, the frontier
+    exchange and the merges run for real while the exchange stays on one
+    card. The counters are zeroed before the mesh build and read after
+    the last 10^6 batch; ``horner_push_slab_step``, ``spmm`` and
+    ``hp_join`` must launch. The checks against phase 3's single-device
+    answers and engines run after. Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build, shard_query, update
+    from repro_torch.core.index import SlingIndex
+    from repro_torch.core.single_source import (
+        batched_single_source_sharded, pod_slabs, prune_tau)
+    from repro_torch.device import synchronize
+    from repro_torch.join import JoinConfig, run_join
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 horner_push_slab_step)
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve import EngineConfig, QueryEngine
+
+    def timed(fn):
+        synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        return out, time.perf_counter() - t
+
+    kernels = {"horner_push_slab_step": horner_push_slab_step,
+               "spmm": spmm, "hp_join": hp_join,
+               "horner_push": horner_push_rows}
+    for kern in kernels.values():
+        kern.launches = 0
+    horner_push_rows.steps = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    # ---- the build over a 2-shard mesh ----------------------------------
+    mesh2 = make_debug_mesh((2,), ("data",), devices=[dev] * 2)
+    built, t_build = timed(lambda: build.build_index(
+        g, eps=EPS, c=0.6, seed=0, block=BLOCK, mesh=mesh2))
+    same_build = (torch.equal(built.d, idx.d)
+                  and torch.equal(built.hp.keys, idx.hp.keys)
+                  and torch.equal(built.hp.vals, idx.hp.vals))
+    del built
+    # ---- serving over 4 shards, a churn batch through the swap ---------
+    mesh4 = shard_query.serving_mesh(4, devices=[dev] * 4)
+    w = SlingIndex.load(v3_path, device=dev)
+    eng = QueryEngine(w, g, EngineConfig(mesh=mesh4), device=dev)
+    warm = eng.warmup()
+    shapes = eng.stats()["unique_shapes"]
+    before, lat = serve_sample(eng, *queries)
+    m_batch = max(2, int(g.m * CHURN[0]))
+    delta = update.random_delta(g, n_add=m_batch // 2,
+                                n_del=m_batch - m_batch // 2, seed=21)
+    rep, t_upd = timed(lambda: build.update_index(w, g, delta, seed=21))
+    sw = eng.swap_index(w, rep.graph, affected=rep.affected)
+    after, lat2 = serve_sample(eng, *queries)
+    st = eng.stats()
+    # ---- the pod path on a 2 x 2 (data, model) mesh ---------------------
+    if g.n % 2:
+        raise RuntimeError("the pod path needs an even node count")
+    mesh22 = make_debug_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    blk = shard_query.partition_edges(
+        g, idx.plan.sqrt_c, 2, g.n // 2,
+        shard_query.required_edge_cap(g, 2, g.n // 2))
+    pod_us = queries[2][:8]
+    # the slabs are built once (timed apart), as a serving loop would
+    pod_sl, t_pod_slabs = timed(lambda: pod_slabs(idx.d, *blk, g.n, mesh22))
+    batched_single_source_sharded(
+        idx.hp.keys, idx.hp.vals, idx.d, *blk, pod_us, prune_tau(idx.plan),
+        g.n, idx.plan.l_max, mesh22, slabs=pod_sl)
+    pod, t_pod = timed(lambda: batched_single_source_sharded(
+        idx.hp.keys, idx.hp.vals, idx.d, *blk, pod_us, prune_tau(idx.plan),
+        g.n, idx.plan.l_max, mesh22, slabs=pod_sl).cpu().numpy())
+    # ---- the bulk join over 4 shards ------------------------------------
+    sub, sub_ids, sub_sc = enron_rows
+    knn, t_join = timed(lambda: run_join(
+        idx, g, sub, JoinConfig(k=16, tile=64, mesh=mesh4), device=dev))
+    # ---- the mapped 10^6 index over 4 shards ----------------------------
+    sg, _, seng = scale
+    ssi, t_shard = timed(lambda: shard_query.shard_index(seng.index, sg,
+                                                         mesh4))
+    hub = int(np.argmax(sg.in_deg))
+    rng = np.random.default_rng(11)
+    big = {}
+    for B in (2, 8):
+        us = np.r_[hub, rng.choice(sg.n, B - 1, replace=False)].astype(
+            np.int32)
+        ss, t_ss = timed(lambda: shard_query.sharded_single_source(ssi, us))
+        tk, t_tk = timed(lambda: shard_query.sharded_topk(ssi, us, 10))
+        big[B] = (us, ss, tk, t_ss, t_tk)
+    synchronize(dev)
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    launches["horner_push_steps"] = horner_push_rows.steps
+    wall = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[sharded] build_index(mesh 2 x {dev}) {t_build:.2f}s, d and "
+          f"HP table equal to phase 3's bit for bit: {same_build}")
+    print(f"[sharded] engine over 4 shards on {dev}: warmup "
+          + " ".join(f"{k}={v:.3f}s" for k, v in warm.items())
+          + "; before the swap " + "; ".join(
+              f"{k} {pct(v)}" for k, v in lat.items())
+          + f"; update_index ({m_batch} edges) {t_upd:.2f}s, swap "
+          f"{sw['swap_ms']:.1f} ms, recompiles {sw['recompiles']}; after "
+          + "; ".join(f"{k} {pct(v)}" for k, v in lat2.items())
+          + f"; nbytes_per_shard {eng._sharded.nbytes_per_shard():,}, "
+          f"edge_cap {eng._sharded.edge_cap}, width_cap "
+          f"{eng._sharded.width_cap}")
+    print(f"[sharded] pod path 2 x 2 (data, model), B = 8: {t_pod * 1e3:.2f}"
+          f" ms a push (its slabs built once in {t_pod_slabs * 1e3:.2f} ms)"
+          f"; join over 4 shards: {len(sub):,} sources in "
+          f"{-(-len(sub) // 64)} tiles, {t_join:.3f}s "
+          f"({len(sub) / t_join:,.0f} sources/s)")
+    print(f"[sharded] 10^6 mapped index over 4 shards: shard_index "
+          f"{t_shard:.2f}s, nbytes_per_shard {ssi.nbytes_per_shard():,}; "
+          + "; ".join(f"B={B} (hub {hub} in the batch) single-source "
+                      f"{v[3] * 1e3:.2f} ms, top-10 {v[4] * 1e3:.2f} ms"
+                      for B, v in big.items()))
+    print(f"[sharded] launches {launches}; phase {wall:.1f}s; device peak "
+          f"{peak:.3f} GiB; card {card_line()}")
+    if not same_build:
+        raise RuntimeError("the mesh build differs from phase 3's")
+    for k in ("horner_push_slab_step", "spmm", "hp_join"):
+        if launches[k] <= 0:
+            raise RuntimeError(f"{k} did not launch on the sharded path: "
+                               f"{launches}")
+    if st["unique_shapes"] != shapes or st["swap_recompiles"] != 0 \
+            or st["mesh_shards"] != 4 or st["push_backend"] != "kernel":
+        raise RuntimeError(f"the sharded engine grew a shape or did not "
+                           f"shard: {st}")
+
+    # checks, outside the count
+    err = answer_diff(before, answers)
+    ref = answer_arrays(answers)
+    got = answer_arrays(before)
+    err["topk_id_gap"] = id_gap(eng0.single_source(queries[3]),
+                                got["topk_ids"], ref["topk_ids"])
+    one = QueryEngine(w, rep.graph, EngineConfig(), device=dev)
+    want, _ = serve_sample(one, *queries)
+    err_after = answer_diff(after, want)
+    err_after["topk_id_gap"] = id_gap(
+        one.single_source(queries[3]), answer_arrays(after)["topk_ids"],
+        answer_arrays(want)["topk_ids"])
+    err_pod = float(np.abs(pod - answers["source"][0]).max())
+    join_chk = topk_agreement(idx, g, sub, knn_rows(knn, sub)[0],
+                              knn_rows(knn, sub)[1], sub_ids, sub_sc, dev)
+    err_big = {}
+    for B, (us, ss, (tv, tid), _, _) in big.items():
+        full = seng.single_source(us)
+        ev, ei = seng.topk(us, 10)
+        err_big[B] = {"source": float(np.abs(ss - full).max()),
+                      "topk": float(np.abs(tv - ev).max()),
+                      "topk_id_gap": id_gap(full, tid, ei)}
+    print(f"[sharded] vs phase 3's engine: {err}; after the swap vs a "
+          f"one-device engine on the repaired index: {err_after}; pod "
+          f"path vs phase 3: {err_pod:.3g}; join rows vs phase 3f's: "
+          f"{join_chk} (mesh_shards {knn.mesh_shards}); 10^6 vs phase "
+          f"3e's engine: {err_big} (BACKEND_ATOL {TOL_KERNEL})")
+    worst = max([*err.values(), *err_after.values(), err_pod,
+                 join_chk["scores"], join_chk["id_gap"],
+                 *(v for e in err_big.values() for v in e.values())])
+    if not worst <= TOL_KERNEL or knn.mesh_shards != 4:
+        raise RuntimeError("the sharded answers disagree with the "
+                           "single-device ones")
+    del eng, one, ssi, knn, w
+    return launches
+
+
+def slab_row(g, idx, eng, nodes, launches: int, dev) -> dict:
+    """``horner_push_slab_step`` at the Enron regime, S = 4 shards on the
+    card, B = 8 (phase 3's single-source batch): one push level by level
+    on the kernel, every step held against the plain step on the same
+    gathered frontier, and the whole sharded push against the persistent
+    single-device push. Timed: a level of the middle of the push (S
+    launches), per launch by the profiler's device time (``ms``) and by
+    CUDA events back to back (``call_ms``, which the host's dispatch
+    paces); the plain step, one ``torch.sparse.mm`` of a slab's CSR (the
+    pull alone), the whole sharded push from the row ids (CUDA events;
+    its slab kernels' device time beside it, and a trace of ten) and
+    the persistent push. The bound
+    counts, per launch of the timed level, the slab's edges and row
+    pointers, the frontier entries its edges need, the entries of the B
+    rows that seed the slab at that level with d at their targets, and
+    its output, each once."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import shard_query
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 horner_push_slab_step,
+                                                 horner_slab_step_plain,
+                                                 slab_rows)
+    S, B = 4, 8
+    si = shard_query.shard_index(idx, g, shard_query.serving_mesh(
+        S, devices=[dev] * S))
+    us = torch.as_tensor(nodes[512:512 + B].astype(np.int64), device=dev)
+    ku, xu = shard_query._query_rows(si, us)
+    keys, vals, runs, top = slab_rows(ku, xu, g.n, si.l_max)
+    kw = dict(n=g.n, l_max=si.l_max)
+
+    def kernel(x, sl, level, out=None):
+        return horner_push_slab_step(x, sl.layout, keys, vals, runs, sl.d,
+                                     level, si.tau, slab_start=sl.start,
+                                     d_offset=sl.d_offset, out=out, **kw)
+
+    def plain(x, sl, level):
+        return horner_slab_step_plain(x, sl.layout, keys, vals, sl.d, level,
+                                      si.tau, n=g.n, slab_start=sl.start,
+                                      d_offset=sl.d_offset)
+
+    x, err, mid = None, 0.0, max(top // 2, 0)
+    saved = (None, top)
+    for level in range(top, -1, -1):
+        outs = [kernel(x, sl, level) for sl in si.slabs]
+        err = max(err, *(float((o - plain(x, sl, level)).abs().max())
+                         for o, sl in zip(outs, si.slabs)))
+        if level == mid:
+            saved = (x, level)
+        x = torch.cat(outs)
+    keys_e, vals_e, d_e, lay_e, tau_e = push_inputs(eng)
+
+    def persistent():
+        return horner_push_rows(keys_e, vals_e, d_e, us, lay_e, tau_e,
+                                l_max=si.l_max)
+
+    push_err = float((x[:g.n].t() - persistent()).abs().max())
+    xm, lm = saved
+    bufs = [torch.empty((sl.layout.n, B), device=dev) for sl in si.slabs]
+
+    def level_kernel():
+        for sl, o in zip(si.slabs, bufs):
+            kernel(xm, sl, lm, o)
+
+    def level_plain():
+        for sl in si.slabs:
+            plain(xm, sl, lm)
+
+    # the bound of the timed level lm, per launch: a launch reads the
+    # slab's CSR and the frontier rows its edges name (none at a push's
+    # first level), the two run bounds of each row, and, of the B rows,
+    # only the entries that seed this slab at this level (key, value and
+    # d at the target); it writes its (n_loc, B) output
+    nbytes = ops = 0
+    mats = []
+    for sl in si.slabs:
+        lay = sl.layout
+        m_s = lay.in_idx.numel() if xm is not None else 0
+        need = int(torch.unique(lay.in_idx).numel()) if m_s else 0
+        lo = lm * g.n + sl.start
+        seeds = int(((keys >= lo) & (keys < lo + min(lay.n, g.n - sl.start))
+                     ).sum())
+        nbytes += (8 * m_s + (4 * (lay.n + 1) if m_s else 0)
+                   + 4 * need * B + 8 * B + 12 * seeds + 4 * lay.n * B)
+        ops += 2 * m_s * B + 2 * seeds
+        with warnings.catch_warnings():   # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            mats.append(torch.sparse_csr_tensor(
+                lay.in_ptr.long(), lay.in_idx.long(), lay.w,
+                size=(lay.n, si.n_pad), check_invariants=False))
+    b_ms, b_by = bound_ms(nbytes / S, ops / S)
+    xp = (torch.rand((si.n_pad, B), device=dev) if xm is None else
+          torch.where(xm > si.tau, xm, 0.0))
+
+    def library():
+        for a in mats:
+            torch.sparse.mm(a, xp)
+
+    host_us = us.cpu().numpy()
+
+    def sharded_push():
+        return shard_query.sharded_scores(si, host_us, "kernel")
+
+    trace(f"10 sharded pushes (S = {S}, B = {B})",
+          lambda: [sharded_push() for _ in range(10)])
+    row = {"name": "horner_push_slab_step", "route": "cuda",
+           "source": "src/repro_torch/csrc/horner_push.cu",
+           "replaces": "src/repro/kernels/horner_push/horner_push.py:69",
+           "launches": launches, "max_abs_err": err,
+           "ms": device_ms(level_kernel, "slab_step_kernel", 20) / S,
+           "call_ms": time_ms(level_kernel, 50) / S,
+           "plain_ms": time_ms(level_plain, 10) / S,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(library, 20) / S,
+           "levels_run": top + 1, "launches_per_push": S * (top + 1),
+           "push_ms": time_ms(sharded_push, 20),
+           "push_kernel_ms": device_ms(sharded_push, "slab_step_kernel",
+                                       10),
+           "persistent_push_ms": time_ms(persistent, 50),
+           "push_err": push_err,
+           "shape": f"S={S} B={B} n_loc={si.n_loc} W={si.width_cap} "
+                    f"level {lm} of {top}"}
+    if push_err > TOL_KERNEL:
+        raise RuntimeError(f"the sharded push disagrees with the "
+                           f"persistent push: {push_err}")
+    return row
 
 
 def update_phase(g, dev) -> dict:
@@ -2532,7 +2874,7 @@ def main() -> int:
 
         # ---- 3f. the bulk join at Enron and at 10^6 ---------------------
         v3_path = str(Path(tmp) / "enron.sling")
-        jn = join_phase(g, idx, eng, scale, dev, tmp, v3_path)
+        jn, enron_rows = join_phase(g, idx, eng, scale, dev, tmp, v3_path)
         for k in jn:
             total[k] += jn[k]
         print(f"[join] launches {jn}; all paths {total}")
@@ -2543,10 +2885,19 @@ def main() -> int:
             total[k] += fe[k]
         print(f"[frontend] launches {fe}; all paths {total}")
 
+        # ---- 3h. node-sharded build, serving, pod path, join, scale -----
+        sh = sharded_phase(g, idx, eng, answers, queries, enron_rows, scale,
+                           dev, v3_path)
+        for k in sh:
+            total[k] = total.get(k, 0) + sh[k]
+        print(f"[sharded] launches {sh}; all paths {total}")
+
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),
                horner_row(g, p, eng, nodes, total["horner_push"],
-                          total["horner_push_steps"], scale)]
+                          total["horner_push_steps"], scale),
+               slab_row(g, idx, eng, nodes,
+                        total["horner_push_slab_step"], dev)]
     del scale
     kernels.append(spmm_row(g, p, dev, nodes, total["spmm"]))
     kernels.append(cin_row(model, serve_batch, dev, total["cin"]))

@@ -1,9 +1,10 @@
 """Index construction: plan -> diagonal (Alg 4) -> HP table (Alg 2).
 
-Port of ``repro/core/build.py`` on one device. The walks and the HP
-builds run on ``device`` (``cuda`` unless the caller passes
-``device="cpu"``); ``exact_d=True`` takes the power-method diagonal on
-the host instead of the walks.
+Port of ``repro/core/build.py``. The walks and the HP builds run on
+``device`` (``cuda`` unless the caller passes ``device="cpu"``), or,
+with ``mesh=``, split over the shards of a mesh axis;
+``exact_d=True`` takes the power-method diagonal on the host instead of
+the walks.
 
   * ``build_index`` builds in memory: the dense blocked table
     (``builder="sling"``, with ``spill_dir`` for out-of-core assembly)
@@ -26,21 +27,31 @@ import numpy as np
 import torch
 
 from repro_torch.core import (diagonal, hp_index, optimizations, theory,
-                              update)
+                              update, walks)
 from repro_torch.core.index import SlingIndex, pack_coo_to_v3
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import csr, stats
+from repro_torch.launch.mesh import mesh_device
 
 
-def resolve_builder(g: csr.Graph, builder: str) -> tuple[str, object]:
+def resolve_builder(g: csr.Graph, builder: str,
+                    mesh=None) -> tuple[str, object]:
     """``(backend, SkewStats or None)`` for a ``builder=`` argument:
     "auto" measures the skew and picks "prsim" on measurably power-law
-    graphs, "sling" otherwise; "sling" and "prsim" are taken as given."""
+    graphs, "sling" otherwise -- except under a mesh, where the sharded
+    dense build is the only mesh-aware construction, so "auto" stays
+    "sling" and "prsim" is refused; "sling" and "prsim" are taken as
+    given."""
     if builder == "auto":
+        if mesh is not None:
+            return "sling", None
         return stats.choose_builder(g)
     if builder not in ("sling", "prsim"):
         raise ValueError(f"unknown builder {builder!r}; expected "
                          "'auto', 'sling', or 'prsim'")
+    if builder == "prsim" and mesh is not None:
+        raise ValueError("the prsim builder is a sparse host-driven "
+                         "schedule; mesh builds use builder='sling'")
     return builder, None
 
 
@@ -63,9 +74,9 @@ def build_index(g: csr.Graph, eps: float = 0.025,
                 spill_dir: str | None = None, space_reduce: bool = False,
                 enhance: bool = False, exact_d: bool = False,
                 stale_frac: float = 0.0, quant_frac: float = 0.0,
-                builder: str = "sling", *, device=None,
-                verbose: bool = False) -> SlingIndex:
-    """The reference's positional order through ``builder``. ``delta``
+                builder: str = "sling", mesh=None, mesh_axis: str = "data",
+                *, device=None, verbose: bool = False) -> SlingIndex:
+    """The reference's positional order through ``mesh_axis``. ``delta``
     is the failure probability of the walk diagonal (``None``: 1/n) and
     ``adaptive`` picks Algorithm 4 over the fixed-budget Algorithm 1
     (``theory.plan``, ``diagonal.estimate_diagonal``). ``spill_dir``
@@ -77,12 +88,23 @@ def build_index(g: csr.Graph, eps: float = 0.025,
     optimizations (``core/optimizations.py``) on the host after the
     build. ``builder``: "sling" (the dense blocked table), "prsim" (the
     hub/tail schedule over the sparse build) or "auto" (by in-degree
-    skew); the choice is recorded in the index."""
+    skew); the choice is recorded in the index.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) shards the build
+    over ``mesh.shape[mesh_axis]``: the walk chunks
+    (``estimate_diagonal(mesh=)``) and the HP table's seed columns
+    (``hp_index.shard_build_hp``), each equal to the unsharded build's
+    bit for bit. The index then lies on the axis's first device, which
+    ``device`` must be if given."""
+    backend, skew = resolve_builder(g, builder, mesh=mesh)
+    if mesh is not None:
+        device = mesh_device(mesh, mesh_axis, device)
+        if not exact_d:
+            walks.check_walk_mesh(mesh, mesh_axis, walks.DEFAULT_CHUNK)
     dev = resolve_device(device)
-    backend, skew = resolve_builder(g, builder)
     if verbose and builder == "auto":
-        print(f"build_index: auto-selected builder={backend} "
-              f"skew={skew.as_row()}")
+        print(f"build_index: auto-selected builder={backend}"
+              + ("" if skew is None else f" skew={skew.as_row()}"))
     p = theory.plan(eps=eps, delta=delta, c=c, n=g.n,
                     stale_frac=stale_frac, eps_quant_frac=quant_frac)
     t0 = time.perf_counter()
@@ -90,10 +112,16 @@ def build_index(g: csr.Graph, eps: float = 0.025,
         d = diagonal.exact_diagonal(g, c)
     else:
         d = diagonal.estimate_diagonal(g, p, seed=seed, adaptive=adaptive,
+                                       mesh=mesh, mesh_axis=mesh_axis,
                                        device=dev, verbose=verbose)
     t1 = time.perf_counter()
     if backend == "prsim":
         hp, _ = _prsim_hp_table(g, p, spill_dir, verbose, dev)
+    elif mesh is not None:
+        hp = hp_index.shard_build_hp(g, theta=p.theta, sqrt_c=p.sqrt_c,
+                                     l_max=p.l_max, mesh=mesh,
+                                     axis=mesh_axis, block=block,
+                                     spill_dir=spill_dir, progress=verbose)
     else:
         hp = hp_index.build_hp_table(g, theta=p.theta, sqrt_c=p.sqrt_c,
                                      l_max=p.l_max, block=block,
@@ -112,7 +140,9 @@ def build_index(g: csr.Graph, eps: float = 0.025,
     if verbose:
         print(f"build_index: builder={backend} d={t1 - t0:.2f}s "
               f"hp={t2 - t1:.2f}s entries={int(hp.counts.sum())} "
-              f"width={hp.width} bytes={idx.nbytes()}")
+              f"width={hp.width} bytes={idx.nbytes()}"
+              + ("" if mesh is None else
+                 f" mesh={mesh.shape[mesh_axis]}-way over '{mesh_axis}'"))
     return idx
 
 

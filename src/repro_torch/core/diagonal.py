@@ -27,11 +27,13 @@ from repro_torch.baselines import power
 from repro_torch.core import theory, walks
 from repro_torch.device import resolve_device
 from repro_torch.graph import csr
+from repro_torch.launch.mesh import mesh_device
 
 
 def _count_meets(dg: walks.DeviceGraph, nodes: torch.Tensor,
                  counts: np.ndarray, gen: torch.Generator, sqrt_c: float,
-                 t_max: int, chunk: int) -> np.ndarray:
+                 t_max: int, chunk: int, mesh=None,
+                 mesh_axis: str = "data") -> np.ndarray:
     """Meets per node over ``counts[i]`` start pairs for ``nodes[i]``.
 
     A pair draws two uniform in-edge positions of the node. Two draws of
@@ -54,7 +56,8 @@ def _count_meets(dg: walks.DeviceGraph, nodes: torch.Tensor,
         ob = walks.in_edge_offsets(dg, ks, r[1])
         base = dg.in_ptr[ks]
         met = walks.paired_meet(dg, dg.in_idx[base + oa],
-                                dg.in_idx[base + ob], gen, sqrt_c, t_max)
+                                dg.in_idx[base + ob], gen, sqrt_c, t_max,
+                                mesh=mesh, mesh_axis=mesh_axis)
         met &= oa != ob
         cnt.index_add_(0, seg, met.long())    # integer sums: exact
     return cnt.cpu().numpy()
@@ -63,20 +66,32 @@ def _count_meets(dg: walks.DeviceGraph, nodes: torch.Tensor,
 def estimate_diagonal(g: csr.Graph, plan: theory.SlingPlan,
                       seed: int = 0, adaptive: bool = True,
                       chunk: int = walks.DEFAULT_CHUNK,
-                      nodes=None, d_init=None, device=None,
                       dg: walks.DeviceGraph | None = None,
+                      nodes=None, d_init=None, mesh=None,
+                      mesh_axis: str = "data", *, device=None,
                       verbose: bool = False) -> np.ndarray:
     """Estimate all d_k on ``device`` (``cuda`` unless ``device="cpu"``);
     ``adaptive=True`` is Algorithm 4, False the fixed-budget Algorithm 1.
-    Returns (n,) float32 (host). ``verbose`` prints each phase's
-    walk-pair count and seconds.
+    Returns (n,) float32 (host). The positional order is the
+    reference's. ``verbose`` prints each phase's walk-pair count and
+    seconds.
 
     ``nodes`` restricts estimation to a subset (incremental maintenance
     re-estimates only the affected d_k of an edge batch): entries
     outside ``nodes`` come back bit-equal to ``d_init`` (required with
     ``nodes``), and the walks run on the current graph ``g``, so subset
     estimates carry the same certificate as a full pass. ``dg`` is
-    ``g`` already on ``device`` (made here when None)."""
+    ``g`` already on ``device`` (made here when None).
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) splits every
+    walk chunk over ``mesh.shape[mesh_axis]`` shards
+    (:func:`walks.paired_meet`); the random numbers are drawn once on
+    the axis's first device, which is where the estimate runs, so every
+    meet indicator, and d, equals the unsharded estimate's bit for bit.
+    ``device`` is then that first device or None."""
+    if mesh is not None:
+        walks.check_walk_mesh(mesh, mesh_axis, chunk)
+        device = mesh_device(mesh, mesh_axis, device)
     n, c, sc = g.n, plan.c, plan.sqrt_c
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -105,7 +120,8 @@ def estimate_diagonal(g: csr.Graph, plan: theory.SlingPlan,
             else theory.alg1_pairs(plan.eps_d, plan.delta_d, c))
     counts = np.full(len(sampled), n_r1, dtype=np.int64)
     t0 = time.perf_counter()
-    cnt1 = _count_meets(dg, nodes, counts, gen, sc, plan.t_max, chunk)
+    cnt1 = _count_meets(dg, nodes, counts, gen, sc, plan.t_max, chunk,
+                        mesh, mesh_axis)
     mu_hat = cnt1 / n_r1
     if verbose:
         print(f"  diagonal phase 1: {int(counts.sum())} walk pairs over "
@@ -121,7 +137,8 @@ def estimate_diagonal(g: csr.Graph, plan: theory.SlingPlan,
             t0 = time.perf_counter()
             cnt2 = _count_meets(dg, nodes[torch.as_tensor(need,
                                                           device=device)],
-                                extra, gen, sc, plan.t_max, chunk)
+                                extra, gen, sc, plan.t_max, chunk, mesh,
+                                mesh_axis)
             mu_hat[need] = (cnt1[need] + cnt2) / (extra + n_r1)
             if verbose:
                 print(f"  diagonal phase 2: {int(extra.sum())} walk pairs "
@@ -139,23 +156,27 @@ def estimate_diagonal_chunked(g: csr.Graph, plan: theory.SlingPlan,
                               seed: int = 0,
                               shard: int = DEFAULT_D_SHARD,
                               chunk: int = walks.DEFAULT_CHUNK,
-                              device=None,
-                              verbose: bool = False) -> np.ndarray:
+                              dg: walks.DeviceGraph | None = None,
+                              verbose: bool = False, *,
+                              device=None) -> np.ndarray:
     """Algorithm 4 at scale: :func:`estimate_diagonal` over contiguous
     node shards of ``shard`` nodes on ``device`` (``cuda`` unless
-    ``device="cpu"``), shard i drawing from seed ``seed + i``.
+    ``device="cpu"``), shard i drawing from seed ``seed + i``; ``dg`` is
+    ``g`` already on that device (made here when None). The positional
+    order is the reference's.
 
     Each shard is the subset mode of a full pass on the whole graph, so
     every node gets the same two-phase Lemma-11 schedule, and the eps_d
     certificate, as in one monolithic pass, while the per-node budgets
     and counts held at once are O(shard)."""
     dev = resolve_device(device)
-    dg = walks.DeviceGraph.from_graph(g, dev)
+    if dg is None:
+        dg = walks.DeviceGraph.from_graph(g, dev)
     d = np.ones(g.n, np.float32)
     for i, s0 in enumerate(range(0, g.n, shard)):
         nodes = np.arange(s0, min(g.n, s0 + shard), dtype=np.int64)
-        d = estimate_diagonal(g, plan, seed=seed + i, chunk=chunk,
-                              nodes=nodes, d_init=d, device=dev, dg=dg)
+        d = estimate_diagonal(g, plan, seed=seed + i, chunk=chunk, dg=dg,
+                              nodes=nodes, d_init=d, device=dev)
         if verbose and i % 8 == 0:
             print(f"  diagonal shard {s0}/{g.n}")
     return d

@@ -55,6 +55,16 @@ def capacity_bucket(x: int, quantum: int = 64,
     return max(quantum, int(-(-int(x * headroom) // quantum) * quantum))
 
 
+def shard_layout(n: int, n_shards: int) -> tuple[int, int]:
+    """(n_pad, n_loc): the node count padded so ``n_shards`` equal slabs
+    of ``n_loc`` rows tile it exactly (shard s owns the global ids
+    [s*n_loc, (s+1)*n_loc); ids >= n are padding)."""
+    if not (1 <= n_shards <= n):
+        raise ValueError(f"need 1 <= n_shards <= n, got {n_shards}/{n}")
+    n_loc = -(-n // n_shards)
+    return n_loc * n_shards, n_loc
+
+
 @dataclasses.dataclass
 class HPTable:
     """Fixed-width packed H sets for the whole graph, on one device.
@@ -282,14 +292,16 @@ def _pack_coo(src, key, val, n: int, theta: float, sqrt_c: float,
 
 def build_hp_table(g: csr.Graph, theta: float, sqrt_c: float,
                    l_max: int, block: int = 256, width: int | None = None,
-                   spill_dir: str | None = None, progress: bool = False,
+                   spill_dir: str | None = None, progress: bool = False, *,
                    device=None) -> HPTable:
     """Construct H(v) for all v by blocked dense propagation on
     ``device`` (``cuda`` unless ``device="cpu"``): ``block`` target
     columns per (n, block) frontier. ``width`` is the least packed
     width (wider rows widen the table); ``spill_dir`` writes each
     block's triples to a spill file (:class:`_CooSink`) instead of
-    holding them; ``progress`` prints every eighth block."""
+    holding them; ``progress`` prints every eighth block. The
+    positional order is the reference's (whose ``fused`` switch, an XLA
+    compile control, the port has no use for)."""
     n = g.n
     _check_key_space(n, l_max)
     device = resolve_device(device)
@@ -297,22 +309,73 @@ def build_hp_table(g: csr.Graph, theta: float, sqrt_c: float,
     theta32 = float(np.float32(theta))   # the prune compares in float32
     sink = _CooSink(spill_dir)
     for b0 in range(0, n, block):
-        b1 = min(b0 + block, n)
-        tid = torch.arange(b0, b1, device=device)
-        h = torch.zeros((n, block), dtype=torch.float32, device=device)
-        h[tid, tid - b0] = 1.0
-        sink.add(b0, *_propagate_block_coo(h, lay, theta32, l_max, tid))
+        sink.add(b0, *_seed_block_coo(lay, theta32, l_max, b0,
+                                      min(b0 + block, n), block))
         if progress and (b0 // block) % 8 == 0:
             print(f"  hp block {b0}/{n}")
     src, key, val = sink.collect(device)
     return _pack_coo(src, key, val, n, theta, sqrt_c, l_max, width=width)
 
 
+def _seed_block_coo(lay: SpmmLayout, theta32: float, l_max: int, b0: int,
+                    b1: int, block: int):
+    """Alg 2 for the contiguous targets [b0, b1) in an (n, block) frontier
+    on the layout's device: the block of the dense build, whichever
+    device or shard runs it."""
+    dev = lay.device
+    tid = torch.arange(b0, b1, device=dev)
+    h = torch.zeros((lay.n, block), dtype=torch.float32, device=dev)
+    h[tid, tid - b0] = 1.0
+    return _propagate_block_coo(h, lay, theta32, l_max, tid)
+
+
+def shard_build_hp(g: csr.Graph, theta: float, sqrt_c: float,
+                   l_max: int, mesh, axis: str = "data", block: int = 256,
+                   width: int | None = None, spill_dir: str | None = None,
+                   progress: bool = False) -> HPTable:
+    """Mesh-parallel :func:`build_hp_table` (paper Section 5.4): the
+    targets go in superblocks of S * block columns, S =
+    ``mesh.shape[axis]``, split by column (``launch/sharding.
+    sling_build_specs``), so shard s propagates, on its own device with
+    the graph replicated there, the very (n, block) block the
+    single-device build would, through the same ``spmm`` steps. Columns
+    are independent and each output is summed in an order set by its
+    row alone, so the table equals ``build_hp_table(g, theta, sqrt_c,
+    l_max, block=block)``'s on the first shard's device bit for bit;
+    the triples are gathered and packed there. ``spill_dir`` spills a
+    superblock's triples, so out-of-core assembly composes with
+    sharding. The shards run in order from this thread."""
+    from repro_torch.launch.sharding import sling_build_specs
+    n = g.n
+    _check_key_space(n, l_max)
+    devices = mesh.axis_devices(sling_build_specs(axis)["seeds"][0])
+    S = len(devices)
+    home = devices[0]
+    layouts = {dev: SpmmLayout.pull(g, sqrt_c, dev) for dev in devices}
+    theta32 = float(np.float32(theta))
+    sink = _CooSink(spill_dir, tag="hp_shard_block")
+    for b0 in range(0, n, S * block):
+        parts = []
+        for s, dev in enumerate(devices):
+            c0 = b0 + s * block
+            if c0 >= n:
+                break
+            parts.append([t.to(home, non_blocking=True) for t in
+                          _seed_block_coo(layouts[dev], theta32, l_max, c0,
+                                          min(c0 + block, n), block)])
+        sink.add(b0, *(torch.cat(ts) for ts in zip(*parts)))
+        if progress:
+            print(f"  hp superblock {b0}/{n} ({S}-way)")
+    src, key, val = sink.collect(home)
+    return _pack_coo(src, key, val, n, theta, sqrt_c, l_max, width=width)
+
+
 def repair_hp_rows(g: csr.Graph, hp: HPTable, rows, targets,
-                   block: int = 256) -> dict:
+                   block: int = 256, progress: bool = False) -> dict:
     """Row-repair mode of Alg 2 on the table's device: re-run the
     blocked pruned pull seeded only at ``targets`` over ``g`` and splice
-    the entries into the packed rows ``rows`` of ``hp`` in place.
+    the entries into the packed rows ``rows`` of ``hp`` in place;
+    ``progress`` prints every eighth target block.
 
     Alg-2 columns are independent, so the propagation seeded at a target
     k yields exactly the h~(v; l, k) a from-scratch build on ``g`` gives.
@@ -344,6 +407,8 @@ def repair_hp_rows(g: csr.Graph, hp: HPTable, rows, targets,
         parts.append(_propagate_block_coo(
             h, lay, theta32, hp.l_max, torch.as_tensor(sub, device=dev),
             row_mask))
+        if progress and (b0 // block) % 8 == 0:
+            print(f"  repair block {b0}/{len(targets)}")
     new_src, new_key, new_val = (torch.cat([p[i] for p in parts])
                                  for i in range(3))
 

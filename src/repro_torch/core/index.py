@@ -65,17 +65,11 @@ _FILE_DTYPES = {torch.float32: np.dtype(np.float32),
 
 @dataclasses.dataclass
 class SlingIndex:
+    """The reference's fields in its order, then the port's own
+    (keyword-only)."""
     plan: theory.SlingPlan
     d: torch.Tensor        # (n,) float32 correction factors
     hp: HPTable
-    builder: str = "sling"
-    # True when d carries no eps_d certificate; QueryEngine refuses it
-    # unless EngineConfig.allow_uncertified
-    uncertified_d: bool = False
-    # wall seconds of the build phases ({"d": .., "hp": ..}), if built
-    build_seconds: dict = dataclasses.field(default_factory=dict)
-    stale: float = 0.0     # staleness charged against plan.eps_stale
-    epoch: int = 0         # bumped by every applied update batch
     # Section-5.2 space reduction: (n,) bool host array, rows whose
     # step-1/2 entries were dropped (only the host path, given the
     # graph, re-materializes them; QueryEngine refuses such an index)
@@ -83,8 +77,17 @@ class SlingIndex:
     # Section-5.3 enhancement marks: (n, n_marks) int32 host array of
     # row offsets, -1 = none
     marks: np.ndarray | None = None
+    stale: float = 0.0     # staleness charged against plan.eps_stale
+    epoch: int = 0         # bumped by every applied update batch
     # the recipe when hp.vals are int16/bf16 codes; None = float32
     quant: QuantInfo | None = None
+    builder: str = "sling"
+    # True when d carries no eps_d certificate; QueryEngine refuses it
+    # unless EngineConfig.allow_uncertified
+    uncertified_d: bool = False
+    _: dataclasses.KW_ONLY
+    # wall seconds of the build phases ({"d": .., "hp": ..}), if built
+    build_seconds: dict = dataclasses.field(default_factory=dict)
     # True for a mapped artifact: the storage is a read-only mapping
     read_only: bool = False
 

@@ -13,6 +13,12 @@ again) -- so each step touches only the live pairs: after t steps a
 fraction c^t of them. Random numbers come from an explicit
 ``torch.Generator`` on the walk's device; they do not match JAX's
 stream, so the port is held to the eps_d certificate instead.
+
+With a mesh (:func:`paired_meet`'s ``mesh``) the walk compute of every
+step is split over the shards of one mesh axis, the graph replicated on
+each shard's device; the random numbers are drawn once, on the first
+shard's device, and then split, so the meet indicators equal the
+unsharded walk's bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +31,10 @@ from repro_torch.graph import csr
 
 # pairs per walk dispatch (lanes of one chunk)
 DEFAULT_CHUNK = 1 << 23
+# the reference's smallest walk bucket (WALK_CHUNK_MIN): a walk mesh axis
+# must divide it and the chunk (check_walk_mesh), so that both packages
+# accept the same meshes
+WALK_SPLIT_UNIT = 1 << 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +60,29 @@ class DeviceGraph:
     def device(self) -> torch.device:
         return self.in_ptr.device
 
+    def to(self, device) -> "DeviceGraph":
+        """The same graph on ``device`` (itself when already there)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return DeviceGraph(n=self.n, m=self.m,
+                           in_ptr=self.in_ptr.to(device),
+                           in_idx=self.in_idx.to(device),
+                           in_deg=self.in_deg.to(device))
+
+
+def check_walk_mesh(mesh, mesh_axis: str, chunk: int) -> None:
+    """Refuse, before any walk runs, a mesh axis whose size does not
+    divide both ``WALK_SPLIT_UNIT`` and ``chunk`` (a power-of-two shard
+    count divides both): the reference's rule."""
+    S = int(mesh.shape[mesh_axis])
+    if WALK_SPLIT_UNIT % S or chunk % S:
+        raise ValueError(
+            f"walk sharding needs mesh axis '{mesh_axis}' (size {S}) "
+            f"to divide both WALK_SPLIT_UNIT={WALK_SPLIT_UNIT} and "
+            f"chunk={chunk}: use a power-of-two shard count (or a "
+            "divisible chunk)")
+
 
 def default_t_max(sqrt_c: float, tail: float = 1e-4) -> int:
     """Smallest t with (sqrt_c)^t <= tail."""
@@ -70,15 +103,54 @@ def uniform_in_neighbor(dg: DeviceGraph, nodes: torch.Tensor,
     return dg.in_idx[dg.in_ptr[nodes] + in_edge_offsets(dg, nodes, u)]
 
 
+def _advance(dg: DeviceGraph, pa, pb, r, sqrt_c: float):
+    """One step of the live pairs (pa, pb) with uniforms ``r`` (4, W):
+    (go, the new positions, hit), where go says both walks moved."""
+    go = ((r[0] < sqrt_c) & (dg.in_deg[pa] > 0)
+          & (r[2] < sqrt_c) & (dg.in_deg[pb] > 0))
+    pa = uniform_in_neighbor(dg, pa, r[1])
+    pb = uniform_in_neighbor(dg, pb, r[3])
+    return go, pa, pb, go & (pa == pb)
+
+
+def _advance_split(dgs: list, mesh, mesh_axis: str, pa, pb, r,
+                   sqrt_c: float):
+    """:func:`_advance` with the lanes split over the walk spec
+    (``launch/sharding.sling_build_specs``), one contiguous part a
+    shard on its device (``dgs``: the graph there), the results
+    concatenated back on the first device in shard order."""
+    from repro_torch.launch.sharding import place, sling_build_specs
+    spec = sling_build_specs(mesh_axis)["walks"]
+    home = pa.device
+    parts = []
+    for dg, ia, ib, ir in zip(dgs, place(pa, spec, mesh),
+                              place(pb, spec, mesh),
+                              place(r.t(), spec, mesh)):
+        out = _advance(dg, ia, ib, ir.t(), sqrt_c)
+        parts.append([t.to(home, non_blocking=True) for t in out])
+    return tuple(torch.cat(ts) for ts in zip(*parts))
+
+
 def paired_meet(dg: DeviceGraph, start_a: torch.Tensor,
                 start_b: torch.Tensor, gen: torch.Generator,
-                sqrt_c: float, t_max: int) -> torch.Tensor:
+                sqrt_c: float, t_max: int, mesh=None,
+                mesh_axis: str = "data") -> torch.Tensor:
     """Run paired sqrt(c)-walks; bool (W,) of the pairs that ever meet.
 
     A pair meets at step l >= 0 if both walks are alive and co-located;
     pairs with start_a == start_b meet at step 0 (callers that follow
     Alg 1 filter those out themselves).
+
+    ``mesh`` splits each step's live pairs over ``mesh.shape[mesh_axis]``
+    shards, with the graph replicated on every shard's device
+    (``diagonal.estimate_diagonal`` runs :func:`check_walk_mesh` first).
+    The uniforms of a step are drawn once on ``dg``'s device, as without
+    a mesh, and split with the pairs, so the result equals the unsharded
+    walk's bit for bit.
     """
+    dgs = None
+    if mesh is not None:
+        dgs = [dg.to(dev) for dev in mesh.axis_devices(mesh_axis)]
     met = start_a == start_b
     lane = torch.nonzero(~met).squeeze(1)
     pa, pb = start_a[lane], start_b[lane]
@@ -87,11 +159,11 @@ def paired_meet(dg: DeviceGraph, start_a: torch.Tensor,
             break
         r = torch.rand((4, lane.numel()), generator=gen,
                        device=dg.device)
-        go = ((r[0] < sqrt_c) & (dg.in_deg[pa] > 0)
-              & (r[2] < sqrt_c) & (dg.in_deg[pb] > 0))
-        pa = uniform_in_neighbor(dg, pa, r[1])
-        pb = uniform_in_neighbor(dg, pb, r[3])
-        hit = go & (pa == pb)
+        if dgs is None:
+            go, pa, pb, hit = _advance(dg, pa, pb, r, sqrt_c)
+        else:
+            go, pa, pb, hit = _advance_split(dgs, mesh, mesh_axis, pa, pb,
+                                             r, sqrt_c)
         met[lane] = hit     # live lanes have not met yet
         # one host sync per step: keep the pairs still walking apart
         live = torch.nonzero(go & ~hit).squeeze(1)

@@ -148,6 +148,42 @@ __device__ __forceinline__ void load_l2(const float* ptr, float (&v)[C]) {
     asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v[0]) : "l"(ptr));
 }
 
+// How a kernel reads what it shares: the persistent push reads the
+// frontiers, the staging buffers and the run tables through L2 only,
+// since other blocks write them during the launch (ViaL2); the slab step
+// writes nothing that it reads, so it takes the read-only path
+// (ReadOnly). The pull and the seed search below take one of the two, so
+// both kernels sum in the same order and agree bit for bit.
+struct ViaL2 {
+  static __device__ __forceinline__ int get(const int* ptr) {
+    return load_l2(ptr);
+  }
+  template <int C>
+  static __device__ __forceinline__ void get(const float* ptr,
+                                             float (&v)[C]) {
+    load_l2<C>(ptr, v);
+  }
+};
+
+struct ReadOnly {
+  static __device__ __forceinline__ int get(const int* ptr) {
+    return __ldg(ptr);
+  }
+  template <int C>
+  static __device__ __forceinline__ void get(const float* ptr,
+                                             float (&v)[C]) {
+    if constexpr (C == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(ptr));
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    } else {
+      v[0] = __ldg(ptr);
+    }
+  }
+};
+
 template <int C>
 __device__ __forceinline__ void store(float* ptr, const float (&v)[C]) {
   if constexpr (C == 4)
@@ -190,28 +226,37 @@ __device__ void find_runs(const Push& p, int gid, int threads) {
   }
 }
 
-// the seed of output (v, b) at `level` by a search of the level's run
-// of row b: the sum of vals * d_v over the entries whose key is
-// level*n + v, in the row's sorted order (used at the first level only)
-__device__ __forceinline__ float seed_at(const Push& p, int b, int level,
-                                         int v) {
-  const int* rp = p.runs + b * (p.l_max + 2) + level;
-  int lo = load_l2(rp), hi = load_l2(rp + 1);
+// the seed of one output from a level's run of a sorted packed row: run
+// holds the run's first and end index (read through Ld), and the seed is
+// the sum of vals[j] * *dv over the entries j whose key is `key`, in the
+// row's order (0 if there is none)
+template <class Ld>
+__device__ __forceinline__ float run_seed(const int* run, const int* row,
+                                          const float* vals, int key,
+                                          const float* dv) {
+  int lo = Ld::get(run), hi = Ld::get(run + 1);
   if (lo >= hi) return 0.f;
-  const int key = level * p.n + v;  // < 2^31 - 1: the build checks it
-  const long long base = row_of(p, b) * p.width;
-  const int* row = p.keys + base;
   const int end = hi;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (__ldg(row + mid) < key) lo = mid + 1; else hi = mid;
   }
   if (lo >= end || __ldg(row + lo) != key) return 0.f;
-  const float dv = __ldg(p.d + v);
+  const float d = __ldg(dv);
   float s = 0.f;
   for (int j = lo; j < end && __ldg(row + j) == key; ++j)
-    s += __ldg(p.vals + base + j) * dv;
+    s += __ldg(vals + j) * d;
   return s;
+}
+
+// the seed of output (v, b) at `level`: the entries of row us[b] whose
+// key is level*n + v (used at the first level only)
+__device__ __forceinline__ float seed_at(const Push& p, int b, int level,
+                                         int v) {
+  const long long base = row_of(p, b) * p.width;
+  // level*n + v < 2^31 - 1: the build checks it
+  return run_seed<ViaL2>(p.runs + b * (p.l_max + 2) + level, p.keys + base,
+                         p.vals + base, level * p.n + v, p.d + v);
 }
 
 // stage level `level`'s seeds densely: the thread at the first entry j
@@ -286,30 +331,30 @@ __device__ __forceinline__ void finish(const Push& p, float* out,
 }
 
 // acc[c] += sum over e = e0, e0 + stride, ... < e1 of
-// w_e * prune_tau(x[src_e, c0 + c]), in that order. Edges go in batches
-// of kUnroll, the last one cut short by a predicate: a batch loads its
-// indices and weights, then its frontier rows, then adds, so a node of
-// in-degree up to kUnroll waits for one index load and one frontier
-// load, not for one chain per edge.
-template <int C>
-__device__ __forceinline__ void pull_range(const Push& p, const float* x,
+// w_e * prune_tau(x[src_e, c0 + c]) over the CSR's in_idx / w and the
+// node-major (rows, B) frontier x (read through Ld), in that order. Edges
+// go in batches of kUnroll, the last one cut short by a predicate: a
+// batch loads its indices and weights, then its frontier rows, then
+// adds, so a node of in-degree up to kUnroll waits for one index load and
+// one frontier load, not for one chain per edge.
+template <class Ld, int C>
+__device__ __forceinline__ void pull_edges(const int* in_idx, const float* w,
+                                           const float* x, int B, float tau,
                                            int e0, int e1, int stride,
                                            int c0, float (&acc)[C]) {
-  const int B = p.batch;
-  const float tau = p.tau;
   for (int e = e0; e < e1; e += kUnroll * stride) {
     int src[kUnroll];
     float wv[kUnroll], xv[kUnroll][C];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int ek = e + k * stride;
-      src[k] = ek < e1 ? __ldg(p.in_idx + ek) : -1;
-      wv[k] = ek < e1 ? __ldg(p.w + ek) : 0.f;
+      src[k] = ek < e1 ? __ldg(in_idx + ek) : -1;
+      wv[k] = ek < e1 ? __ldg(w + ek) : 0.f;
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       if (src[k] >= 0) {
-        load_l2<C>(x + (long long)src[k] * B + c0, xv[k]);
+        Ld::template get<C>(x + (long long)src[k] * B + c0, xv[k]);
       } else {
 #pragma unroll
         for (int c = 0; c < C; ++c) xv[k][c] = 0.f;
@@ -322,6 +367,14 @@ __device__ __forceinline__ void pull_range(const Push& p, const float* x,
         if (src[k] >= 0 && xv[k][c] > tau)
           acc[c] = fmaf(wv[k], xv[k][c], acc[c]);
   }
+}
+
+template <int C>
+__device__ __forceinline__ void pull_range(const Push& p, const float* x,
+                                           int e0, int e1, int stride,
+                                           int c0, float (&acc)[C]) {
+  pull_edges<ViaL2, C>(p.in_idx, p.w, x, p.batch, p.tau, e0, e1, stride, c0,
+                       acc);
 }
 
 // a group's own barrier: named barrier 1 + g over its kGroup threads
@@ -666,4 +719,214 @@ extern "C" int horner_push_launch(const int* keys, const float* vals,
                                           dim3((unsigned)grid),
                                           dim3(kGroup * kGroups), args, 0,
                                           stream);
+}
+
+// ---------------------------------------------------------------------------
+// The slab step: one Horner level on one node slab, for the node-sharded
+// push (core/shard_query.py). The TPU kernel horner_step is itself one
+// level on one slab, and the reference's sharded push calls it once per
+// level with the frontier all-gathered outside it; a collective cannot run
+// inside the cooperative launch above, so the sharded push launches this
+// entry once per level per shard instead. For the n_loc rows v of the
+// slab [slab_start, slab_start + n_loc):
+//
+//   out[v, b] = sum_{e in I(v)} w_e * prune_tau(x[src_e, b]) + seed[v, b]
+//   seed[v, b] = sum over the entries j of row b whose key is
+//                level * n + slab_start + v of vals[b, j] * d_v,
+//   d_v = d[slab_start + v - d_offset]
+//
+// x is the gathered node-major (rows, B) frontier, src_e a global row of
+// it, or null at the first level of a push (a zero frontier: no pull).
+// Rows past n (the padding of the last slab) get no seed. The slab's rows
+// come in tiers of in-degree (the layout's push_order / push_tiers): a low
+// row (up to kUnroll in-edges) takes a thread a column group; a mid or wide
+// row (up to 128) a warp, and a big row a block of kSlabBlock threads,
+// whose slots stride I(v) and whose partials meet in slot order through
+// shared memory. The pull is summed in a fixed order and the seed added
+// after it, with no atomics, so two launches give the same bits. Nothing
+// that the launch reads is written during it, so x, the rows and the CSR
+// go through the read-only path.
+namespace {
+
+constexpr int kSlabBlock = 256;
+constexpr int kWarp = 32;
+
+struct Slab {
+  const int* in_ptr;   // (n_loc + 1,)
+  const int* in_idx;   // (m_loc,) global rows of x
+  const float* w;      // (m_loc,)
+  const int* order;    // the slab's rows by tier: low, mid, wide, big
+  const float* x;      // (rows, batch) gathered frontier, or null
+  const int* keys;     // (batch, width), each row sorted, PAD last
+  const float* vals;   // (batch, width)
+  const int* runs;     // (batch, l_max + 2): level l's entries of row b
+                       // are runs[b, l] .. runs[b, l + 1] - 1
+  const float* d;      // read at slab_start + v - d_offset
+  float* out;          // (n_loc, batch)
+  int n, n_loc, slab_start, d_offset, batch, width, l_max, level;
+  int n_low, n_team, n_big;  // low rows; mid and wide rows; big rows
+  int team_blocks;           // blocks of the mid and wide rows
+  int q;                     // column groups of C a row
+  float tau;
+};
+
+template <int C>
+__device__ __forceinline__ void slab_pull(const Slab& p, int e0, int e1,
+                                          int stride, int c0,
+                                          float (&acc)[C]) {
+  pull_edges<ReadOnly, C>(p.in_idx, p.w, p.x, p.batch, p.tau, e0, e1, stride,
+                          c0, acc);
+}
+
+// the seed of output (v, b): the entries of row b whose key is
+// level * n + slab_start + v
+__device__ __forceinline__ float slab_seed(const Slab& p, int b, int v) {
+  const long long base = (long long)b * p.width;
+  return run_seed<ReadOnly>(p.runs + b * (p.l_max + 2) + p.level,
+                            p.keys + base, p.vals + base,
+                            p.level * p.n + p.slab_start + v,
+                            p.d + (p.slab_start + v - p.d_offset));
+}
+
+// out[v, c0 .. c0 + C) = acc + the seed (none past n)
+template <int C>
+__device__ __forceinline__ void slab_finish(const Slab& p, int v, int c0,
+                                            float (&acc)[C]) {
+  if (p.slab_start + v < p.n) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] += slab_seed(p, c0 + c, v);
+  }
+  store<C>(p.out + (long long)v * p.batch + c0, acc);
+}
+
+template <int T>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (T == kWarp) __syncwarp(); else __syncthreads();
+}
+
+// row v with a team of T threads (a warp, or a whole block), thread r of
+// it: slot r / q of T / q walks every (T / q)-th in-edge of column group
+// r % q, the slots' partials meet in slot order in `part` (T * C floats);
+// past T / 2 column groups each thread takes whole column groups alone
+template <int C, int T>
+__device__ __forceinline__ void slab_team(const Slab& p, int v, int r,
+                                          float* part) {
+  const int q = p.q;
+  const int e0 = __ldg(p.in_ptr + v), e1 = __ldg(p.in_ptr + v + 1);
+  if (q > T / 2) {
+    for (int qi = r; qi < q; qi += T) {
+      float acc[C] = {};
+      if (p.x) slab_pull<C>(p, e0, e1, 1, qi * C, acc);
+      slab_finish<C>(p, v, qi * C, acc);
+    }
+    return;
+  }
+  const int slots = T / q;
+  const int slot = r / q, qi = r - slot * q;
+  float s[C] = {};
+  if (slot < slots && p.x) slab_pull<C>(p, e0 + slot, e1, slots, qi * C, s);
+#pragma unroll
+  for (int c = 0; c < C; ++c) part[r * C + c] = s[c];
+  team_sync<T>();
+  if (r < q) {
+    float acc[C] = {};
+    for (int k = 0; k < slots; ++k)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] += part[(k * q + r) * C + c];
+    slab_finish<C>(p, v, r * C, acc);
+  }
+}
+
+// blocks: one a big row, then the mid and wide rows kSlabBlock / kWarp a
+// block (a warp each), then the low rows' column groups a thread each
+template <int C>
+__global__ void __launch_bounds__(kSlabBlock)
+slab_step_kernel(Slab p) {
+  __shared__ float part[kSlabBlock * C];
+  const int r = threadIdx.x;
+  int u = blockIdx.x;
+  if (u < p.n_big) {
+    slab_team<C, kSlabBlock>(p, __ldg(p.order + p.n_low + p.n_team + u), r,
+                             part);
+    return;
+  }
+  u -= p.n_big;
+  if (u < p.team_blocks) {
+    const int i = u * (kSlabBlock / kWarp) + r / kWarp;
+    if (i < p.n_team)
+      slab_team<C, kWarp>(p, __ldg(p.order + p.n_low + i), r % kWarp,
+                          part + (r / kWarp) * kWarp * C);
+    return;
+  }
+  u -= p.team_blocks;
+  const long long t = (long long)u * kSlabBlock + r;
+  if (t >= (long long)p.n_low * p.q) return;
+  const int i = (int)(t / p.q), qi = (int)(t - (long long)i * p.q);
+  const int v = __ldg(p.order + i);
+  float acc[C] = {};
+  if (p.x)
+    slab_pull<C>(p, __ldg(p.in_ptr + v), __ldg(p.in_ptr + v + 1), 1, qi * C,
+                 acc);
+  slab_finish<C>(p, v, qi * C, acc);
+}
+
+}  // namespace
+
+// One level on one slab (see above): x (rows, batch) node-major or null;
+// the slab's CSR in_ptr (n_loc + 1), in_idx / w (its in-edges, global rows
+// of x), order (its rows by tier: n_low, n_mid, n_wide, n_big); keys / vals
+// (batch, width) the query rows, each sorted by key with PAD last; runs
+// (batch, l_max + 2) their level run starts; d read at
+// slab_start + v - d_offset; out (n_loc, batch). Returns the CUDA error code
+// of the launch (0 if none).
+extern "C" int horner_slab_step_launch(
+    const float* x, const int* in_ptr, const int* in_idx, const float* w,
+    const int* order, int n_low, int n_mid, int n_wide, int n_big,
+    const int* keys, const float* vals, const int* runs, const float* d,
+    int batch, int width, int n, int n_loc, int slab_start, int d_offset,
+    int l_max, int level, float tau, float* out, cudaStream_t stream) {
+  if (batch <= 0 || n_loc <= 0) return 0;
+  if ((long long)n_low + n_mid + n_wide + n_big != n_loc ||
+      (long long)(l_max + 1) * n > 0x7fffffffLL || level < 0 ||
+      level > l_max || (long long)slab_start + n_loc > 0x7fffffffLL ||
+      (long long)batch * width > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned =
+      ((reinterpret_cast<std::uintptr_t>(x) |
+        reinterpret_cast<std::uintptr_t>(out)) & 15) == 0;
+  const int cols = batch % 4 == 0 && aligned ? 4 : 1;
+  Slab p{};
+  p.in_ptr = in_ptr;
+  p.in_idx = in_idx;
+  p.w = w;
+  p.order = order;
+  p.x = x;
+  p.keys = keys;
+  p.vals = vals;
+  p.runs = runs;
+  p.d = d;
+  p.out = out;
+  p.n = n;
+  p.n_loc = n_loc;
+  p.slab_start = slab_start;
+  p.d_offset = d_offset;
+  p.batch = batch;
+  p.width = width;
+  p.l_max = l_max;
+  p.level = level;
+  p.n_low = n_low;
+  p.n_team = n_mid + n_wide;
+  p.n_big = n_big;
+  p.team_blocks = (p.n_team + kSlabBlock / kWarp - 1) / (kSlabBlock / kWarp);
+  p.q = batch / cols;
+  p.tau = tau;
+  const long long low_blocks =
+      ((long long)n_low * p.q + kSlabBlock - 1) / kSlabBlock;
+  const long long grid = (long long)n_big + p.team_blocks + low_blocks;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (cols == 4)
+    slab_step_kernel<4><<<(unsigned)grid, kSlabBlock, 0, stream>>>(p);
+  else
+    slab_step_kernel<1><<<(unsigned)grid, kSlabBlock, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -26,3 +26,14 @@ def synchronize(dev: torch.device) -> None:
     host clock around it measures the work and not its enqueue."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current card
+    (card 0 where none is visible), so that two names of one device
+    compare equal, as the devices of tensors do."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device()
+                            if torch.cuda.is_available() else 0)
+    return dev

@@ -1,6 +1,6 @@
 """Device-streamed bulk similarity join: the all-sources top-k sweep.
 
-Port of ``repro/join/sweep.py`` on one device. The online engine
+Port of ``repro/join/sweep.py``. The online engine
 answers one micro-batch at a time; feature consumers want *bulk*
 answers: "for every node (or a large node set), its k most SimRank-
 similar nodes", materialized once and read as a static kNN graph. The
@@ -15,7 +15,9 @@ sweep
     batched_topk`` over ``device_state.serving_arrays``: on ``cuda``
     one ``horner_push`` launch a tile) and a stable top-k on the
     device -- only the (tile, kq) values and ids go to the host, never
-    a tile's (tile, n) score slab;
+    a tile's (tile, n) score slab. With ``JoinConfig(mesh=...)`` the
+    index is sharded once up front and every tile goes through the
+    node-sharded fan-out (``core/shard_query.sharded_topk``);
   * accumulates tile results in a host buffer with **tile-granular
     checkpoints** (atomic-rename npz, fingerprinted against the sweep
     configuration), so a long join survives preemption and a resumed
@@ -30,8 +32,6 @@ fixed-shape top-k with k = ``cap`` candidates a source; the host keeps
 the prefix above tau. When a source's cap-th candidate still scores
 >= tau the row may be incomplete and is flagged in
 ``KnnGraph.truncated``, never silently dropped.
-
-Node-sharded sweeps (``JoinConfig.mesh``) wait for the port's sharding.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.join.artifact import CKPT_FORMAT_VERSION, KnnGraph
 from repro_torch.kernels.horner_push import resolve_push_backend
+from repro_torch.launch.mesh import mesh_device
 
 _shapes: set = set()   # every (tile, kq, backend) dispatched in the process
 
@@ -58,7 +59,7 @@ class JoinConfig:
     cap: int = 256            # device candidates/source in threshold mode
     tile: int = 64            # fixed source-tile shape
     exclude_self: bool = False  # drop s(u, u) from u's row
-    mesh: object = None       # node-sharded sweeps: not ported yet
+    mesh: object = None       # serving mesh: nodes shard over mesh_axis
     mesh_axis: str = "data"
     checkpoint_path: str | None = None  # tile-granular resume state
     checkpoint_every: int = 8           # tiles between checkpoint writes
@@ -68,20 +69,17 @@ class JoinConfig:
     # interchangeable bit for bit
     push_backend: str | None = None
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "node-sharded join sweeps (JoinConfig.mesh) wait for the "
-                "port's sharding (ROADMAP.md, modules to port: sharding);"
-                " sweep on one device with mesh=None")
-
 
 def compile_count() -> int:
     """Distinct (tile, kq, backend) tile-program shapes the sweeps of
-    this process dispatched: a sweep adds exactly one, and a sweep of
-    the same configuration adds none (the fixed-shape gate; the
-    reference's name)."""
+    this process dispatched, with ("mesh", shards) for a sharded sweep:
+    a sweep adds exactly one, and a sweep of the same configuration adds
+    none (the fixed-shape gate; the reference's name)."""
     return len(_shapes)
+
+
+def _mesh_shards(cfg: JoinConfig) -> int:
+    return 1 if cfg.mesh is None else int(cfg.mesh.shape[cfg.mesh_axis])
 
 
 def _kq(cfg: JoinConfig, n: int) -> int:
@@ -95,10 +93,11 @@ def _fingerprint(idx, g, sources: np.ndarray, cfg: JoinConfig, kq: int,
                  backend: str, device: torch.device) -> dict:
     """Everything a resumed sweep must agree on for its cached tiles to
     be interchangeable with freshly computed ones (bit-stability): the
-    graph/index identity, the tile geometry, the resolved push backend
-    and the device type (the plain push sums in another order on the
-    CPU than on the card). The reference records ``"lax"`` or
-    ``"pallas"``, so its checkpoints are refused here, never resumed."""
+    graph/index identity, the tile geometry, the mesh layout, the
+    resolved push backend and the device type (the plain push sums in
+    another order on the CPU than on the card). The reference records
+    ``"lax"`` or ``"pallas"``, so its checkpoints are refused here,
+    never resumed."""
     return {
         "n": int(idx.n), "m": int(g.m), "epoch": int(idx.epoch),
         "eps": float(idx.plan.eps), "c": float(idx.plan.c),
@@ -108,7 +107,7 @@ def _fingerprint(idx, g, sources: np.ndarray, cfg: JoinConfig, kq: int,
         "tau": None if cfg.tau is None else float(cfg.tau),
         "cap": int(cfg.cap), "tile": int(cfg.tile), "kq": int(kq),
         "exclude_self": bool(cfg.exclude_self),
-        "mesh_shards": 1,
+        "mesh_shards": _mesh_shards(cfg),
         "n_sources": int(len(sources)),
         "push_backend": backend,
         "device": device.type,
@@ -157,8 +156,9 @@ def _load_checkpoint(path: str, fp: dict, sources: np.ndarray):
         raise ValueError(
             "join checkpoint fingerprint mismatch on "
             f"{sorted(diff)}: the checkpoint was written by a different "
-            "sweep (graph, index epoch, tile geometry, push backend or "
-            "device changed); delete it or fix the configuration")
+            "sweep (graph, index epoch, tile geometry, mesh layout, push "
+            "backend or device changed); delete it or fix the "
+            "configuration")
     if not np.array_equal(ck_sources, sources):
         raise ValueError("join checkpoint source set differs from the "
                          "running sweep; refusing to resume")
@@ -175,12 +175,21 @@ def _load_checkpoint(path: str, fp: dict, sources: np.ndarray):
 def _tile_runner(idx, g, cfg: JoinConfig, kq: int, backend: str,
                  device: torch.device):
     """The one tile program of a sweep: the Horner push of ``tile``
-    sources and a stable top-k of kq on ``device``; returns
+    sources and a stable top-k of kq on ``device``, or, with a mesh, the
+    node-sharded fan-out over an index sharded once here; returns
     ``run_tile(us) -> (vals (tile, kq), ids (tile, kq))`` as NumPy."""
-    from repro_torch.core import device_state
+    from repro_torch.core import device_state, shard_query
     from repro_torch.core.topk import batched_topk
-    st = device_state.serving_arrays(idx, g, device)
     shape = (int(cfg.tile), int(kq), backend)
+    if cfg.mesh is not None:
+        shape += ("mesh", _mesh_shards(cfg))
+        si = shard_query.shard_index(idx, g, cfg.mesh, axis=cfg.mesh_axis)
+
+        def run_tile(us: np.ndarray):
+            _shapes.add(shape)
+            return shard_query.sharded_topk(si, us, kq, backend=backend)
+        return run_tile
+    st = device_state.serving_arrays(idx, g, device)
 
     def run_tile(us: np.ndarray):
         _shapes.add(shape)
@@ -196,8 +205,9 @@ def run_join(idx, g, sources=None, config: JoinConfig | None = None,
              *, stop_after_tiles: int | None = None,
              device=None) -> KnnGraph | None:
     """Sweep ``sources`` (default: all n nodes) through the join on
-    ``device`` (``cuda`` unless ``device="cpu"``) and return the
-    materialized :class:`KnnGraph`.
+    ``device`` (``cuda`` unless ``device="cpu"``; with ``config.mesh``
+    the mesh's first device, which ``device`` must be if given) and
+    return the materialized :class:`KnnGraph`.
 
     With ``config.checkpoint_path`` the sweep saves tile-granular
     progress every ``checkpoint_every`` tiles and resumes from an
@@ -208,7 +218,8 @@ def run_join(idx, g, sources=None, config: JoinConfig | None = None,
     artifact is bit-identical to an uninterrupted sweep's.
     """
     cfg = config or JoinConfig()
-    dev = resolve_device(device)
+    dev = (resolve_device(device) if cfg.mesh is None
+           else mesh_device(cfg.mesh, cfg.mesh_axis, device))
     n = idx.n
     if sources is None:
         srcs = np.arange(n, dtype=np.int32)
@@ -315,6 +326,6 @@ def _finalize(idx, srcs: np.ndarray, vals: np.ndarray, ids: np.ndarray,
         k=int(budget), tau=cfg.tau, exclude_self=cfg.exclude_self,
         tile=cfg.tile, eps=float(idx.plan.eps), c=float(idx.plan.c),
         theta=float(idx.plan.theta), l_max=int(idx.plan.l_max),
-        epoch=int(idx.epoch), mesh_shards=1, sources=srcs,
+        epoch=int(idx.epoch), mesh_shards=_mesh_shards(cfg), sources=srcs,
         indptr=indptr, nbr_ids=nbr_ids.astype(np.int32),
         nbr_scores=nbr_scores.astype(np.float32), truncated=truncated)

@@ -16,13 +16,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.horner_push.horner_push import (
-    horner_push_rows, horner_push_rows_plain, persistent_grid,
-    workspace_numel)
+    horner_push_rows, horner_push_rows_plain, horner_push_slab_step,
+    persistent_grid, workspace_numel)
 from repro_torch.kernels.horner_push.ops import (horner_push,
+                                                 horner_slab_step_plain,
                                                  horner_step_plain,
                                                  horner_steps_plain,
                                                  level_runs_plain,
-                                                 prepare_rows)
+                                                 prepare_rows, slab_rows)
 
 PUSH_BACKENDS = ("auto", "plain", "kernel")
 
@@ -44,7 +45,8 @@ def push_for(backend: str):
 
 
 __all__ = ["PUSH_BACKENDS", "horner_push", "horner_push_rows",
-           "horner_push_rows_plain", "horner_step_plain",
+           "horner_push_rows_plain", "horner_push_slab_step",
+           "horner_slab_step_plain", "horner_step_plain",
            "horner_steps_plain", "level_runs_plain", "persistent_grid",
            "prepare_rows", "push_for", "resolve_push_backend",
-           "workspace_numel"]
+           "slab_rows", "workspace_numel"]

@@ -19,6 +19,13 @@ starts at the highest level that holds a seed, and writes level 0
 straight into the result. The host only allocates the result and one
 workspace. Each output is summed in a fixed order with no atomics, so
 two pushes give the same bits.
+
+The node-sharded push (``core/shard_query.py``) cannot run a
+collective inside that launch, so it launches a second entry of the
+same source once per level per shard: :func:`horner_push_slab_step`,
+one level on one node slab from the gathered frontier, with
+:func:`~repro_torch.kernels.horner_push.ops.horner_slab_step_plain` as
+its plain version.
 """
 from __future__ import annotations
 
@@ -27,9 +34,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.horner_push.ops import horner_push
+from repro_torch.kernels.horner_push.ops import (horner_push,
+                                                 horner_slab_step_plain)
 
 _launch = []   # the bound C functions, filled on first launch
+_slab_launch = []
 
 
 def _launcher():
@@ -142,3 +151,96 @@ def horner_push_rows(keys, vals, d, us, layout, tau: float, *, l_max: int,
 
 horner_push_rows.launches = 0
 horner_push_rows.steps = 0
+
+
+def _slab_launcher():
+    if not _slab_launch:
+        fn = _build.load("horner_push").horner_slab_step_launch
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([ptr] * 5 + [i32] * 4 + [ptr] * 4 + [i32] * 8
+                       + [ctypes.c_float, ptr, ptr])
+        fn.restype = ctypes.c_int
+        _slab_launch.append(fn)
+    return _slab_launch[0]
+
+
+def _check_slab(x, layout, keys, vals, runs, d, level, l_max, n,
+                slab_start, d_offset, out) -> None:
+    n_loc, B = layout.n, keys.shape[0]
+    if keys.dim() != 2 or vals.shape != keys.shape or d.dim() != 1 \
+            or runs.shape != (B, l_max + 2) or not 0 <= level <= l_max \
+            or (x is not None and (x.dim() != 2 or x.shape[1] != B)) \
+            or (out is not None and out.shape != (n_loc, B)) \
+            or not 0 <= slab_start - d_offset \
+            or min(n, slab_start + n_loc) - d_offset > d.shape[0]:
+        raise ValueError(
+            f"horner_push_slab_step shapes: x "
+            f"{None if x is None else tuple(x.shape)} keys "
+            f"{tuple(keys.shape)} vals {tuple(vals.shape)} runs "
+            f"{tuple(runs.shape)} d {tuple(d.shape)} level {level} l_max "
+            f"{l_max} slab [{slab_start}, +{n_loc}) d_offset {d_offset}")
+    if keys.dtype != torch.int32 or runs.dtype != torch.int32 or any(
+            t.dtype != torch.float32 for t in (vals, d, x, out)
+            if t is not None):
+        raise TypeError("horner_push_slab_step takes int32 keys and runs, "
+                        "float32 x, vals, d and out")
+    ts = [t for t in (x, keys, vals, runs, d, out) if t is not None]
+    if any(t.device != layout.device for t in ts):
+        raise ValueError("horner_push_slab_step arguments must share the "
+                         "layout's device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("horner_push_slab_step arguments must be "
+                         "contiguous")
+    if x is not None and out is not None and \
+            x.data_ptr() == out.data_ptr():
+        raise ValueError("horner_push_slab_step writes out apart from x")
+
+
+def horner_push_slab_step(x, layout, keys, vals, runs, d, level: int,
+                          tau: float, *, n: int, slab_start: int,
+                          d_offset: int, l_max: int,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """One Horner level on the node slab [slab_start, slab_start +
+    layout.n) of an n-node graph: (n_loc, B) float32,
+
+        out[v, b] = sum_{e in I(v)} w_e * prune_tau(x[src_e, b])
+                    + sum of vals[b, j] * d[slab_start + v - d_offset]
+                      over the entries j of row b with key
+                      level * n + slab_start + v,
+
+    ``x`` the gathered node-major frontier (rows, B) that the layout's
+    global ``in_idx`` address (None at the first level of a push: zero),
+    ``keys``/``vals``/``runs`` the query rows as ``ops.slab_rows``
+    prepares them. On a CUDA device the Hopper kernel runs (it raises
+    if it cannot be built or launched); for CPU tensors the plain
+    version runs. ``horner_push_slab_step.launches`` counts kernel
+    launches (one a level a shard)."""
+    tau = ctypes.c_float(tau).value      # the kernel compares in float32
+    _check_slab(x, layout, keys, vals, runs, d, level, l_max, n,
+                slab_start, d_offset, out)
+    if keys.device.type == "cpu":
+        return horner_slab_step_plain(x, layout, keys, vals, d, level, tau,
+                                      n=n, slab_start=slab_start,
+                                      d_offset=d_offset, out=out)
+    n_loc, B = layout.n, keys.shape[0]
+    if out is None:
+        out = torch.empty((n_loc, B), dtype=torch.float32,
+                          device=keys.device)
+    if B == 0 or n_loc == 0:
+        return out
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = _slab_launcher()(
+            None if x is None else x.data_ptr(), layout.in_ptr.data_ptr(),
+            layout.in_idx.data_ptr(), layout.w.data_ptr(),
+            layout.push_order.data_ptr(), *layout.push_tiers,
+            keys.data_ptr(), vals.data_ptr(), runs.data_ptr(),
+            d.data_ptr(), B, keys.shape[1], n, n_loc, slab_start, d_offset,
+            l_max, level, tau, out.data_ptr(), stream)
+    _build.check(err, "horner_push_slab_step")
+    with _build.counter_lock:
+        horner_push_slab_step.launches += 1
+    return out
+
+
+horner_push_slab_step.launches = 0

@@ -13,6 +13,11 @@ The Horner recursion runs the reference's uniform form
 over two ping-ponged node-major (n, B) buffers (``horner_steps_plain``).
 This is the CPU path, and the version the Hopper kernel
 (``horner_push.horner_push_rows``) is held against on the card.
+
+The node-sharded push runs one level on one node slab at a time
+(:func:`horner_slab_step_plain`, the plain version of
+``horner_push.horner_push_slab_step``) over rows that
+:func:`slab_rows` prepares once a push.
 """
 from __future__ import annotations
 
@@ -93,3 +98,46 @@ def level_runs_plain(keys: torch.Tensor, n: int, l_max: int):
     last = torch.where(count > 0, lv.gather(1, (count - 1).clamp(min=0)),
                        -1).flatten()
     return runs, last
+
+
+def slab_rows(ku: torch.Tensor, xu: torch.Tensor, n: int, l_max: int):
+    """The query rows (B, W) as the slab step reads them: keys sorted per
+    row (PAD last) and the values in the same order, both contiguous;
+    their level runs (B, l_max + 2) int32 (:func:`level_runs_plain`);
+    and the highest level that holds a seed in any row (-1 for none),
+    above which a push from a zero frontier stays exactly zero."""
+    keys, perm = torch.sort(ku, dim=1, stable=True)
+    runs, last = level_runs_plain(keys, n, l_max)
+    return (keys.contiguous(), xu.gather(1, perm).contiguous(),
+            runs.int().contiguous(),
+            int(last.max()) if last.numel() else -1)
+
+
+def horner_slab_step_plain(x, layout: SpmmLayout, keys, vals, d,
+                           level: int, tau: float, *, n: int,
+                           slab_start: int, d_offset: int,
+                           out: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """One Horner level on the slab [slab_start, slab_start + n_loc) of
+    a graph of ``n`` nodes, n_loc = ``layout.n``: the CSR pull
+    (``spmm_plain``) of the pruned node-major frontier ``x`` (rows, B),
+    whose rows the layout's global ``in_idx`` address (None: a zero
+    frontier), plus the level's seed, ``vals[b, j] * d[k - d_offset]`` at
+    every key l*n + k of row b with l = ``level`` and k in the slab,
+    added up with ``index_add_``; written into ``out`` (n_loc, B) when
+    given. The pull, then the seed, as in :func:`horner_step_plain`."""
+    n_loc, B = layout.n, keys.shape[0]
+    dev = keys.device
+    acc = (torch.zeros((n_loc, B), dtype=torch.float32, device=dev)
+           if x is None else
+           spmm_plain(torch.where(x > tau, x, 0.0), layout))
+    k = keys.long() % n
+    hit = ((keys != INT32_PAD_KEY) & (keys.long() // n == level)
+           & (k >= slab_start) & (k < slab_start + n_loc))
+    b_idx, j_idx = torch.nonzero(hit, as_tuple=True)
+    kk = k[b_idx, j_idx]
+    seed = torch.zeros(n_loc * B, dtype=torch.float32, device=dev)
+    seed.index_add_(0, (kk - slab_start) * B + b_idx,
+                    vals[b_idx, j_idx] * d[kk - d_offset])
+    res = acc + seed.view(n_loc, B)
+    return res if out is None else out.copy_(res)

@@ -5,9 +5,9 @@ serve a query stream through it and report latency.
     python -m repro_torch.launch.serve --device cpu --n 200 --queries 8
     python -m repro_torch.launch.serve --n 2000 --mutate 3 --churn 0.01
 
-Port of ``repro/launch/serve.py`` on one device (``--mesh`` waits for
-the port's sharding). Runs on ``cuda`` unless ``--device cpu``. The last
-serving line says whether the set of dispatch shapes grew after warmup.
+Port of ``repro/launch/serve.py``. Runs on ``cuda`` unless ``--device
+cpu``. The last serving line says whether the set of dispatch shapes
+grew after warmup.
 ``--pair-backend join|kernel`` picks the pair path (``auto``: the
 kernel on ``cuda``, the join on the CPU).
 
@@ -32,6 +32,15 @@ reserve is spent the index is rebuilt and swapped in. The last line
 says whether any swap grew a bucket or the shape set. ``--theta-r``
 overrides the repair threshold (default: the plan's theta).
 
+``--mesh S`` serves node-sharded: the index is cut into node slabs over
+an S-way "data" mesh axis and single-source and top-k fan out over them
+(``core/shard_query.py``); pairs stay on the mesh's first device. On the
+card the mesh takes the first S CUDA devices (there must be S); with
+``--device cpu`` it is S shards on the CPU:
+
+    python -m repro_torch.launch.serve --device cpu --n 200 --queries 8 \
+        --mode mixed --mesh 4 --mutate 2
+
 ``--frontend R`` serves through the async SLO-aware admission layer
 (``ServeFrontend``) instead of calling the engine directly: R engine
 replicas over the one index, deadline-aware batch formation
@@ -51,7 +60,7 @@ import time
 
 import numpy as np
 
-from repro_torch.core import build, quantize, update
+from repro_torch.core import build, quantize, shard_query, update
 from repro_torch.core.index import SlingIndex
 from repro_torch.graph import generators
 from repro_torch.serve import (EngineConfig, FrontendConfig, QueryEngine,
@@ -79,6 +88,10 @@ def main(argv=None) -> None:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--pair-backend", default="auto",
                     choices=("auto", "join", "kernel"))
+    ap.add_argument("--mesh", type=int, default=0, metavar="S",
+                    help="node-shard the index over an S-way mesh and "
+                         "fan single-source/top-k out over it (0 = one "
+                         "device)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--mutate", type=int, default=0, metavar="N",
@@ -129,6 +142,14 @@ def main(argv=None) -> None:
         ap.error("--mutate needs a writable fp32 index; quantized/"
                  "mmap'd artifacts are read-only")
 
+    mesh = None
+    if args.mesh > 0:
+        mesh = shard_query.serving_mesh(
+            args.mesh, devices=(["cpu"] * args.mesh
+                                if args.device == "cpu" else None))
+        print(f"mesh: {args.mesh}-way node-sharded serving over 'data' "
+              f"on {', '.join(str(d) for d in mesh.axis_devices('data'))}")
+
     g = generators.barabasi_albert(args.n, args.deg, seed=args.seed,
                                    directed=False)
     print(f"graph: n={g.n} m={g.m}")
@@ -158,13 +179,11 @@ def main(argv=None) -> None:
         idx.save(args.save_index)
         print(f"index saved -> {args.save_index}")
 
-    ecfg = EngineConfig(source_batch=args.batch,
-                        pair_batch=max(args.batch, 16),
-                        pair_backend=args.pair_backend)
     if args.frontend > 0:
-        _frontend_serve(args, g, idx, ecfg)
+        _frontend_serve(args, g, idx, mesh)
         return
-    eng = QueryEngine(idx, g, ecfg, device=args.device)
+    eng = QueryEngine(idx, g, _engine_config(args, mesh),
+                      device=args.device)
     warm = eng.warmup()
     print("warmup: " + "  ".join(f"{k}={v:.3f}s" for k, v in warm.items()))
 
@@ -194,7 +213,7 @@ def main(argv=None) -> None:
           f"cache {st['cache_hits']}/"
           f"{st['cache_hits'] + st['cache_misses']} hits, "
           f"pair={st['pair_backend']} push={st['push_backend']} "
-          f"device={st['device']}")
+          f"device={st['device']} mesh={st['mesh_shards']}")
     print(f"dispatch shapes: {len(st['unique_shapes'])} total, {grew} new "
           f"after warmup "
           f"({'fixed shape set OK' if grew == 0 else 'SHAPES GREW'})")
@@ -204,15 +223,23 @@ def main(argv=None) -> None:
         _mutate_replay(args, g, idx, eng, qs)
 
 
-def _frontend_serve(args, g, idx, ecfg: EngineConfig) -> None:
+def _engine_config(args, mesh) -> EngineConfig:
+    return EngineConfig(source_batch=args.batch,
+                        pair_batch=max(args.batch, 16),
+                        pair_backend=args.pair_backend, mesh=mesh)
+
+
+def _frontend_serve(args, g, idx, mesh) -> None:
     """Zipf traffic through the SLO-aware frontend, mode by mode, then
-    the churn replay through its swap barrier."""
+    the churn replay through its swap barrier; every replica shards the
+    index over ``mesh`` when one is given."""
     fe = ServeFrontend(idx, g, FrontendConfig(
         max_batch=args.batch, max_pair_batch=max(args.batch, 16),
         max_wait=args.max_wait_ms / 1e3,
         default_timeout=(args.deadline_ms / 1e3
                          if args.deadline_ms > 0 else None),
-        replicas=args.frontend, routing=args.routing, engine=ecfg),
+        replicas=args.frontend, routing=args.routing,
+        engine=_engine_config(args, mesh)),
         device=args.device)
     with fe:
         warm = fe.warmup()

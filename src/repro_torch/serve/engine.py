@@ -1,8 +1,8 @@
 """Unified SimRank query engine on one device: pairs, single-source and
 top-k from a built :class:`~repro_torch.core.index.SlingIndex`.
 
-Port of ``repro/serve/engine.py`` (single device; meshes are a later
-slice). The dispatch contract is the reference's:
+Port of ``repro/serve/engine.py``. The dispatch contract is the
+reference's:
 
   * **fixed batch shapes** -- requests are chunked and padded to
     ``pair_batch`` / ``source_batch``; the packed table is padded to a
@@ -34,6 +34,13 @@ slice). The dispatch contract is the reference's:
     space-reduced index is refused: its packed rows lack the step-1/2
     entries that only ``SlingIndex.query_pair_host(u, v, g)``
     re-materializes;
+  * **node-sharded serving** -- with ``EngineConfig(mesh=...)`` the
+    index is cut into node slabs over ``mesh.shape[mesh_axis]``
+    (``core/shard_query.py``) and single-source and top-k fan out over
+    them; the single-device edge layout is not allocated. Pairs stay on
+    the mesh's first device, which is the engine's device: a pair reads
+    two packed rows, not the graph. A swap re-shards with the previous
+    caps as floors, so one that fits adds no shape;
   * **materialized kNN lookups** -- ``attach_knn`` installs a bulk-join
     artifact (:class:`~repro_torch.join.KnnGraph`) and ``knn(u)``
     answers from it on the host, refused once a swap has moved the
@@ -48,7 +55,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from repro_torch.core import hp_index
+from repro_torch.core import hp_index, shard_query
 from repro_torch.core.hp_index import INT32_PAD_KEY
 from repro_torch.core.index import SlingIndex, _pair_query_batch
 from repro_torch.core.single_source import (batched_single_source,
@@ -59,6 +66,7 @@ from repro_torch.graph import csr
 from repro_torch.kernels.hp_join import fold_sqrt_d, hp_join
 from repro_torch.kernels.horner_push import resolve_push_backend
 from repro_torch.kernels.spmv_ell import SpmmLayout
+from repro_torch.launch.mesh import mesh_device
 
 PAIR_BACKENDS = ("auto", "join", "kernel")
 
@@ -113,6 +121,12 @@ class EngineConfig:
     # stats())
     swap_headroom: float = 1.25
     cap_quantum: int = 64        # buckets are multiples of this
+    # node-sharded serving: a launch.mesh.Mesh whose ``mesh_axis`` cuts
+    # the index into node slabs; single-source and top-k fan out over
+    # them (core/shard_query.py). None = one device. Pairs stay on the
+    # mesh's first device.
+    mesh: object = None
+    mesh_axis: str = "data"
     # serve an index whose diagonal carries no eps_d certificate; off by
     # default because the Theorem-1 bound then does not hold
     allow_uncertified: bool = False
@@ -134,7 +148,9 @@ class QueryEngine:
                 "anyway")
         if index.n < 1:
             raise ValueError("cannot serve an empty index")
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if self.cfg.mesh is None
+                       else mesh_device(self.cfg.mesh, self.cfg.mesh_axis,
+                                        device))
         if self.cfg.pair_backend not in PAIR_BACKENDS:
             raise ValueError(f"pair backend {self.cfg.pair_backend!r} not "
                              f"in {PAIR_BACKENDS}")
@@ -156,6 +172,7 @@ class QueryEngine:
         self._swaps = {"swaps": 0, "last_swap_ms": 0.0,
                        "swap_recompiles": 0, "invalidated": 0}
         self._width_cap = self._bucket(index.hp.width)
+        self._sharded = None         # the ShardedIndex under a mesh
         self._install(index, g)
 
     # ------------------------------------------------------------------
@@ -181,7 +198,20 @@ class QueryEngine:
         self._keys = self._padded(index.hp.keys, INT32_PAD_KEY)
         self._vals = self._padded(index.vals_f32(device=self.device), 0.0)
         self._d = index.d.to(self.device, torch.float32, copy=True)
-        self._layout = SpmmLayout.pull(g, index.plan.sqrt_c, self.device)
+        self._layout = None
+        if self.cfg.mesh is None:
+            self._layout = SpmmLayout.pull(g, index.plan.sqrt_c,
+                                           self.device)
+        else:
+            # the width bucket as the floor, so a swap that fits keeps
+            # every dispatch shape
+            self._sharded = shard_query.shard_index(
+                index, g, self.cfg.mesh, axis=self.cfg.mesh_axis,
+                width_cap=self._width_cap,
+                edge_cap=None if self._sharded is None
+                else self._sharded.edge_cap,
+                cap_quantum=self.cfg.cap_quantum,
+                headroom=self.cfg.swap_headroom)
         self._tau = prune_tau(index.plan)
         self._folded_vals = None
         if self._pair_backend == "kernel":
@@ -292,7 +322,10 @@ class QueryEngine:
     def _record(self, kind: str, shape) -> None:
         key = "warmup_batches" if self._in_warmup else "batches"
         self._counts[key] += 1
-        self._shapes.add((kind,) + tuple(shape))
+        shape = (kind,) + tuple(shape)
+        if self._sharded is not None and kind != "pair":
+            shape += ("mesh", self._sharded.n_shards)
+        self._shapes.add(shape)
 
     def _count_pad(self, pad: int) -> None:
         key = "warmup_pad_slots" if self._in_warmup else "pad_slots"
@@ -335,6 +368,11 @@ class QueryEngine:
         for lo in range(0, len(us_p), B):
             self._record("source", (B, self._push_backend, self._width_cap,
                                    self.index.plan.l_max))
+            if self._sharded is not None:
+                out[lo:lo + B] = shard_query.sharded_single_source(
+                    self._sharded, us_p[lo:lo + B],
+                    backend=self._push_backend)
+                continue
             out[lo:lo + B] = batched_single_source(
                 self._keys, self._vals, self._d, self._layout,
                 self._ids(us_p[lo:lo + B]).long(), self._tau,
@@ -350,6 +388,11 @@ class QueryEngine:
         for lo in range(0, len(us_p), B):
             self._record("topk", (B, bucket, self._push_backend,
                                  self._width_cap, self.index.plan.l_max))
+            if self._sharded is not None:
+                sv[lo:lo + B], si[lo:lo + B] = shard_query.sharded_topk(
+                    self._sharded, us_p[lo:lo + B], bucket,
+                    backend=self._push_backend)
+                continue
             v, i = batched_topk(
                 self._keys, self._vals, self._d, self._layout,
                 self._ids(us_p[lo:lo + B]).long(), self._tau,
@@ -518,6 +561,8 @@ class QueryEngine:
             "push_backend": self._push_backend,
             "device": str(self.device),
             "width_cap": self._width_cap,
+            "mesh_shards": (self._sharded.n_shards
+                            if self._sharded is not None else 0),
             "quantized": (self.index.quant.scheme
                           if self.index.quant is not None else None),
         }

@@ -2,9 +2,11 @@
 zoo: the dense Alg-2 HP table (keys equal, values to 1e-5, entries
 within float32 rounding of theta counted), ``build_index(exact_d=True)``,
 the pair queries on the result, and the Alg-4 walk diagonal held to
-its certificate |d~ - d| <= eps_d. ``build_index`` takes the
-reference's positional order through ``builder``."""
+its certificate |d~ - d| <= eps_d. ``build_index``, the diagonal and
+HP-table builders, ``SlingIndex`` and ``EngineConfig`` take the
+reference's positional order."""
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -12,12 +14,17 @@ import torch
 
 import oracle
 from repro.core import build as rbuild
+from repro.core import diagonal as rdiagonal
 from repro.core import hp_index as rhp
 from repro.core import theory as rtheory
+from repro.core.index import SlingIndex as RIndex
+from repro.serve import EngineConfig as REngineConfig
 from repro_torch import convert
 from repro_torch.core import build as tbuild
 from repro_torch.core import diagonal as tdiagonal
 from repro_torch.core import hp_index as thp
+from repro_torch.core.index import SlingIndex as TIndex
+from repro_torch.serve import EngineConfig as TEngineConfig
 from repro_torch.core import theory as ttheory
 from repro_torch.core import walks as twalks
 from repro_torch.graph import generators as tgen
@@ -157,16 +164,91 @@ def test_build_index_passes_delta_and_adaptive_to_the_walks(monkeypatch):
 
 
 def test_build_index_takes_nothing_positional_after_block():
-    """The reference's positional parameters run through ``builder``
-    (``spill_dir`` eighth, ``builder`` fourteenth), which the port takes
-    in the same order; its own ``device`` and ``verbose`` are
-    keyword-only, so a fifteenth positional argument is refused."""
+    """The reference's positional parameters run through ``mesh_axis``
+    (``spill_dir`` eighth, ``builder`` fourteenth, ``mesh`` fifteenth),
+    which the port takes in the same order; its own ``device`` and
+    ``verbose`` are keyword-only, so a seventeenth positional argument
+    is refused."""
     _, t = _graphs("powerlaw")
     args = (0.1, None, 0.6, 0, True, 16, None, False, False, True, 0.0,
-            0.0, "sling")
+            0.0, "sling", None, "data")
     assert tbuild.build_index(t, *args, device="cpu").builder == "sling"
     with pytest.raises(TypeError):
         tbuild.build_index(t, *args, "cpu")
+
+
+# the port's own parameters, keyword-only after the reference's
+PORT_KEYWORDS = {"device", "verbose", "build_seconds", "read_only"}
+
+
+def _positional(fn):
+    """(positional parameter names, keyword-only names) of a function or
+    a dataclass's __init__."""
+    ps = inspect.signature(fn).parameters.values()
+    return ([p.name for p in ps if p.kind == p.POSITIONAL_OR_KEYWORD],
+            {p.name for p in ps if p.kind == p.KEYWORD_ONLY})
+
+
+SIGNATURES = {
+    "estimate_diagonal": (rdiagonal.estimate_diagonal,
+                          tdiagonal.estimate_diagonal),
+    "estimate_diagonal_chunked": (rdiagonal.estimate_diagonal_chunked,
+                                  tdiagonal.estimate_diagonal_chunked),
+    "build_hp_table": (rhp.build_hp_table, thp.build_hp_table),
+    "repair_hp_rows": (rhp.repair_hp_rows, thp.repair_hp_rows),
+    "shard_build_hp": (rhp.shard_build_hp, thp.shard_build_hp),
+    "build_index": (rbuild.build_index, tbuild.build_index),
+    "resolve_builder": (rbuild.resolve_builder, tbuild.resolve_builder),
+    "SlingIndex": (RIndex, TIndex),
+    "EngineConfig": (REngineConfig, TEngineConfig),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SIGNATURES))
+def test_positional_order_matches_reference(name):
+    """Each repaired signature reads its positional arguments as the
+    reference does: the port's positional names are the reference's, in
+    its order, up to the port's own keyword-only parameters. (The port
+    drops only a trailing reference parameter it has no use for:
+    ``build_hp_table``'s ``fused``, an XLA compile control, and
+    ``build_index``'s positional ``verbose``, which it takes by
+    keyword.)"""
+    ref, port = SIGNATURES[name]
+    r_pos, _ = _positional(ref)
+    t_pos, t_kw = _positional(port)
+    assert t_pos == r_pos[:len(t_pos)]
+    assert set(r_pos[len(t_pos):]) <= {"fused", "verbose"}
+    assert t_kw <= PORT_KEYWORDS
+
+
+def test_estimate_diagonal_subset_by_position():
+    """The reference's call ``estimate_diagonal(g, plan, 0, True, 1 << 19,
+    None, [1, 5, 7], d0)``: nodes 1, 5 and 7 are re-estimated (within
+    eps_d of the exact diagonal), every other node keeps d0's bits."""
+    g = tgen.barabasi_albert(40, 3, seed=1)
+    p = ttheory.plan(0.1, c=0.6, n=40)
+    d0 = np.full(40, 0.5, np.float32)
+    d = tdiagonal.estimate_diagonal(g, p, 0, True, 1 << 19, None,
+                                    [1, 5, 7], d0, device="cpu")
+    rest = np.setdiff1d(np.arange(40), [1, 5, 7])
+    np.testing.assert_array_equal(d[rest], d0[rest])
+    assert (d[[1, 5, 7]] != 0.5).all()
+    exact = tdiagonal.exact_diagonal(g, 0.6)
+    assert np.abs(d[[1, 5, 7]] - exact[[1, 5, 7]]).max() <= p.eps_d
+
+
+def test_repair_hp_rows_takes_progress(capsys):
+    """``repair_hp_rows(..., block, progress)`` prints its blocks, as the
+    reference's does, and repairs the same rows either way."""
+    _, t = _graphs("powerlaw")
+    p = ttheory.plan(eps=0.1, c=0.6, n=t.n)
+    a = thp.build_hp_table(t, p.theta, p.sqrt_c, p.l_max, device="cpu")
+    b = thp.build_hp_table(t, p.theta, p.sqrt_c, p.l_max, device="cpu")
+    rows, targets = np.arange(t.n), np.arange(0, t.n, 3)
+    thp.repair_hp_rows(t, a, rows, targets, 4, True)
+    assert "repair block 0/" in capsys.readouterr().out
+    thp.repair_hp_rows(t, b, rows, targets, 4)
+    assert torch.equal(a.keys, b.keys) and torch.equal(a.vals, b.vals)
 
 
 @pytest.mark.parametrize("name", ZOO)

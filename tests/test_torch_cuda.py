@@ -17,9 +17,13 @@ from repro_torch.kernels.cin import (cin_forward, cin_forward_reference,
 from repro_torch.kernels.cin.cin import (depth_split, split_weights,
                                          split_weights_on_card)
 from repro_torch.graph import generators
+from repro_torch.core import hp_index
+from repro_torch.core.single_source import Slab, slab_horner_push
 from repro_torch.kernels.horner_push import (horner_push_rows,
                                              horner_push_rows_plain,
-                                             persistent_grid,
+                                             horner_push_slab_step,
+                                             horner_slab_step_plain,
+                                             persistent_grid, slab_rows,
                                              workspace_numel)
 from repro_torch.kernels.hp_join import hp_join, hp_join_plain
 from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout,
@@ -641,3 +645,142 @@ def test_prsim_equals_sling_on_card(card, n, eps):
     for name in ("sling", "cpu"):
         for a, b in zip(runs["prsim"], runs[name]):
             np.testing.assert_array_equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# the slab step: one Horner level on one node slab (the sharded push)
+# ----------------------------------------------------------------------
+def _slabs_on_card(case, n, S, card):
+    """The case's graph cut into S node slabs on the card, d sliced with
+    them (d_offset = the slab's start)."""
+    n_pad, n_loc = hp_index.shard_layout(n, S)
+    d = np.zeros(n_pad, np.float32)
+    d[:n] = case["d"]
+    slabs = []
+    for s in range(S):
+        mine = case["dst"] // n_loc == s
+        slabs.append(Slab(
+            layout=SpmmLayout.from_edges(case["src"][mine],
+                                         case["dst"][mine] - s * n_loc,
+                                         case["w"][mine], n_loc, card),
+            d=torch.as_tensor(d[s * n_loc:(s + 1) * n_loc], device=card),
+            start=s * n_loc, d_offset=s * n_loc))
+    return slabs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 9, 64])
+@pytest.mark.parametrize("first", [True, False])
+def test_slab_step_matches_plain_on_card(card, B, first):
+    """One level on each of 3 slabs of a graph with hubs above the heavy
+    split (mid, wide and big tiers), duplicate keys in the rows, from a
+    random gathered frontier (some entries under tau) or, at the first
+    level, none; batch widths of 1 and 4 columns a thread."""
+    rng = np.random.default_rng(B + first)
+    n, l_max = 500, 6
+    case = table_case(rng, n=n, rows=B, W=40, l_max=l_max, m=6 * n,
+                      hubs=(0, 7, 7, 19, 250, 499), dup=True)
+    slabs = _slabs_on_card(case, n, 3, card)
+    keys, vals, runs, _ = slab_rows(
+        torch.as_tensor(case["ku"], device=card),
+        torch.as_tensor(case["xu"], device=card), n, l_max)
+    x = None if first else torch.as_tensor(
+        rng.uniform(0, 2e-4, (sum(sl.layout.n for sl in slabs), B)
+                    ).astype(np.float32), device=card)
+    tau = float(case["tau"])
+    for level in range(l_max + 1):
+        for sl in slabs:
+            before = horner_push_slab_step.launches
+            got = horner_push_slab_step(x, sl.layout, keys, vals, runs,
+                                        sl.d, level, tau, n=n,
+                                        slab_start=sl.start,
+                                        d_offset=sl.d_offset, l_max=l_max)
+            assert horner_push_slab_step.launches == before + 1
+            want = horner_slab_step_plain(x, sl.layout, keys, vals, sl.d,
+                                          level, tau, n=n,
+                                          slab_start=sl.start,
+                                          d_offset=sl.d_offset)
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), atol=ATOL, rtol=0)
+            again = horner_push_slab_step(x, sl.layout, keys, vals, runs,
+                                          sl.d, level, tau, n=n,
+                                          slab_start=sl.start,
+                                          d_offset=sl.d_offset, l_max=l_max)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("B", [8, 9])
+def test_sharded_push_matches_the_persistent_push_on_card(card, S, B):
+    """The whole push over S slabs on one card (all-gathered between
+    levels) on the kernel and on the plain slab step, against the
+    single-device persistent kernel on the same rows."""
+    rng = np.random.default_rng(S * 10 + B)
+    n, l_max = 500, 6
+    case = table_case(rng, n=n, rows=200, W=40, l_max=l_max, m=6 * n,
+                      hubs=(0, 7, 19, 250))
+    keys, vals, d = (torch.as_tensor(case[k], device=card)
+                     for k in ("ku", "xu", "d"))
+    us = torch.as_tensor(rng.integers(0, 200, B), device=card)
+    tau = float(case["tau"])
+    slabs = _slabs_on_card(case, n, S, card)
+    outs = {}
+    for backend in ("kernel", "plain"):
+        before = horner_push_slab_step.launches
+        got = slab_horner_push(keys[us], vals[us], slabs, tau, n=n,
+                               l_max=l_max, backend=backend)
+        outs[backend] = torch.cat(got)[:n].t().cpu().numpy()
+        ran = horner_push_slab_step.launches - before
+        assert ran == (0 if backend == "plain" else S * (
+            slab_rows(keys[us], vals[us], n, l_max)[3] + 1))
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
+    whole = horner_push_rows(keys, vals, d, us, lay, tau,
+                             l_max=l_max).cpu().numpy()
+    np.testing.assert_allclose(outs["kernel"], outs["plain"], atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(outs["kernel"], whole, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_slab_step_at_the_enron_size_on_card(card, enron_case):
+    """Four slabs of the Enron regime at B = 8: the sharded push on the
+    kernel against the persistent push."""
+    case, n, l_max = enron_case
+    keys, vals, d = (torch.as_tensor(case[k], device=card)
+                     for k in ("ku", "xu", "d"))
+    us = torch.arange(8, device=card)
+    tau = float(case["tau"])
+    got = torch.cat(slab_horner_push(keys[us], vals[us],
+                                     _slabs_on_card(case, n, 4, card), tau,
+                                     n=n, l_max=l_max, backend="kernel"))
+    lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
+    whole = horner_push_rows(keys, vals, d, us, lay, tau, l_max=l_max)
+    np.testing.assert_allclose(got[:n].t().cpu().numpy(),
+                               whole.cpu().numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_slab_step_raises_without_library_on_card(card, monkeypatch,
+                                                  tmp_path):
+    """With no nvcc and no built library the slab step raises on a CUDA
+    tensor, and so does a sharded index on the card: no plain
+    fallback."""
+    from repro_torch.core import build, shard_query
+    hp_mod = importlib.import_module(
+        "repro_torch.kernels.horner_push.horner_push")
+    g = generators.barabasi_albert(60, 3, seed=1, directed=False)
+    idx = build.build_index(g, eps=0.2, exact_d=True, device=card)
+    si = shard_query.shard_index(idx, g, shard_query.serving_mesh(
+        2, devices=[card, card]))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    monkeypatch.setattr(hp_mod, "_slab_launch", [])
+    before = horner_push_slab_step.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        shard_query.sharded_single_source(si, [0, 5])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        shard_query.sharded_topk(si, [0, 5], 4)
+    assert horner_push_slab_step.launches == before

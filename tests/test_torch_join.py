@@ -8,8 +8,9 @@ ways and both packages refuse the same bad bytes; a resumed sweep
 equals an uninterrupted one bit for bit; checkpoints of another
 configuration, of a future version or of the reference are refused;
 a sweep dispatches one shape; and the engine's kNN lookups count and
-refuse as the reference's do. The mesh and sampler cases wait for the
-port's sharding and GNN stack.
+refuse as the reference's do. The mesh cases are in
+tests/test_torch_shard.py; the sampler cases wait for the port's GNN
+stack.
 """
 import dataclasses
 import json
@@ -447,9 +448,19 @@ def test_run_join_and_the_frontend_default_to_the_card(monkeypatch,
     assert threading.active_count() == before   # no timer thread left
 
 
-def test_mesh_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        JoinConfig(mesh=object())
+def test_mesh_waits_for_sharding(carried):
+    """The port's sharding has come: ``JoinConfig(mesh=)`` sweeps through
+    the node-sharded fan-out, rows equal to the one-device sweep's, and
+    records the shard count in the artifact."""
+    from repro_torch.core.shard_query import serving_mesh
+    _, _, ti, tg = carried
+    one = _join(ti, tg, config=JoinConfig(k=8, tile=32))
+    mesh = serving_mesh(2, devices=["cpu", "cpu"])
+    two = run_join(ti, tg, config=JoinConfig(k=8, tile=32, mesh=mesh))
+    assert (one.mesh_shards, two.mesh_shards) == (1, 2)
+    np.testing.assert_array_equal(two.nbr_ids, one.nbr_ids)
+    np.testing.assert_allclose(two.nbr_scores, one.nbr_scores, atol=ATOL,
+                               rtol=0)
 
 
 # ----------------------------------------------------------------------
