@@ -117,11 +117,14 @@ Phases (any failure raises and the script exits non-zero):
      4,096-source subset; phase 3e's mapped 10^6 index sharded 4 ways
      with batches of 2 and 8 that hold the hub. The counters are zeroed
      before the build and read after the last batch:
-     ``horner_push_slab_step``, ``spmm`` and ``hp_join`` must launch.
-     Checks: no shape growth, ``swap_recompiles == 0``; the answers
-     within BACKEND_ATOL of phase 3's engine (before the swap), of a
-     one-device engine on the repaired index (after), of phase 3f's
-     rows and of phase 3e's engine, top-k ids equal outside near-ties;
+     ``horner_push_slabs`` (one launch a sharded push), ``spmm`` and
+     ``hp_join`` must launch. Checks: no shape growth,
+     ``swap_recompiles == 0``; the answers within BACKEND_ATOL of phase
+     3's engine (before the swap), of a one-device engine on the
+     repaired index (after), of phase 3f's rows and of phase 3e's
+     engine, top-k ids equal outside near-ties; then the kernel and host
+     launches of one sharded push (S = 4, B = 8) from a trace of ten,
+     and the device's busy share;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -135,12 +138,19 @@ Phases (any failure raises and the script exits non-zero):
      (inputs read once, the result written once) and the bytes streamed
      through the levels run, ``torch.sparse.mm`` over all l_max + 1
      levels, and the kernel's time on cut inputs -- no edges, level-0
-     keys only -- to split it per level; ``horner_push_slab_step`` at the
-     Enron regime with S = 4 and B = 8: every step of one sharded push
-     against the plain step, a middle level timed per launch, the whole
-     sharded push (its launches) beside the persistent push, the bound
-     (the slab's edges, the frontier entries they need and the output,
-     each once) and ``torch.sparse.mm`` of a slab's pull;
+     keys only -- to split it per level; ``horner_push_slabs`` at the
+     Enron regime with S = 4 and B = 8: one whole sharded push (one
+     launch over every level and slab) against its plain version, two
+     launches held to equal bits, the levels launched one at a time
+     held to the one launch's bits, a mesh of two shards on the card
+     and two on the CPU (one launch a level, the frontier exchanged)
+     within TOL_KERNEL, and its top-k at k = 10 and k > n_loc through
+     the merge across devices within TOL_KERNEL of the one-device
+     top-k, ids equal outside near-ties; the kernel's device time, the whole sharded push
+     from host ids and its kernel and host launches, the persistent
+     push beside it, the bound (the ids, the rows' live entries, every
+     slab's CSR and the result, once) and ``torch.sparse.mm`` of every
+     slab's pull for each level that runs;
      ``spmm`` on every step of one build block and of one push
      mass-scan block, as the path calls it, with the prune threshold and
      the live-segment masks: equal bits to the dense kernel, live_out
@@ -202,7 +212,10 @@ SCALE_EPS = 0.5        # its eps: the packed width stays ~64
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
               "streamed_bound_ms", "b16", "parts", "launches_per_push",
-              "push_kernel_ms", "persistent_push_ms", "push_err")
+              "host_launches_per_push", "push_busy_pct",
+              "persistent_push_ms", "push_err",
+              "levels_one_at_a_time_equal", "mixed_mesh_err",
+              "mixed_mesh_launches", "mixed_mesh_topk")
 
 
 def card_line() -> str:
@@ -267,6 +280,43 @@ def trace(label: str, fn) -> None:
     for sort_by in ("self_device_time_total", "cpu_time_total"):
         for line in rows.table(sort_by=sort_by, row_limit=15).splitlines():
             print(f"[profile] {line}")
+
+
+# the runtime calls that put work on a stream, as the profiler names them
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaLaunchCooperativeKernel", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def launch_census(fn, reps: int) -> dict:
+    """What one call of ``fn`` launches, from a torch.profiler trace of
+    ``reps`` calls after a warm one: device kernels (device rows other
+    than copies and memsets), host launches (the runtime calls of
+    HOST_LAUNCHES, by name), the wall time a call and the device's busy
+    time and share of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    dev = [r for r in rows if r.device_type == DeviceType.CUDA
+           and not getattr(r, "is_user_annotation", False)]
+    busy = sum(r.self_device_time_total for r in dev) / 1e6
+    by_name = {r.key: r.count / reps for r in rows
+               if r.key in HOST_LAUNCHES}
+    return {"kernels": sum(r.count for r in dev if not r.key.startswith(
+                ("Memcpy", "Memset"))) / reps,
+            "host": sum(by_name.values()), "by_name": by_name,
+            "wall_ms": wall / reps * 1e3, "busy_ms": busy / reps * 1e3,
+            "busy_pct": 100 * busy / wall}
 
 
 def profile_serving(eng, q) -> None:
@@ -1803,9 +1853,10 @@ def sharded_phase(g, idx, eng0, answers, queries, enron_rows, scale, dev,
     docstring): every shard on ``dev``, so the slab kernel, the frontier
     exchange and the merges run for real while the exchange stays on one
     card. The counters are zeroed before the mesh build and read after
-    the last 10^6 batch; ``horner_push_slab_step``, ``spmm`` and
+    the last 10^6 batch; ``horner_push_slabs``, ``spmm`` and
     ``hp_join`` must launch. The checks against phase 3's single-device
-    answers and engines run after. Returns the path's launches."""
+    answers and engines run after, and the launches of one sharded push
+    (S = 4, B = 8) from a trace of ten. Returns the path's launches."""
     import numpy as np
     import torch
 
@@ -1816,7 +1867,7 @@ def sharded_phase(g, idx, eng0, answers, queries, enron_rows, scale, dev,
     from repro_torch.device import synchronize
     from repro_torch.join import JoinConfig, run_join
     from repro_torch.kernels.horner_push import (horner_push_rows,
-                                                 horner_push_slab_step)
+                                                 horner_push_slabs)
     from repro_torch.kernels.hp_join import hp_join
     from repro_torch.kernels.spmv_ell import spmm
     from repro_torch.launch.mesh import make_debug_mesh
@@ -1829,7 +1880,7 @@ def sharded_phase(g, idx, eng0, answers, queries, enron_rows, scale, dev,
         synchronize(dev)
         return out, time.perf_counter() - t
 
-    kernels = {"horner_push_slab_step": horner_push_slab_step,
+    kernels = {"horner_push_slabs": horner_push_slabs,
                "spmm": spmm, "hp_join": hp_join,
                "horner_push": horner_push_rows}
     for kern in kernels.values():
@@ -1923,7 +1974,7 @@ def sharded_phase(g, idx, eng0, answers, queries, enron_rows, scale, dev,
           f"{peak:.3f} GiB; card {card_line()}")
     if not same_build:
         raise RuntimeError("the mesh build differs from phase 3's")
-    for k in ("horner_push_slab_step", "spmm", "hp_join"):
+    for k in ("horner_push_slabs", "spmm", "hp_join"):
         if launches[k] <= 0:
             raise RuntimeError(f"{k} did not launch on the sharded path: "
                                f"{launches}")
@@ -1965,136 +2016,202 @@ def sharded_phase(g, idx, eng0, answers, queries, enron_rows, scale, dev,
     if not worst <= TOL_KERNEL or knn.mesh_shards != 4:
         raise RuntimeError("the sharded answers disagree with the "
                            "single-device ones")
+    push_us = queries[2][:8]
+
+    def push():
+        return shard_query.sharded_scores(eng._sharded, push_us)
+
+    census = launch_census(push, 10)
+    before = horner_push_slabs.launches
+    for _ in range(10):
+        push()
+    print(f"[sharded] one sharded push (S = 4 on {dev}, B = 8; trace of "
+          f"ten): {(horner_push_slabs.launches - before) / 10:g} "
+          f"horner_push_slabs launches by the counter, "
+          f"{census['kernels']:g} kernels seen by the profiler and "
+          f"{census['host']:g} host launches a push ({census['by_name']}); "
+          f"wall {census['wall_ms']:.4f} ms a push, device busy "
+          f"{census['busy_ms']:.4f} ms ({census['busy_pct']:.1f}%)")
     del eng, one, ssi, knn, w
     return launches
 
 
 def slab_row(g, idx, eng, nodes, launches: int, dev) -> dict:
-    """``horner_push_slab_step`` at the Enron regime, S = 4 shards on the
-    card, B = 8 (phase 3's single-source batch): one push level by level
-    on the kernel, every step held against the plain step on the same
-    gathered frontier, and the whole sharded push against the persistent
-    single-device push. Timed: a level of the middle of the push (S
-    launches), per launch by the profiler's device time (``ms``) and by
-    CUDA events back to back (``call_ms``, which the host's dispatch
-    paces); the plain step, one ``torch.sparse.mm`` of a slab's CSR (the
-    pull alone), the whole sharded push from the row ids (CUDA events;
-    its slab kernels' device time beside it, and a trace of ten) and
-    the persistent push. The bound
-    counts, per launch of the timed level, the slab's edges and row
-    pointers, the frontier entries its edges need, the entries of the B
-    rows that seed the slab at that level with d at their targets, and
-    its output, each once."""
+    """``horner_push_slabs`` at the Enron regime, S = 4 shards on the
+    card, B = 8 (phase 3's single-source batch): one whole sharded push
+    -- every level over every slab in one launch, the rows read through
+    the ids from the shards' tables -- against its plain version on the
+    same inputs, with two launches held to equal bits, and two checks on
+    the card: (a) the levels launched one at a time (ranges of one
+    sharing the frontier) equal the one launch bit for bit; (b) a mesh of
+    two shards on the card and two on the CPU, the route of several
+    devices with the frontier exchanged between levels, within
+    TOL_KERNEL of it, and its top-k at k = 10 and k = n_loc + 5 -- the
+    merge of each slab's candidates that a mesh of several cards takes,
+    here on the card's and the CPU's slabs -- within TOL_KERNEL of the
+    one-device top-k, ids equal outside near-ties. Timed: the kernel by the profiler's device time
+    (``ms``) and back to back (``call_ms``), the whole sharded push from
+    host ids (``push_ms``, and its launches from a trace of ten), the
+    plain version, ``torch.sparse.mm`` of every slab's pull for each
+    level that runs, and the persistent single-device push. The bound
+    counts the whole push's bytes once: the ids, the B rows' live
+    entries (key, value and d at the target), every slab's CSR and the
+    (n_pad, B) result."""
     import numpy as np
     import torch
 
     from repro_torch.core import shard_query
     from repro_torch.kernels.horner_push import (horner_push_rows,
-                                                 horner_push_slab_step,
-                                                 horner_slab_step_plain,
-                                                 slab_rows)
+                                                 horner_push_slabs,
+                                                 horner_push_slabs_plain,
+                                                 slabs_grid, top_level,
+                                                 workspace_numel)
     S, B = 4, 8
     si = shard_query.shard_index(idx, g, shard_query.serving_mesh(
         S, devices=[dev] * S))
-    us = torch.as_tensor(nodes[512:512 + B].astype(np.int64), device=dev)
-    ku, xu = shard_query._query_rows(si, us)
-    keys, vals, runs, top = slab_rows(ku, xu, g.n, si.l_max)
-    kw = dict(n=g.n, l_max=si.l_max)
+    host_us = nodes[512:512 + B].astype(np.int64)
+    us = torch.as_tensor(host_us, device=dev)
+    rows = [(k, v, s * si.n_loc)
+            for s, (k, v) in enumerate(zip(si.keys, si.vals))]
+    n_rows = si.n_pad
+    kw = dict(n=g.n, l_max=si.l_max, n_rows=n_rows)
 
-    def kernel(x, sl, level, out=None):
-        return horner_push_slab_step(x, sl.layout, keys, vals, runs, sl.d,
-                                     level, si.tau, slab_start=sl.start,
-                                     d_offset=sl.d_offset, out=out, **kw)
+    def buffers():
+        full = torch.empty((n_rows, B), dtype=torch.float32, device=dev)
+        ws = torch.empty(workspace_numel(n_rows, B, si.l_max),
+                         dtype=torch.float32, device=dev)
+        return full, [full[sl.start:sl.start + sl.layout.n]
+                      for sl in si.slabs], ws
 
-    def plain(x, sl, level):
-        return horner_slab_step_plain(x, sl.layout, keys, vals, sl.d, level,
-                                      si.tau, n=g.n, slab_start=sl.start,
-                                      d_offset=sl.d_offset)
+    full_k, outs_k, ws_k = buffers()
+    full_p, outs_p, ws_p = buffers()
 
-    x, err, mid = None, 0.0, max(top // 2, 0)
-    saved = (None, top)
-    for level in range(top, -1, -1):
-        outs = [kernel(x, sl, level) for sl in si.slabs]
-        err = max(err, *(float((o - plain(x, sl, level)).abs().max())
-                         for o, sl in zip(outs, si.slabs)))
-        if level == mid:
-            saved = (x, level)
-        x = torch.cat(outs)
+    def kernel():
+        horner_push_slabs(rows, us, si.slabs, outs_k, si.tau,
+                          workspace=ws_k, **kw)
+        return full_k
+
+    def plain():
+        horner_push_slabs_plain(rows, us, si.slabs, outs_p, si.tau,
+                                workspace=ws_p, **kw)
+        return full_p
+
+    got = kernel().clone()
+    err = float((got - plain()).abs().max())
+    if not torch.equal(got, kernel()):
+        raise RuntimeError("two horner_push_slabs launches differ")
+    # (a) the levels one at a time
+    full_l, outs_l, ws_l = buffers()
+    ws_l.fill_(float("nan"))
+    for level in range(si.l_max, -1, -1):
+        horner_push_slabs(rows, us, si.slabs, outs_l, si.tau, hi=level,
+                          lo=level, workspace=ws_l, **kw)
+    levels_equal = torch.equal(full_l, got)
     keys_e, vals_e, d_e, lay_e, tau_e = push_inputs(eng)
 
     def persistent():
         return horner_push_rows(keys_e, vals_e, d_e, us, lay_e, tau_e,
                                 l_max=si.l_max)
 
-    push_err = float((x[:g.n].t() - persistent()).abs().max())
-    xm, lm = saved
-    bufs = [torch.empty((sl.layout.n, B), device=dev) for sl in si.slabs]
-
-    def level_kernel():
-        for sl, o in zip(si.slabs, bufs):
-            kernel(xm, sl, lm, o)
-
-    def level_plain():
-        for sl in si.slabs:
-            plain(xm, sl, lm)
-
-    # the bound of the timed level lm, per launch: a launch reads the
-    # slab's CSR and the frontier rows its edges name (none at a push's
-    # first level), the two run bounds of each row, and, of the B rows,
-    # only the entries that seed this slab at this level (key, value and
-    # d at the target); it writes its (n_loc, B) output
-    nbytes = ops = 0
-    mats = []
-    for sl in si.slabs:
-        lay = sl.layout
-        m_s = lay.in_idx.numel() if xm is not None else 0
-        need = int(torch.unique(lay.in_idx).numel()) if m_s else 0
-        lo = lm * g.n + sl.start
-        seeds = int(((keys >= lo) & (keys < lo + min(lay.n, g.n - sl.start))
-                     ).sum())
-        nbytes += (8 * m_s + (4 * (lay.n + 1) if m_s else 0)
-                   + 4 * need * B + 8 * B + 12 * seeds + 4 * lay.n * B)
-        ops += 2 * m_s * B + 2 * seeds
-        with warnings.catch_warnings():   # "sparse CSR support is in beta"
-            warnings.simplefilter("ignore", UserWarning)
-            mats.append(torch.sparse_csr_tensor(
-                lay.in_ptr.long(), lay.in_idx.long(), lay.w,
-                size=(lay.n, si.n_pad), check_invariants=False))
-    b_ms, b_by = bound_ms(nbytes / S, ops / S)
-    xp = (torch.rand((si.n_pad, B), device=dev) if xm is None else
-          torch.where(xm > si.tau, xm, 0.0))
-
-    def library():
-        for a in mats:
-            torch.sparse.mm(a, xp)
-
-    host_us = us.cpu().numpy()
+    push_err = float((got[:g.n].t() - persistent()).abs().max())
+    # (b) two shards on the card, two on the CPU
+    mixed = shard_query.shard_index(idx, g, shard_query.serving_mesh(
+        S, devices=[dev, dev, "cpu", "cpu"]))
+    before = horner_push_slabs.launches
+    mixed_got = shard_query.sharded_single_source(mixed, host_us)
+    mixed_launches = horner_push_slabs.launches - before
+    one_launch = got[:g.n].t().cpu().numpy()
+    mixed_err = float(np.abs(mixed_got - one_launch).max())
+    mixed_topk = {}
+    for k in (10, si.n_loc + 5):
+        mv, mi = shard_query.sharded_topk(mixed, host_us, k)
+        ov, oi = shard_query.sharded_topk(si, host_us, k)
+        mixed_topk[k] = (float(np.abs(mv - ov).max()),
+                         id_gap(one_launch, mi, oi))
+    del mixed
 
     def sharded_push():
         return shard_query.sharded_scores(si, host_us, "kernel")
 
-    trace(f"10 sharded pushes (S = {S}, B = {B})",
-          lambda: [sharded_push() for _ in range(10)])
-    row = {"name": "horner_push_slab_step", "route": "cuda",
+    census = launch_census(sharded_push, 10)
+    before = horner_push_slabs.launches
+    for _ in range(10):
+        sharded_push()
+    per_push = (horner_push_slabs.launches - before) / 10
+    top = top_level(shard_query._query_rows(si, us)[0], g.n, si.l_max)
+    levels_run = max(top, 0) + 1
+    cnt = idx.hp.counts.to(dev).long()
+    live = int(cnt[us].sum())
+    csr = sum(8 * sl.layout.in_idx.numel() + 4 * (sl.layout.n + 1)
+              for sl in si.slabs)
+    m_all = sum(sl.layout.in_idx.numel() for sl in si.slabs)
+    b_ms, b_by = bound_ms(8 * B + 12 * live + csr + 4 * n_rows * B,
+                          2 * levels_run * m_all * B)
+    mats = []
+    for sl in si.slabs:
+        lay = sl.layout
+        with warnings.catch_warnings():   # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            mats.append(torch.sparse_csr_tensor(
+                lay.in_ptr.long(), lay.in_idx.long(), lay.w,
+                size=(lay.n, n_rows), check_invariants=False))
+    xp = torch.rand((n_rows, B), device=dev)
+
+    def library():
+        for _ in range(levels_run):
+            for a in mats:
+                torch.sparse.mm(a, xp)
+
+    row = {"name": "horner_push_slabs", "route": "cuda",
            "source": "src/repro_torch/csrc/horner_push.cu",
            "replaces": "src/repro/kernels/horner_push/horner_push.py:69",
            "launches": launches, "max_abs_err": err,
-           "ms": device_ms(level_kernel, "slab_step_kernel", 20) / S,
-           "call_ms": time_ms(level_kernel, 50) / S,
-           "plain_ms": time_ms(level_plain, 10) / S,
+           "ms": device_ms(sharded_push, "horner_push_kernel", 20),
+           "call_ms": time_ms(kernel, 50),
+           "plain_ms": time_ms(plain, 10),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": time_ms(library, 20) / S,
-           "levels_run": top + 1, "launches_per_push": S * (top + 1),
+           "library_ms": time_ms(library, 20),
+           "levels_run": levels_run,
+           "launches_per_push": per_push,
+           "host_launches_per_push": census["host"],
            "push_ms": time_ms(sharded_push, 20),
-           "push_kernel_ms": device_ms(sharded_push, "slab_step_kernel",
-                                       10),
+           "push_busy_pct": census["busy_pct"],
            "persistent_push_ms": time_ms(persistent, 50),
-           "push_err": push_err,
+           "push_err": push_err, "levels_one_at_a_time_equal": levels_equal,
+           "mixed_mesh_err": mixed_err,
+           "mixed_mesh_launches": mixed_launches,
+           "mixed_mesh_topk": {str(k): {"err": e, "id_gap": gap}
+                               for k, (e, gap) in mixed_topk.items()},
            "shape": f"S={S} B={B} n_loc={si.n_loc} W={si.width_cap} "
-                    f"level {lm} of {top}"}
+                    f"{levels_run} of {si.l_max + 1} levels"}
+    topk_line = ", ".join(f"k={k}: err {e:.3g}, id gap {gap:.3g}"
+                          for k, (e, gap) in mixed_topk.items())
+    print(f"[kernel] horner_push_slabs S={S} B={B}: {per_push:g} launch a "
+          f"sharded push by the counter (grid {slabs_grid(si.slabs, B)} "
+          f"blocks of 1,024; {census['kernels']:g} kernels seen "
+          f"by the profiler, {census['host']:g} host launches a push from "
+          f"a trace of ten, device busy "
+          f"{census['busy_pct']:.1f}%); levels one at a time equal bits: "
+          f"{levels_equal}; mixed mesh (2 x {dev}, 2 x cpu) "
+          f"{mixed_launches} launches, {mixed_err:.3g} from one launch; "
+          f"its merged top-k {topk_line}")
     if push_err > TOL_KERNEL:
         raise RuntimeError(f"the sharded push disagrees with the "
                            f"persistent push: {push_err}")
+    if per_push != 1:
+        raise RuntimeError(f"a sharded push on one card made {per_push} "
+                           f"horner_push_slabs launches, not one")
+    if not levels_equal:
+        raise RuntimeError("horner_push_slabs: the levels launched one at "
+                           "a time differ from one launch")
+    if not mixed_err <= TOL_KERNEL or mixed_launches != levels_run:
+        raise RuntimeError(f"the mixed mesh's push disagrees: err "
+                           f"{mixed_err}, {mixed_launches} launches for "
+                           f"{levels_run} levels")
+    if any(not (e <= TOL_KERNEL and gap <= TOL_KERNEL)
+           for e, gap in mixed_topk.values()):
+        raise RuntimeError(f"the mixed mesh's merged top-k disagrees with "
+                           f"the one-device top-k: {mixed_topk}")
     return row
 
 
@@ -2897,7 +3014,7 @@ def main() -> int:
                horner_row(g, p, eng, nodes, total["horner_push"],
                           total["horner_push_steps"], scale),
                slab_row(g, idx, eng, nodes,
-                        total["horner_push_slab_step"], dev)]
+                        total["horner_push_slabs"], dev)]
     del scale
     kernels.append(spmm_row(g, p, dev, nodes, total["spmm"]))
     kernels.append(cin_row(model, serve_batch, dev, total["cin"]))

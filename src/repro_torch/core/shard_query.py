@@ -18,22 +18,28 @@ sling_index_specs``. The reference runs the fan-out inside one
 thread runs the shards in order, and a collective is plain torch ops in
 shard order.
 
-  1. **psum row fetch** -- the (B,) query ids are replicated; each shard
-     contributes the packed rows it owns and exact zeros elsewhere, and
-     the contributions are summed. The owner is unique, so the sum *is*
-     the row, the INT32_PAD_KEY sentinel included.
-  2. **Horner push over the slabs** -- one slab step a level a shard
-     (the Hopper kernel ``horner_push_slab_step`` on ``cuda``), each
-     seeding only its slab's targets from its d slice; between levels
-     the slabs are all-gathered (concatenated in shard order on every
-     device) as the next frontier
-     (``single_source.slab_horner_push``).
+  1. **row fetch** -- with every shard on one device, none: the push
+     reads each query's row through its id from the shard that owns it
+     (the shards' tables are its row source). Across devices, the psum
+     fetch: the (B,) query ids are replicated; each shard contributes
+     the packed rows it owns and exact zeros elsewhere, and the
+     contributions are summed. The owner is unique, so the sum *is* the
+     row, the INT32_PAD_KEY sentinel included.
+  2. **Horner push over the slabs** -- each slab seeds only its targets
+     from its d slice and writes its rows of a level into the node-major
+     frontier that every slab reads at the next. Every shard on one
+     device: one launch of the Hopper kernel ``horner_push_slabs`` over
+     every level and every slab, where the frontier is gathered as it is
+     written (``single_source.slab_push``). Across devices: one launch a
+     level a device, each device's rows copied into the others' frontier
+     between levels (``single_source.slab_horner_push``).
   3. **merge** -- single-source concatenates the slabs in shard order;
-     top-k takes a stable top-min(k, n_loc) of each slab, pad rows (id
-     >= n) masked to -1 below every real score, and merges the
-     candidates, gathered in shard order, with a second stable sort.
-     Shard order is id order, so equal scores still go to the smaller
-     node id, as on one device.
+     top-k, with every shard on one device, is one stable top-k over the
+     concatenated rows below n; across devices it takes a stable
+     top-min(k, n_loc) of each slab, pad rows (id >= n) masked to -1
+     below every real score, and merges the candidates, gathered in
+     shard order, with a second stable sort. Shard order is id order,
+     so equal scores still go to the smaller node id, as on one device.
 
 Shapes are swap-stable in the engine's sense: rows are padded to
 ``width_cap``, a capacity bucket (``hp_index.capacity_bucket``) that a
@@ -51,7 +57,8 @@ import torch
 
 from repro_torch.core import hp_index
 from repro_torch.core.single_source import (Slab, prune_tau,
-                                            slab_horner_push)
+                                            slab_device, slab_horner_push,
+                                            slab_push, slab_views)
 from repro_torch.core.topk import stable_topk
 from repro_torch.graph import csr
 from repro_torch.kernels.horner_push import resolve_push_backend
@@ -130,6 +137,12 @@ class ShardedIndex:
     @property
     def devices(self) -> tuple:
         return tuple(k.device for k in self.keys)
+
+    @property
+    def one_device(self) -> bool:
+        """Every shard on one device: the push is one call and reads the
+        shards' own tables (the fan-out's route)."""
+        return slab_device(self.slabs) is not None
 
     def nbytes_per_shard(self) -> int:
         """Device bytes each shard holds on average (the memory-scaling
@@ -218,26 +231,68 @@ def _query_rows(si: ShardedIndex, us: torch.Tensor):
     return ku, xu
 
 
+def _ids(si: ShardedIndex, us) -> torch.Tensor:
+    return torch.as_tensor(np.atleast_1d(np.asarray(us, np.int64)),
+                           device=si.devices[0])
+
+
+def _one_device_push(si: ShardedIndex, us: torch.Tensor,
+                     backend: str) -> torch.Tensor:
+    """Every shard on one device: the (n_pad, B) node-major scores of
+    one push with no row fetch -- it reads each id's row from the shard
+    that owns it (``single_source.slab_push``, one launch on ``cuda``)."""
+    rows = [(k, v, s * si.n_loc)
+            for s, (k, v) in enumerate(zip(si.keys, si.vals))]
+    return slab_push(rows, us, si.slabs, si.tau, n=si.n, l_max=si.l_max,
+                     backend=backend)
+
+
 def sharded_scores(si: ShardedIndex, us, backend: str | None = None
                    ) -> list:
     """Stages 1 and 2 of the fan-out: (B,) ids -> per shard its (n_loc,
-    B) node-major slab scores, on its device."""
-    us = torch.as_tensor(np.atleast_1d(np.asarray(us, np.int64)),
-                         device=si.devices[0])
+    B) node-major slab scores, on its device. Every shard on one device:
+    one push with no row fetch (views of its one buffer). Shards on
+    several devices: the psum row fetch, then ``slab_horner_push``."""
+    us = _ids(si, us)
+    backend = _resolve_si_backend(si, backend)
+    if si.one_device:
+        return slab_views(_one_device_push(si, us, backend), si.slabs)
     ku, xu = _query_rows(si, us)
     return slab_horner_push(ku, xu, si.slabs, si.tau, n=si.n,
-                            l_max=si.l_max,
-                            backend=_resolve_si_backend(si, backend))
+                            l_max=si.l_max, backend=backend)
 
 
 def sharded_single_source(si: ShardedIndex, us,
                           backend: str | None = None) -> np.ndarray:
     """Batched single-source over the mesh: (B,) ids -> (B, n) float32
     NumPy. ``backend``: "auto"/None | "kernel" | "plain"."""
-    home = si.devices[0]
-    slabs = sharded_scores(si, us, backend)
-    full = torch.cat([o.to(home, non_blocking=True) for o in slabs])
+    if si.one_device:
+        full = _one_device_push(si, _ids(si, us),
+                                _resolve_si_backend(si, backend))
+    else:
+        full = torch.cat([o.to(si.devices[0], non_blocking=True)
+                          for o in sharded_scores(si, us, backend)])
     return full[:si.n].t().cpu().numpy()
+
+
+def _merge_topk(outs: list, n: int, n_loc: int, k: int, home):
+    """The exact top-k merge of the slabs' (n_loc, B) scores ``outs``
+    (slab s holds the ids [s*n_loc, (s+1)*n_loc)), on several devices:
+    a stable top-min(k, n_loc) of each slab, pad rows (id >= n) masked
+    to -1 below every real score, then the candidates, gathered on
+    ``home`` in shard order, through a second stable sort. Shard order
+    is id order, so equal scores keep the smaller id first."""
+    k_loc = min(k, n_loc)
+    cand_v, cand_i = [], []
+    for s, out in enumerate(outs):
+        gids = s * n_loc + torch.arange(n_loc, device=out.device)
+        masked = torch.where(gids[None, :] < n, out.t(), -1.0)
+        v, i = stable_topk(masked, k_loc)
+        cand_v.append(v.to(home, non_blocking=True))
+        cand_i.append((i + s * n_loc).to(home, non_blocking=True))
+    vc, gc = torch.cat(cand_v, dim=1), torch.cat(cand_i, dim=1)
+    v, pos = torch.sort(vc, dim=1, descending=True, stable=True)
+    return v[:, :k], gc.gather(1, pos[:, :k])
 
 
 def sharded_topk(si: ShardedIndex, us, k: int,
@@ -245,21 +300,17 @@ def sharded_topk(si: ShardedIndex, us, k: int,
                  ) -> tuple[np.ndarray, np.ndarray]:
     """Batched top-k over the mesh, k clamped to n: ((B, k) float32
     scores descending, (B, k) int32 node ids) as NumPy, ties toward the
-    smaller id -- the contract of ``topk_device``. A slab's candidates
-    cover its part of the global top-k, so the merge is exact."""
+    smaller id -- the contract of ``topk_device``. Every shard on one
+    device: one stable top-k over the rows below n, in id order. Shards
+    on several devices: the merge of each slab's candidates
+    (:func:`_merge_topk`), which cover its part of the global top-k, so
+    both give the same answer."""
     k = max(1, min(int(k), si.n))
-    k_loc = min(k, si.n_loc)
-    home = si.devices[0]
-    cand_v, cand_i = [], []
-    for s, out in enumerate(sharded_scores(si, us, backend)):
-        gids = s * si.n_loc + torch.arange(si.n_loc, device=out.device)
-        # pad rows (id >= n) never win: real scores are >= 0
-        masked = torch.where(gids[None, :] < si.n, out.t(), -1.0)
-        v, i = stable_topk(masked, k_loc)
-        cand_v.append(v.to(home, non_blocking=True))
-        cand_i.append((i + s * si.n_loc).to(home, non_blocking=True))
-    vc, gc = torch.cat(cand_v, dim=1), torch.cat(cand_i, dim=1)
-    # shard order is id order: equal scores keep the smaller id first
-    v, pos = torch.sort(vc, dim=1, descending=True, stable=True)
-    return (v[:, :k].cpu().numpy(),
-            gc.gather(1, pos[:, :k]).cpu().numpy())
+    if si.one_device:
+        full = _one_device_push(si, _ids(si, us),
+                                _resolve_si_backend(si, backend))
+        v, i = stable_topk(full[:si.n].t(), k)
+    else:
+        v, i = _merge_topk(sharded_scores(si, us, backend), si.n,
+                           si.n_loc, k, si.devices[0])
+    return v.cpu().numpy(), i.cpu().numpy()

@@ -13,21 +13,24 @@ Alg 6's per-group thresholds.
   * ``horner_push`` -- the plain PyTorch push over a batch of rows;
   * ``batched_single_source`` -- (B,) query ids -> (B, n) scores through
     the chosen backend: the Hopper push kernel, one launch, on ``cuda``;
-  * ``slab_horner_push`` -- the same push over node slabs, one level at a
-    time on every slab (the Hopper slab step on ``cuda``) with the
-    frontier all-gathered between levels: the body of the node-sharded
-    fan-out (``core/shard_query.py``, ``single_source_batch(mesh=)``)
-    and of the pod path ``batched_single_source_sharded``.
+  * ``slab_push`` / ``slab_horner_push`` -- the same push over node
+    slabs: every slab of one device in one launch of the Hopper kernel
+    (``horner_push_slabs``) on ``cuda``, or on a mesh of several devices
+    one launch a level a device with the frontier exchanged between
+    levels: the body of the node-sharded fan-out
+    (``core/shard_query.py``, ``single_source_batch(mesh=)``) and of the
+    pod path ``batched_single_source_sharded``.
 """
 from __future__ import annotations
 
-import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 from repro_torch.graph import csr
 from repro_torch.kernels import horner_push as hpk
+from repro_torch.kernels.horner_push import Slab, top_level
 from repro_torch.kernels.spmv_ell import SpmmLayout
 
 
@@ -104,85 +107,163 @@ def batched_single_source(keys, vals, d, layout, us, tau: float, *,
     return push(keys, vals, d, us, layout, tau, l_max=l_max)
 
 
-@dataclasses.dataclass(frozen=True)
-class Slab:
-    """One shard's part of a push over node slabs: its rows [start,
-    start + layout.n) of the node dimension, the CSR of their in-edges
-    (``layout``, whose ``in_idx`` are global rows of the gathered
-    frontier), and the d it reads at k - ``d_offset``."""
-    layout: SpmmLayout
-    d: torch.Tensor
-    start: int
-    d_offset: int
-
-    @property
-    def device(self) -> torch.device:
-        return self.layout.device
+_workspaces = threading.local()
 
 
-def _gather(outs: list, devices: list, bufs: dict,
-            bf16: bool) -> dict:
-    """The all-gather of the slabs ``outs`` (n_loc, B): on every distinct
-    device, the slabs concatenated in shard order into its buffer,
-    copied there ``non_blocking`` on the current stream. ``bf16`` sends
-    bfloat16 slabs, read back as float32."""
-    got = {}
-    for dev in devices:
-        parts = [(o.to(torch.bfloat16) if bf16 else o).to(
-            dev, non_blocking=True) for o in outs]
-        if bf16:
-            got[dev] = bufs[dev].copy_(torch.cat(parts))
-        else:
-            got[dev] = torch.cat(parts, out=bufs[dev])
-    return got
+def _workspace(dev, batch: int, n_rows: int, l_max: int) -> torch.Tensor:
+    """The push's scratch on ``dev`` (``hpk.workspace_numel`` words: the
+    two node-major frontiers, the seed staging and the level runs),
+    cached per (device, B) for the calling thread and grown when a push
+    needs more, so a push allocates nothing after the first. A thread
+    owns its buffers: the serving frontend's replica workers push from
+    several threads, and a push on a mesh keeps its frontier there
+    between launches."""
+    cache = _workspaces.__dict__.setdefault("bufs", {})
+    need = hpk.workspace_numel(n_rows, batch, l_max)
+    buf = cache.get((dev, batch))
+    if buf is None or buf.numel() < need:
+        buf = cache[(dev, batch)] = torch.empty(need, dtype=torch.float32,
+                                                device=dev)
+    return buf
+
+
+def _tiled_rows(slabs: list) -> int:
+    """The rows of the node dimension that ``slabs`` tile, in order."""
+    n_rows = 0
+    for sl in slabs:
+        if sl.start != n_rows:
+            raise ValueError(f"slabs must tile the node dimension in "
+                             f"order: a slab starts at {sl.start}, not "
+                             f"{n_rows}")
+        n_rows += sl.layout.n
+    return n_rows
+
+
+def slab_device(slabs: list):
+    """The device every slab of ``slabs`` lies on, or None if they lie on
+    several: the one place the push's route is decided."""
+    dev = slabs[0].device
+    return dev if all(sl.device == dev for sl in slabs) else None
+
+
+def slab_views(full: torch.Tensor, slabs: list) -> list:
+    """Per slab its rows of the node-major buffer ``full`` (views)."""
+    return [full[sl.start:sl.start + sl.layout.n] for sl in slabs]
+
+
+def _push_fn(backend: str | None, dev):
+    """The slab push a backend runs on ``dev``: the Hopper kernel's
+    wrapper under "kernel" (the "auto" choice on ``cuda``; it takes the
+    plain version only for CPU tensors), the plain version under
+    "plain"."""
+    if hpk.resolve_push_backend(backend, dev) == "kernel":
+        return hpk.horner_push_slabs
+    return hpk.horner_push_slabs_plain
+
+
+def slab_push(rows, us, slabs: list, tau: float, *, n: int, l_max: int,
+              backend: str | None = "auto",
+              bf16_frontier: bool = False) -> torch.Tensor:
+    """The Horner push of the query ids ``us`` (B,) over node slabs that
+    tile the node dimension in order and all lie on one device, in one
+    call over every level: one launch of ``horner_push_slabs`` under the
+    "kernel" backend (the "auto" choice on ``cuda``), its plain version
+    under "plain". ``rows`` is the row source on that device: segments
+    (keys, vals, base), packed tables (rows sorted by key, PAD last) of
+    the ids [base, base + len(keys)) -- a ShardedIndex's own slabs of
+    rows, or one whole table -- read by the kernel through the ids.
+    Returns the (n_rows, B) node-major scores of every slab's rows, in
+    one buffer allocated for the call (:func:`slab_views` cuts it)."""
+    dev = slab_device(slabs)
+    if dev is None:
+        raise ValueError("slab_push takes slabs on one device; "
+                         "slab_horner_push runs a mesh of several")
+    n_rows = _tiled_rows(slabs)
+    B = us.shape[0]
+    full = torch.empty((n_rows, B), dtype=torch.float32, device=dev)
+    _push_fn(backend, dev)(
+        rows, us, slabs, slab_views(full, slabs), float(np.float32(tau)),
+        n=n, l_max=l_max, hi=l_max, lo=0, bf16_frontier=bf16_frontier,
+        n_rows=n_rows, workspace=_workspace(dev, B, n_rows, l_max))
+    return full
+
+
+def _exchange(fronts: dict, spans: dict, buf: int, bf16: bool) -> None:
+    """Frontier buffer ``buf`` all-gathered over the devices: each
+    device's rows (``spans``: its contiguous runs of slab rows) copied
+    into every other device's buffer, one copy for each pair of devices
+    and each run; as bfloat16 under ``bf16`` (the values are already
+    rounded there, so the exchange halves its bytes and loses nothing)."""
+    for src, runs in spans.items():
+        for lo, hi in runs:
+            block = fronts[src][buf, lo:hi]
+            if bf16:
+                block = block.to(torch.bfloat16)
+            for dst, front in fronts.items():
+                if dst != src:
+                    front[buf, lo:hi].copy_(
+                        block, non_blocking=src.type == dst.type == "cuda")
 
 
 def slab_horner_push(ku, xu, slabs: list, tau: float, *, n: int,
                      l_max: int, backend: str | None = "auto",
                      bf16_frontier: bool = False) -> list:
-    """The Horner push of the query rows ``ku``/``xu`` (B, W), any order,
-    over node slabs that tile the node dimension in order: per slab its
+    """The Horner push of the query rows ``ku``/``xu`` (B, W), each row
+    sorted by key with PAD last (as a packed table holds them), over
+    node slabs that tile the node dimension in order: per slab its
     (n_loc, B) node-major scores on its device.
 
-    The rows are copied to every distinct device and prepared once
-    (``kernels.horner_push.slab_rows``). Then level by level, from the
-    highest level holding a seed (above it the push is exactly zero)
-    to 0, every slab runs one slab step -- the Hopper kernel
-    ``horner_push_slab_step`` under the "kernel" backend (the "auto"
-    choice on ``cuda``), its plain version under "plain" -- and between
-    levels the slabs are all-gathered onto every device, in shard order
-    (``bf16_frontier``: as bfloat16, halving the exchange). Slabs may
-    share a device."""
-    devices = list(dict.fromkeys(sl.device for sl in slabs))
-    steps = {dev: hpk.resolve_push_backend(backend, dev) for dev in devices}
-    rows = {dev: hpk.slab_rows(ku.to(dev), xu.to(dev), n, l_max)
-            for dev in devices}
-    top = rows[devices[0]][3]
+    Slabs on one device: :func:`slab_push` of the rows as one segment,
+    one launch over every level. Slabs on several devices: the rows are
+    copied to every device once, and one host sync finds the highest
+    level that holds a seed (above it the push is exactly zero; the
+    sync costs less than the launches and copies of the empty levels
+    above it, l_max - top of them). Then per level, from there to 0, one
+    call a device over all of that device's slabs (``horner_push_slabs``
+    under "kernel", the "auto" choice on ``cuda``; its plain version
+    under "plain" and on the CPU), each writing its rows into its own
+    frontier buffer, and between levels the exchange: each device's
+    rows copied into every other device's buffer (``bf16_frontier``:
+    every frontier value rounded through bfloat16, and the exchange sent
+    as bfloat16, halving it)."""
     B = ku.shape[0]
-    outs = [torch.zeros((sl.layout.n, B), dtype=torch.float32,
-                        device=sl.device) for sl in slabs]
-    if top < 0:
-        return outs
-    n_rows = sum(sl.layout.n for sl in slabs)
-    bufs = [{dev: torch.empty((n_rows, B), dtype=torch.float32, device=dev)
-             for dev in devices} for _ in range(2)]
+    dev = slab_device(slabs)
+    if dev is not None:
+        return slab_views(slab_push(
+            [(ku.to(dev), xu.to(dev), 0)], torch.arange(B, device=dev),
+            slabs, tau, n=n, l_max=l_max, backend=backend,
+            bf16_frontier=bf16_frontier), slabs)
+    devices = list(dict.fromkeys(sl.device for sl in slabs))
+    n_rows = _tiled_rows(slabs)
     tau = float(np.float32(tau))
-    x = None
-    for level in range(top, -1, -1):
-        for sl, out in zip(slabs, outs):
-            keys, vals, runs, _ = rows[sl.device]
-            xs = None if x is None else x[sl.device]
-            if steps[sl.device] == "kernel":
-                hpk.horner_push_slab_step(
-                    xs, sl.layout, keys, vals, runs, sl.d, level, tau, n=n,
-                    slab_start=sl.start, d_offset=sl.d_offset, l_max=l_max,
-                    out=out)
+    top = top_level(ku, n, l_max)
+    mine = {dev: [i for i, sl in enumerate(slabs) if sl.device == dev]
+            for dev in devices}
+    rows = {dev: [(ku.to(dev), xu.to(dev), 0)] for dev in devices}
+    ids = {dev: torch.arange(B, device=dev) for dev in devices}
+    ws = {dev: _workspace(dev, B, n_rows, l_max) for dev in devices}
+    fronts = {dev: hpk.frontier_view(ws[dev], n_rows, B) for dev in devices}
+    spans = {}
+    for dev, idx in mine.items():
+        runs = []
+        for i in idx:
+            lo, hi = slabs[i].start, slabs[i].start + slabs[i].layout.n
+            if runs and runs[-1][1] == lo:
+                runs[-1] = (runs[-1][0], hi)
             else:
-                hpk.horner_slab_step_plain(
-                    xs, sl.layout, keys, vals, sl.d, level, tau, n=n,
-                    slab_start=sl.start, d_offset=sl.d_offset, out=out)
+                runs.append((lo, hi))
+        spans[dev] = runs
+    outs = [torch.empty((sl.layout.n, B), dtype=torch.float32,
+                        device=sl.device) for sl in slabs]
+    for level in range(max(top, 0), -1, -1):
+        for dev, idx in mine.items():
+            _push_fn(backend, dev)(
+                rows[dev], ids[dev], [slabs[i] for i in idx],
+                [outs[i] for i in idx], tau, n=n, l_max=l_max, hi=level,
+                lo=level, bf16_frontier=bf16_frontier, n_rows=n_rows,
+                workspace=ws[dev])
         if level > 0:
-            x = _gather(outs, devices, bufs[level & 1], bf16_frontier)
+            _exchange(fronts, spans, level & 1, bf16_frontier)
     return outs
 
 
@@ -273,26 +354,33 @@ def batched_single_source_sharded(keys, vals, d, blk_src, blk_dstl, blk_w,
     eps budget by the caller). ``keys``/``vals`` are the full packed
     table, ``blk_*`` (S_model, E) the edges grouped by destination
     shard with slab-local destinations (``shard_query.partition_edges``).
-    Each data position's queries run :func:`slab_horner_push` on its row
-    of devices. ``slabs``: :func:`pod_slabs` of the same arguments, made
-    once by a caller that pushes many batches (``blk_*`` and ``d`` are
-    then not read). Returns the (B, n) float32 scores on the mesh's
-    first device."""
+    Each data position's queries run on its row of devices: where the
+    row is one device that holds the table, :func:`slab_push` with the
+    table as the row source (one launch a position on ``cuda``), else
+    :func:`slab_horner_push` on the rows fetched for them. ``slabs``:
+    :func:`pod_slabs` of the same arguments, made once by a caller that
+    pushes many batches (``blk_*`` and ``d`` are then not read). Returns
+    the (B, n) float32 scores on the mesh's first device."""
     groups, _ = _pod_axes(mesh, n)
     if slabs is None:
         slabs = pod_slabs(d, blk_src, blk_dstl, blk_w, n, mesh)
-    ids = torch.as_tensor(np.asarray(us), device=keys.device).long()
-    if len(ids) % len(groups):
-        raise ValueError(f"{len(ids)} queries do not divide over "
+    us = np.asarray(us)
+    if len(us) % len(groups):
+        raise ValueError(f"{len(us)} queries do not divide over "
                          f"{len(groups)} data positions")
-    ku, xu = keys[ids], vals[ids]
     home = mesh.devices.flat[0]
-    out = torch.empty((len(ids), n), dtype=torch.float32, device=home)
-    for q, group in zip(np.array_split(np.arange(len(ids)), len(groups)),
+    out = torch.empty((len(us), n), dtype=torch.float32, device=home)
+    for q, group in zip(np.array_split(np.arange(len(us)), len(groups)),
                         slabs):
-        rows = torch.as_tensor(q, device=keys.device)
-        outs = slab_horner_push(ku[rows], xu[rows], group, tau, n=n,
-                                l_max=l_max, bf16_frontier=bf16_frontier)
-        out[torch.as_tensor(q, device=home)] = torch.cat(
-            [o.to(home) for o in outs]).t()
+        if len(q) == 0:
+            continue
+        ids = torch.as_tensor(us[q].astype(np.int64), device=keys.device)
+        if slab_device(group) == keys.device:
+            full = slab_push([(keys, vals, 0)], ids, group, tau, n=n,
+                             l_max=l_max, bf16_frontier=bf16_frontier)
+        else:
+            full = torch.cat([o.to(home) for o in slab_horner_push(
+                keys[ids], vals[ids], group, tau, n=n, l_max=l_max,
+                bf16_frontier=bf16_frontier)])
+        out[q[0]:q[-1] + 1] = full.t()
     return out

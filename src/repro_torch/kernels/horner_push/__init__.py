@@ -3,11 +3,12 @@ backend resolution.
 
 Backends for the single-source and top-k paths:
 
-  * ``"kernel"`` -- ``horner_push_rows``, which launches the Hopper
-    kernel for CUDA tensors (and takes the plain push only for tensors
-    on the CPU);
-  * ``"plain"``  -- ``horner_push_rows_plain`` on any device (the CPU
-    path, and the comparisons on the card);
+  * ``"kernel"`` -- ``horner_push_rows`` (and ``horner_push_slabs`` for
+    a push over node slabs), which launch the Hopper kernel for CUDA
+    tensors (and take the plain push only for tensors on the CPU);
+  * ``"plain"``  -- ``horner_push_rows_plain`` (``horner_push_slabs_
+    plain``) on any device (the CPU path, and the comparisons on the
+    card);
   * ``"auto"``   -- resolves by device: ``"kernel"`` on ``cuda``,
     ``"plain"`` on ``cpu``.
 """
@@ -16,14 +17,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.horner_push.horner_push import (
-    horner_push_rows, horner_push_rows_plain, horner_push_slab_step,
-    persistent_grid, workspace_numel)
-from repro_torch.kernels.horner_push.ops import (horner_push,
+    frontier_view, horner_push_rows, horner_push_rows_plain,
+    horner_push_slabs, persistent_grid, slabs_grid, workspace_numel)
+from repro_torch.kernels.horner_push.ops import (MAX_SEGMENTS, MAX_SLABS,
+                                                 Slab, horner_push,
+                                                 horner_push_slabs_plain,
                                                  horner_slab_step_plain,
                                                  horner_step_plain,
                                                  horner_steps_plain,
                                                  level_runs_plain,
-                                                 prepare_rows, slab_rows)
+                                                 prepare_rows, rows_by_owner,
+                                                 top_level)
 
 PUSH_BACKENDS = ("auto", "plain", "kernel")
 
@@ -44,9 +48,11 @@ def push_for(backend: str):
         horner_push_rows_plain
 
 
-__all__ = ["PUSH_BACKENDS", "horner_push", "horner_push_rows",
-           "horner_push_rows_plain", "horner_push_slab_step",
-           "horner_slab_step_plain", "horner_step_plain",
-           "horner_steps_plain", "level_runs_plain", "persistent_grid",
-           "prepare_rows", "push_for", "resolve_push_backend",
-           "slab_rows", "workspace_numel"]
+__all__ = ["MAX_SEGMENTS", "MAX_SLABS", "PUSH_BACKENDS", "Slab",
+           "frontier_view", "horner_push", "horner_push_rows",
+           "horner_push_rows_plain", "horner_push_slabs",
+           "horner_push_slabs_plain", "horner_slab_step_plain",
+           "horner_step_plain", "horner_steps_plain", "level_runs_plain",
+           "persistent_grid", "prepare_rows", "push_for",
+           "resolve_push_backend", "rows_by_owner", "slabs_grid",
+           "top_level", "workspace_numel"]

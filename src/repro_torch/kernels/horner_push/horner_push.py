@@ -1,31 +1,34 @@
-"""The SLING single-source push from row ids to scores: the Hopper
-kernel's wrapper and its plain PyTorch version.
+"""The SLING Horner push from query ids to scores: the Hopper kernel's
+wrappers and their plain PyTorch versions.
 
 Replaces the TPU kernel ``src/repro/kernels/horner_push/horner_push.py``
 (``_step_kernel`` / ``horner_step``) and the Horner loop that drives it
-(``src/repro/kernels/horner_push/ops.py``). Both versions compute, for
-the rows ``us`` of a packed table ``keys``/``vals`` (N, W) whose rows
-are sorted by key = l*n + k with PAD last,
+(``src/repro/kernels/horner_push/ops.py``), in its single-device role and
+in its sharded one (one level on one node slab, the frontier
+all-gathered outside it). The push computes, for the query rows of a
+packed table whose rows are sorted by key = l*n + k with PAD last,
 
     acc = 0;  for l = l_max .. 0:  acc = Â prune_tau(acc) + seed_l
-    seed_l[k, b] = sum of vals[us[b], j] * d[k] over the entries j of
-                   row us[b] with key l*n + k (duplicate keys add up)
+    seed_l[k, b] = sum of vals[u_b, j] * d[k] over the entries j of
+                   query b's row with key l*n + k (duplicate keys add up)
 
-and return the (B, n) float32 scores; Â is given in CSR over
-destinations (``SpmmLayout``). The kernel (``csrc/horner_push.cu``)
-runs the whole push in one persistent cooperative launch: it reads the
-rows through ``us`` itself, finds each row's level runs in a prologue,
-starts at the highest level that holds a seed, and writes level 0
-straight into the result. The host only allocates the result and one
-workspace. Each output is summed in a fixed order with no atomics, so
-two pushes give the same bits.
+with Â given in CSR over destinations (``SpmmLayout``). One kernel
+(``csrc/horner_push.cu``) runs it in one persistent cooperative launch
+over the node slabs that lie on a device; it reads the rows through the
+ids itself, finds each row's level runs in a prologue, starts at the
+highest level that holds a seed, and writes level 0 straight into the
+result. Each output is summed in a fixed order with no atomics, so two
+pushes give the same bits. Two wrappers launch it:
 
-The node-sharded push (``core/shard_query.py``) cannot run a
-collective inside that launch, so it launches a second entry of the
-same source once per level per shard: :func:`horner_push_slab_step`,
-one level on one node slab from the gathered frontier, with
-:func:`~repro_torch.kernels.horner_push.ops.horner_slab_step_plain` as
-its plain version.
+  * :func:`horner_push_rows` -- a single-source push: one slab of all n
+    nodes, the table as the row source, the (B, n) scores;
+  * :func:`horner_push_slabs` -- a node-sharded push: up to
+    ``MAX_SLABS`` slabs of one device, a row source of table segments,
+    a range of levels, each slab's (n_loc, B) result and the shared
+    node-major frontier in a caller's workspace
+    (``core/single_source.py`` drives it: every level in one launch
+    where every slab lies on one device, one level a launch a device on
+    a mesh of several).
 """
 from __future__ import annotations
 
@@ -34,43 +37,64 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.horner_push.ops import (horner_push,
-                                                 horner_slab_step_plain)
+from repro_torch.kernels.horner_push.ops import (MAX_SEGMENTS, MAX_SLABS,
+                                                 horner_push,
+                                                 horner_push_slabs_plain)
 
 _launch = []   # the bound C functions, filled on first launch
-_slab_launch = []
 
 
 def _launcher():
     if not _launch:
         lib = _build.load("horner_push")
-        fn = lib.horner_push_launch
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([ptr] * 4 + [i32] * 3 + [ptr] * 4 + [i32] * 6
-                       + [ctypes.c_float] + [ptr] * 3)
-        fn.restype = ctypes.c_int
-        lib.horner_push_grid.argtypes = [i32] * 6
-        lib.horner_push_grid.restype = ctypes.c_longlong
-        _launch.extend([fn, lib.horner_push_grid])
-    return _launch[0]
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        push = lib.horner_push_launch
+        push.argtypes = ([ptr, ptr, i64, ptr, ptr] + [i32] * 3 + [ptr] * 4
+                         + [i32] * 6 + [ctypes.c_float] + [ptr] * 3)
+        push.restype = i32
+        slabs = lib.horner_push_slabs_launch
+        slabs.argtypes = ([i32, ptr, ptr, i32, ptr, i32, ptr] + [i32] * 3
+                          + [i64] + [i32] * 5 + [ctypes.c_float, ptr, ptr])
+        slabs.restype = i32
+        lib.horner_push_grid.argtypes = [i32, ptr, i32, i32]
+        lib.horner_push_grid.restype = i64
+        _launch.extend([push, slabs, lib.horner_push_grid])
+    return _launch
 
 
-def persistent_grid(layout, batch: int) -> int:
-    """The blocks (of 1,024 threads) that the kernel launches for a push
-    of ``batch`` columns over ``layout`` on the current card."""
-    _launcher()
-    grid = _launch[1](*layout.push_tiers, batch,
-                      4 if batch % 4 == 0 else 1)
+def _grid(tiers: list, batch: int) -> int:
+    grid_fn = _launcher()[2]
+    arr = (ctypes.c_int * len(tiers))(*tiers)
+    grid = grid_fn(len(tiers) // 4, arr, batch, 4 if batch % 4 == 0 else 1)
     if grid < 0:
         _build.check(int(-grid), "horner_push_grid")
     return int(grid)
 
 
+def persistent_grid(layout, batch: int) -> int:
+    """The blocks (of 1,024 threads) that the kernel launches for a push
+    of ``batch`` columns over ``layout`` on the current card."""
+    return _grid(list(layout.push_tiers), batch)
+
+
+def slabs_grid(slabs, batch: int) -> int:
+    """The blocks that :func:`horner_push_slabs` launches over ``slabs``
+    for ``batch`` columns on the current card."""
+    return _grid([t for sl in slabs for t in sl.layout.push_tiers], batch)
+
+
 def workspace_numel(n: int, batch: int, l_max: int) -> int:
-    """32-bit words of the kernel's scratch: two (n, B) frontiers, two
-    (n, B) seed-staging buffers and the (B, l_max + 3) level runs. It
-    may hold anything when the kernel starts."""
+    """32-bit words of the kernel's scratch over ``n`` frontier rows: two
+    (n, B) node-major frontiers, two (n, B) seed-staging buffers and the
+    (B, l_max + 3) level runs."""
     return 4 * n * batch + batch * (l_max + 3)
+
+
+def frontier_view(workspace: torch.Tensor, n_rows: int,
+                  batch: int) -> torch.Tensor:
+    """The two node-major frontiers (2, n_rows, B) at the head of a
+    workspace: level l of a push writes ``[l & 1]``."""
+    return workspace[:2 * n_rows * batch].view(2, n_rows, batch)
 
 
 def horner_push_rows_plain(keys, vals, d, us, layout, tau: float, *,
@@ -135,13 +159,13 @@ def horner_push_rows(keys, vals, d, us, layout, tau: float, *, l_max: int,
         workspace = torch.empty(workspace_numel(n, B, l_max),
                                 dtype=torch.float32, device=keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = _launcher()(keys.data_ptr(), vals.data_ptr(), d.data_ptr(),
-                      us.data_ptr(), int(us.dtype == torch.int64), B,
-                      keys.shape[1], layout.in_ptr.data_ptr(),
-                      layout.in_idx.data_ptr(), layout.w.data_ptr(),
-                      layout.push_order.data_ptr(), *layout.push_tiers, n,
-                      l_max, tau, workspace.data_ptr(), out.data_ptr(),
-                      stream)
+    err = _launcher()[0](
+        keys.data_ptr(), vals.data_ptr(), keys.shape[0], d.data_ptr(),
+        us.data_ptr(), int(us.dtype == torch.int64), B, keys.shape[1],
+        layout.in_ptr.data_ptr(), layout.in_idx.data_ptr(),
+        layout.w.data_ptr(), layout.push_order.data_ptr(),
+        *layout.push_tiers, n, l_max, tau, workspace.data_ptr(),
+        out.data_ptr(), stream)
     _build.check(err, "horner_push_rows")
     with _build.counter_lock:
         horner_push_rows.launches += 1
@@ -153,94 +177,133 @@ horner_push_rows.launches = 0
 horner_push_rows.steps = 0
 
 
-def _slab_launcher():
-    if not _slab_launch:
-        fn = _build.load("horner_push").horner_slab_step_launch
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([ptr] * 5 + [i32] * 4 + [ptr] * 4 + [i32] * 8
-                       + [ctypes.c_float, ptr, ptr])
-        fn.restype = ctypes.c_int
-        _slab_launch.append(fn)
-    return _slab_launch[0]
-
-
-def _check_slab(x, layout, keys, vals, runs, d, level, l_max, n,
-                slab_start, d_offset, out) -> None:
-    n_loc, B = layout.n, keys.shape[0]
-    if keys.dim() != 2 or vals.shape != keys.shape or d.dim() != 1 \
-            or runs.shape != (B, l_max + 2) or not 0 <= level <= l_max \
-            or (x is not None and (x.dim() != 2 or x.shape[1] != B)) \
-            or (out is not None and out.shape != (n_loc, B)) \
-            or not 0 <= slab_start - d_offset \
-            or min(n, slab_start + n_loc) - d_offset > d.shape[0]:
+def _check_caps(slabs, rows) -> None:
+    """The kernel's parameter table holds at most ``MAX_SLABS`` slabs and
+    ``MAX_SEGMENTS`` row segments; the plain version has no such cap."""
+    if len(slabs) > MAX_SLABS:
         raise ValueError(
-            f"horner_push_slab_step shapes: x "
-            f"{None if x is None else tuple(x.shape)} keys "
-            f"{tuple(keys.shape)} vals {tuple(vals.shape)} runs "
-            f"{tuple(runs.shape)} d {tuple(d.shape)} level {level} l_max "
-            f"{l_max} slab [{slab_start}, +{n_loc}) d_offset {d_offset}")
-    if keys.dtype != torch.int32 or runs.dtype != torch.int32 or any(
-            t.dtype != torch.float32 for t in (vals, d, x, out)
-            if t is not None):
-        raise TypeError("horner_push_slab_step takes int32 keys and runs, "
-                        "float32 x, vals, d and out")
-    ts = [t for t in (x, keys, vals, runs, d, out) if t is not None]
-    if any(t.device != layout.device for t in ts):
-        raise ValueError("horner_push_slab_step arguments must share the "
-                         "layout's device")
+            f"horner_push_slabs takes 1 to {MAX_SLABS} slabs a launch, got "
+            f"{len(slabs)}: cut the node dimension into fewer slabs a "
+            "device")
+    if len(rows) > MAX_SEGMENTS:
+        raise ValueError(f"horner_push_slabs takes at most {MAX_SEGMENTS} "
+                         f"row segments, got {len(rows)}")
+
+
+def _check_slabs(rows, us, slabs, outs, n, l_max, hi, lo, n_rows,
+                 workspace) -> None:
+    if not slabs:
+        raise ValueError("horner_push_slabs takes at least one slab")
+    B = us.shape[0]
+    dev = slabs[0].layout.device
+    width = {k.shape[1] for k, _, _ in rows}
+    if us.dim() != 1 or len(outs) != len(slabs) or len(width) > 1 \
+            or not 0 <= lo <= hi <= l_max or n <= 0 \
+            or (l_max + 1) * n > 0x7fffffff or n_rows > 0x7fffffff \
+            or any(k.dim() != 2 or v.shape != k.shape for k, v, _ in rows) \
+            or any(o.shape != (sl.layout.n, B) for sl, o in zip(slabs, outs))\
+            or any(sl.start + sl.layout.n > n_rows
+                   or min(n, sl.start + sl.layout.n) - sl.d_offset
+                   > sl.d.shape[0] for sl in slabs):
+        raise ValueError(
+            f"horner_push_slabs shapes: {len(slabs)} slabs "
+            f"{[(sl.start, sl.layout.n, sl.d_offset) for sl in slabs]} of "
+            f"{n_rows} rows, outs {[tuple(o.shape) for o in outs]}, rows "
+            f"{[tuple(k.shape) for k, _, _ in rows]}, us {tuple(us.shape)}"
+            f", levels [{hi} .. {lo}] of l_max {l_max}, n {n}")
+    if any(k.dtype != torch.int32 or v.dtype != torch.float32
+           for k, v, _ in rows) or us.dtype not in (torch.int32,
+                                                    torch.int64) \
+            or any(o.dtype != torch.float32 for o in outs):
+        raise TypeError("horner_push_slabs takes int32 keys, float32 vals "
+                        "and outs, and int32 or int64 ids")
+    # a Slab checked its layout and d when it was made
+    ts = [us, *outs, *(t for k, v, _ in rows for t in (k, v)),
+          *(sl.layout.in_ptr for sl in slabs[1:])]
+    if workspace is not None:
+        ts.append(workspace)
+    if any(t.device != dev for t in ts):
+        raise ValueError("horner_push_slabs arguments must share the "
+                         "slabs' device")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("horner_push_slab_step arguments must be "
-                         "contiguous")
-    if x is not None and out is not None and \
-            x.data_ptr() == out.data_ptr():
-        raise ValueError("horner_push_slab_step writes out apart from x")
+        raise ValueError("horner_push_slabs arguments must be contiguous")
+    if workspace is not None and (
+            workspace.dtype != torch.float32 or workspace.numel() <
+            workspace_numel(n_rows, B, l_max)):
+        raise ValueError("horner_push_slabs workspace must be float32 of "
+                         "at least workspace_numel(n_rows, B, l_max) words")
 
 
-def horner_push_slab_step(x, layout, keys, vals, runs, d, level: int,
-                          tau: float, *, n: int, slab_start: int,
-                          d_offset: int, l_max: int,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
-    """One Horner level on the node slab [slab_start, slab_start +
-    layout.n) of an n-node graph: (n_loc, B) float32,
+def horner_push_slabs(rows, us, slabs, outs, tau: float, *, n: int,
+                      l_max: int, hi: int | None = None, lo: int = 0,
+                      bf16_frontier: bool = False,
+                      n_rows: int | None = None,
+                      workspace: torch.Tensor | None = None) -> None:
+    """The levels ``hi`` (default l_max) .. ``lo`` of the Horner push of
+    the query ids ``us`` (B,) over node slabs of an ``n``-node graph that
+    lie on one device, in one launch.
 
-        out[v, b] = sum_{e in I(v)} w_e * prune_tau(x[src_e, b])
-                    + sum of vals[b, j] * d[slab_start + v - d_offset]
-                      over the entries j of row b with key
-                      level * n + slab_start + v,
-
-    ``x`` the gathered node-major frontier (rows, B) that the layout's
-    global ``in_idx`` address (None at the first level of a push: zero),
-    ``keys``/``vals``/``runs`` the query rows as ``ops.slab_rows``
-    prepares them. On a CUDA device the Hopper kernel runs (it raises
-    if it cannot be built or launched); for CPU tensors the plain
-    version runs. ``horner_push_slab_step.launches`` counts kernel
-    launches (one a level a shard)."""
+    ``slabs``: up to ``MAX_SLABS`` :class:`~repro_torch.kernels.
+    horner_push.ops.Slab` -- the rows [start, start + layout.n) of the
+    node dimension, their in-edges (``layout``, sources global rows of
+    the frontier), d read at k - d_offset. ``rows``: the row source, a
+    list of segments (keys, vals, base), each a packed table (rows
+    sorted by key, PAD last) of the ids [base, base + len(keys)); an id
+    no segment holds is an empty row. ``outs``: each slab's (n_loc, B)
+    float32 result, written by level 0. ``workspace``
+    (``workspace_numel(n_rows, B, l_max)`` float32, allocated when not
+    given) holds the two node-major (n_rows, B) frontiers
+    (:func:`frontier_view`; ``n_rows`` defaults to the slabs' last row):
+    level l writes every slab's rows of buffer l & 1 at their global
+    rows, so on one device the frontier is gathered where it is written.
+    A launch below the push's top level reads level hi + 1 from there.
+    The highest level holding a seed is found inside the launch; above
+    it the push is exactly zero and nothing runs. ``bf16_frontier``
+    rounds every frontier value through bfloat16 (level 0's result
+    stays float32). On a CUDA device the Hopper kernel runs (it raises
+    if it cannot be built or launched, or above the slab cap; it never
+    falls back); for CPU tensors the plain version runs.
+    ``horner_push_slabs.launches`` counts kernel launches."""
     tau = ctypes.c_float(tau).value      # the kernel compares in float32
-    _check_slab(x, layout, keys, vals, runs, d, level, l_max, n,
-                slab_start, d_offset, out)
-    if keys.device.type == "cpu":
-        return horner_slab_step_plain(x, layout, keys, vals, d, level, tau,
-                                      n=n, slab_start=slab_start,
-                                      d_offset=d_offset, out=out)
-    n_loc, B = layout.n, keys.shape[0]
-    if out is None:
-        out = torch.empty((n_loc, B), dtype=torch.float32,
-                          device=keys.device)
-    if B == 0 or n_loc == 0:
-        return out
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = _slab_launcher()(
-            None if x is None else x.data_ptr(), layout.in_ptr.data_ptr(),
-            layout.in_idx.data_ptr(), layout.w.data_ptr(),
-            layout.push_order.data_ptr(), *layout.push_tiers,
-            keys.data_ptr(), vals.data_ptr(), runs.data_ptr(),
-            d.data_ptr(), B, keys.shape[1], n, n_loc, slab_start, d_offset,
-            l_max, level, tau, out.data_ptr(), stream)
-    _build.check(err, "horner_push_slab_step")
+    hi = l_max if hi is None else hi
+    if n_rows is None:
+        n_rows = max(sl.start + sl.layout.n for sl in slabs)
+    _check_slabs(rows, us, slabs, outs, n, l_max, hi, lo, n_rows, workspace)
+    dev = slabs[0].layout.device
+    kw = dict(n=n, l_max=l_max, hi=hi, lo=lo, bf16_frontier=bf16_frontier,
+              n_rows=n_rows, workspace=workspace)
+    if dev.type == "cpu":
+        horner_push_slabs_plain(rows, us, slabs, outs, tau, **kw)
+        return
+    _check_caps(slabs, rows)
+    B = us.shape[0]
+    if B == 0:
+        return
+    if workspace is None:
+        workspace = torch.empty(workspace_numel(n_rows, B, l_max),
+                                dtype=torch.float32, device=dev)
+    ptrs, ints = [], []
+    for sl, out in zip(slabs, outs):
+        lay = sl.layout
+        ptrs += [lay.in_ptr.data_ptr(), lay.in_idx.data_ptr(),
+                 lay.w.data_ptr(), lay.push_order.data_ptr(),
+                 sl.d.data_ptr(), out.data_ptr()]
+        ints += [sl.start, lay.n, sl.d_offset, *lay.push_tiers]
+    segs = [x for k, v, base in rows
+            for x in (k.data_ptr(), v.data_ptr(), int(base), k.shape[0])]
+    width = rows[0][0].shape[1] if rows else 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher()[1](
+            len(slabs), (ctypes.c_longlong * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints), len(rows),
+            (ctypes.c_longlong * max(len(segs), 1))(*segs), width,
+            us.data_ptr(), int(us.dtype == torch.int64), B, n, n_rows,
+            l_max, hi, lo, 0, int(bf16_frontier), tau,
+            workspace.data_ptr(), stream)
+    _build.check(err, "horner_push_slabs")
     with _build.counter_lock:
-        horner_push_slab_step.launches += 1
-    return out
+        horner_push_slabs.launches += 1
 
 
-horner_push_slab_step.launches = 0
+horner_push_slabs.launches = 0

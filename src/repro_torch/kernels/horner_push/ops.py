@@ -14,12 +14,16 @@ over two ping-ponged node-major (n, B) buffers (``horner_steps_plain``).
 This is the CPU path, and the version the Hopper kernel
 (``horner_push.horner_push_rows``) is held against on the card.
 
-The node-sharded push runs one level on one node slab at a time
-(:func:`horner_slab_step_plain`, the plain version of
-``horner_push.horner_push_slab_step``) over rows that
-:func:`slab_rows` prepares once a push.
+The node-sharded push runs over node slabs (:class:`Slab`):
+:func:`horner_push_slabs_plain`, the plain version of
+``horner_push.horner_push_slabs``, reads the query rows from a row
+source by owner (:func:`rows_by_owner`) and runs a range of levels,
+each one :func:`horner_slab_step_plain` a slab, into the shared
+node-major frontier.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,6 +31,40 @@ import torch
 from repro_torch.core.hp_index import INT32_PAD_KEY
 from repro_torch.kernels.spmv_ell import spmm_plain
 from repro_torch.kernels.spmv_ell.ops import SpmmLayout
+
+# the kernel's caps: slabs a launch (its table is passed by value) and
+# segments of a row source
+MAX_SLABS = 16
+MAX_SEGMENTS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Slab:
+    """One node slab of a sharded push: its rows [start, start +
+    layout.n) of the node dimension, the CSR of their in-edges
+    (``layout``, whose ``in_idx`` are global rows of the frontier), and
+    the d it reads at k - ``d_offset``."""
+    layout: SpmmLayout
+    d: torch.Tensor
+    start: int
+    d_offset: int
+
+    def __post_init__(self):
+        """Check d once, here (the layout checked its own arrays), so
+        that a push checks only its per-call arguments."""
+        if self.d.dtype != torch.float32 or self.d.dim() != 1 or \
+                not self.d.is_contiguous() or \
+                self.d.device != self.layout.device:
+            raise ValueError("a Slab's d must be a contiguous float32 "
+                             "vector on its layout's device")
+        if self.start < 0 or self.start < self.d_offset:
+            raise ValueError(f"a Slab starts at a row >= 0 and >= its "
+                             f"d_offset: start {self.start}, d_offset "
+                             f"{self.d_offset}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.device
 
 
 def prepare_rows(ku: torch.Tensor, xu: torch.Tensor, d: torch.Tensor,
@@ -100,19 +138,6 @@ def level_runs_plain(keys: torch.Tensor, n: int, l_max: int):
     return runs, last
 
 
-def slab_rows(ku: torch.Tensor, xu: torch.Tensor, n: int, l_max: int):
-    """The query rows (B, W) as the slab step reads them: keys sorted per
-    row (PAD last) and the values in the same order, both contiguous;
-    their level runs (B, l_max + 2) int32 (:func:`level_runs_plain`);
-    and the highest level that holds a seed in any row (-1 for none),
-    above which a push from a zero frontier stays exactly zero."""
-    keys, perm = torch.sort(ku, dim=1, stable=True)
-    runs, last = level_runs_plain(keys, n, l_max)
-    return (keys.contiguous(), xu.gather(1, perm).contiguous(),
-            runs.int().contiguous(),
-            int(last.max()) if last.numel() else -1)
-
-
 def horner_slab_step_plain(x, layout: SpmmLayout, keys, vals, d,
                            level: int, tau: float, *, n: int,
                            slab_start: int, d_offset: int,
@@ -141,3 +166,69 @@ def horner_slab_step_plain(x, layout: SpmmLayout, keys, vals, d,
                     vals[b_idx, j_idx] * d[kk - d_offset])
     res = acc + seed.view(n_loc, B)
     return res if out is None else out.copy_(res)
+
+
+def rows_by_owner(rows, us: torch.Tensor):
+    """The query rows (B, W) of the ids ``us``, each read from the
+    segment (keys, vals, base) of the row source ``rows`` that holds it
+    (ids [base, base + len(keys)), every segment on ``us``'s device); an
+    id that no segment holds gets an all-PAD row. What the kernel's
+    prologue reads through the ids."""
+    B = us.shape[0]
+    W = rows[0][0].shape[1] if rows else 0
+    ku = torch.full((B, W), INT32_PAD_KEY, dtype=torch.int32,
+                    device=us.device)
+    xu = torch.zeros((B, W), dtype=torch.float32, device=us.device)
+    for keys, vals, base in rows:
+        u = us.long() - int(base)
+        mine = ((u >= 0) & (u < keys.shape[0]))[:, None]
+        uc = u.clamp(0, keys.shape[0] - 1)
+        ku = torch.where(mine, keys[uc], ku)
+        xu = torch.where(mine, vals[uc], xu)
+    return ku, xu
+
+
+def top_level(keys: torch.Tensor, n: int, l_max: int) -> int:
+    """The highest level (key // n, at most l_max) that holds a key in
+    the rows ``keys``, -1 for none: above it a push from a zero frontier
+    stays exactly zero (one host sync)."""
+    lv = keys.long() // n
+    lv = torch.where((keys == INT32_PAD_KEY) | (lv > l_max), -1, lv)
+    return int(lv.max()) if lv.numel() else -1
+
+
+def horner_push_slabs_plain(rows, us, slabs, outs, tau: float, *, n: int,
+                            l_max: int, hi: int | None = None, lo: int = 0,
+                            bf16_frontier: bool = False,
+                            n_rows: int | None = None,
+                            workspace: torch.Tensor | None = None) -> None:
+    """The plain version of ``horner_push.horner_push_slabs``, with the
+    same arguments: the rows by owner (:func:`rows_by_owner`), the top
+    level (:func:`top_level`), then for each level of [min(hi, top) ..
+    lo] one :func:`horner_slab_step_plain` a slab -- from the frontier
+    buffer (level + 1) & 1 below the top, from zero at it -- written to
+    buffer level & 1 at the slab's global rows (through bfloat16 under
+    ``bf16_frontier``), or at level 0 into the slab's ``outs``."""
+    B = us.shape[0]
+    hi = l_max if hi is None else hi
+    if n_rows is None:
+        n_rows = max(sl.start + sl.layout.n for sl in slabs)
+    dev = slabs[0].device
+    if workspace is None:
+        workspace = torch.zeros(2 * n_rows * B, dtype=torch.float32,
+                                device=dev)
+    front = workspace[:2 * n_rows * B].view(2, n_rows, B)
+    ku, xu = rows_by_owner(rows, us)
+    start = max(top_level(ku, n, l_max), 0)
+    for level in range(min(hi, start), lo - 1, -1):
+        x = front[(level + 1) & 1] if level < start else None
+        for sl, out in zip(slabs, outs):
+            res = horner_slab_step_plain(
+                x, sl.layout, ku, xu, sl.d, level, tau, n=n,
+                slab_start=sl.start, d_offset=sl.d_offset)
+            if level == 0:
+                out.copy_(res)
+            else:
+                if bf16_frontier:
+                    res = res.to(torch.bfloat16).float()
+                front[level & 1, sl.start:sl.start + sl.layout.n] = res

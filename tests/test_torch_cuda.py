@@ -18,12 +18,13 @@ from repro_torch.kernels.cin.cin import (depth_split, split_weights,
                                          split_weights_on_card)
 from repro_torch.graph import generators
 from repro_torch.core import hp_index
-from repro_torch.core.single_source import Slab, slab_horner_push
-from repro_torch.kernels.horner_push import (horner_push_rows,
+from repro_torch.core.single_source import slab_horner_push
+from repro_torch.kernels.horner_push import (MAX_SLABS, Slab,
+                                             horner_push_rows,
                                              horner_push_rows_plain,
-                                             horner_push_slab_step,
-                                             horner_slab_step_plain,
-                                             persistent_grid, slab_rows,
+                                             horner_push_slabs,
+                                             horner_push_slabs_plain,
+                                             persistent_grid,
                                              workspace_numel)
 from repro_torch.kernels.hp_join import hp_join, hp_join_plain
 from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout,
@@ -648,11 +649,11 @@ def test_prsim_equals_sling_on_card(card, n, eps):
 
 
 # ----------------------------------------------------------------------
-# the slab step: one Horner level on one node slab (the sharded push)
+# the slab push: every level over every slab of a device in one launch
 # ----------------------------------------------------------------------
 def _slabs_on_card(case, n, S, card):
-    """The case's graph cut into S node slabs on the card, d sliced with
-    them (d_offset = the slab's start)."""
+    """The case's graph cut into S node slabs on the card (the last one
+    padded past n), d sliced with them (d_offset = the slab's start)."""
     n_pad, n_loc = hp_index.shard_layout(n, S)
     d = np.zeros(n_pad, np.float32)
     d[:n] = case["d"]
@@ -668,54 +669,73 @@ def _slabs_on_card(case, n, S, card):
     return slabs
 
 
+def _slab_launch(push, rows, us, slabs, tau, n, l_max, **kw):
+    """One call of ``push`` (the kernel's wrapper or its plain version)
+    over every slab: the (rows, B) node-major result."""
+    B = us.shape[0]
+    n_rows = sum(sl.layout.n for sl in slabs)
+    full = torch.full((n_rows, B), float("nan"), device=us.device)
+    push(rows, us, slabs, [full[sl.start:sl.start + sl.layout.n]
+                           for sl in slabs], tau, n=n, l_max=l_max,
+         n_rows=n_rows, **kw)
+    return full
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 8, 9, 64])
-@pytest.mark.parametrize("first", [True, False])
-def test_slab_step_matches_plain_on_card(card, B, first):
-    """One level on each of 3 slabs of a graph with hubs above the heavy
-    split (mid, wide and big tiers), duplicate keys in the rows, from a
-    random gathered frontier (some entries under tau) or, at the first
-    level, none; batch widths of 1 and 4 columns a thread."""
-    rng = np.random.default_rng(B + first)
-    n, l_max = 500, 6
-    case = table_case(rng, n=n, rows=B, W=40, l_max=l_max, m=6 * n,
-                      hubs=(0, 7, 7, 19, 250, 499), dup=True)
-    slabs = _slabs_on_card(case, n, 3, card)
-    keys, vals, runs, _ = slab_rows(
-        torch.as_tensor(case["ku"], device=card),
-        torch.as_tensor(case["xu"], device=card), n, l_max)
-    x = None if first else torch.as_tensor(
-        rng.uniform(0, 2e-4, (sum(sl.layout.n for sl in slabs), B)
-                    ).astype(np.float32), device=card)
+@pytest.mark.parametrize("S", [1, 3, 4])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_slab_push_matches_plain_on_card(card, B, S):
+    """``horner_push_slabs`` over S slabs of a graph whose hubs lie in
+    every tier (one above the big tier's 128 in-edges), with pad rows
+    past n and duplicate keys, the rows read through the ids from S
+    table segments: within ATOL of the plain version, one launch a
+    push, equal bits across two launches, and the levels launched one
+    at a time (ranges of one sharing the frontier) equal to the one
+    launch bit for bit."""
+    rng = np.random.default_rng(B * 10 + S)
+    n, l_max = 502, 6
+    case = table_case(rng, n=n, rows=n, W=40, l_max=l_max, m=6 * n,
+                      hubs=(0, 7, 7, 7, 19, 250, 501), dup=True)
+    slabs = _slabs_on_card(case, n, S, card)
+    keys, vals = (torch.as_tensor(case[k], device=card) for k in ("ku", "xu"))
+    n_loc = slabs[0].layout.n
+    rows = [(keys[s * n_loc:(s + 1) * n_loc], vals[s * n_loc:(s + 1) * n_loc],
+             s * n_loc) for s in range(S)]
+    us = torch.as_tensor(np.r_[n - 1, rng.integers(0, n, B - 1)],
+                         device=card)
     tau = float(case["tau"])
-    for level in range(l_max + 1):
-        for sl in slabs:
-            before = horner_push_slab_step.launches
-            got = horner_push_slab_step(x, sl.layout, keys, vals, runs,
-                                        sl.d, level, tau, n=n,
-                                        slab_start=sl.start,
-                                        d_offset=sl.d_offset, l_max=l_max)
-            assert horner_push_slab_step.launches == before + 1
-            want = horner_slab_step_plain(x, sl.layout, keys, vals, sl.d,
-                                          level, tau, n=n,
-                                          slab_start=sl.start,
-                                          d_offset=sl.d_offset)
-            np.testing.assert_allclose(got.cpu().numpy(),
-                                       want.cpu().numpy(), atol=ATOL, rtol=0)
-            again = horner_push_slab_step(x, sl.layout, keys, vals, runs,
-                                          sl.d, level, tau, n=n,
-                                          slab_start=sl.start,
-                                          d_offset=sl.d_offset, l_max=l_max)
-            assert torch.equal(got, again)
+    before = horner_push_slabs.launches
+    got = _slab_launch(horner_push_slabs, rows, us, slabs, tau, n, l_max)
+    assert horner_push_slabs.launches == before + 1
+    want = _slab_launch(horner_push_slabs_plain, rows, us, slabs, tau, n,
+                        l_max)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=ATOL, rtol=0)
+    assert torch.equal(got, _slab_launch(horner_push_slabs, rows, us, slabs,
+                                         tau, n, l_max))
+    n_rows = sum(sl.layout.n for sl in slabs)
+    ws = torch.full((workspace_numel(n_rows, B, l_max),), float("nan"),
+                    device=card)
+    outs = [torch.empty((sl.layout.n, B), device=card) for sl in slabs]
+    for level in range(l_max, -1, -1):
+        horner_push_slabs(rows, us, slabs, outs, tau, n=n, l_max=l_max,
+                          hi=level, lo=level, n_rows=n_rows, workspace=ws)
+    assert torch.equal(torch.cat(outs), got)
+    bf = _slab_launch(horner_push_slabs, rows, us, slabs, tau, n, l_max,
+                      bf16_frontier=True)
+    bf_plain = _slab_launch(horner_push_slabs_plain, rows, us, slabs, tau,
+                            n, l_max, bf16_frontier=True).cpu()
+    assert torch.all((bf.cpu() - bf_plain).abs() <= 0.01 * bf_plain + 1e-6)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 2, 4])
 @pytest.mark.parametrize("B", [8, 9])
 def test_sharded_push_matches_the_persistent_push_on_card(card, S, B):
-    """The whole push over S slabs on one card (all-gathered between
-    levels) on the kernel and on the plain slab step, against the
-    single-device persistent kernel on the same rows."""
+    """The whole push over S slabs on one card, from fetched rows, on the
+    kernel (one launch) and on the plain version, against the
+    single-device persistent push on the same rows."""
     rng = np.random.default_rng(S * 10 + B)
     n, l_max = 500, 6
     case = table_case(rng, n=n, rows=200, W=40, l_max=l_max, m=6 * n,
@@ -727,13 +747,12 @@ def test_sharded_push_matches_the_persistent_push_on_card(card, S, B):
     slabs = _slabs_on_card(case, n, S, card)
     outs = {}
     for backend in ("kernel", "plain"):
-        before = horner_push_slab_step.launches
+        before = horner_push_slabs.launches
         got = slab_horner_push(keys[us], vals[us], slabs, tau, n=n,
                                l_max=l_max, backend=backend)
         outs[backend] = torch.cat(got)[:n].t().cpu().numpy()
-        ran = horner_push_slab_step.launches - before
-        assert ran == (0 if backend == "plain" else S * (
-            slab_rows(keys[us], vals[us], n, l_max)[3] + 1))
+        assert horner_push_slabs.launches - before == (
+            1 if backend == "kernel" else 0)
     lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
     whole = horner_push_rows(keys, vals, d, us, lay, tau,
                              l_max=l_max).cpu().numpy()
@@ -743,44 +762,113 @@ def test_sharded_push_matches_the_persistent_push_on_card(card, S, B):
 
 
 @pytest.mark.cuda
-def test_slab_step_at_the_enron_size_on_card(card, enron_case):
-    """Four slabs of the Enron regime at B = 8: the sharded push on the
-    kernel against the persistent push."""
+def test_slab_push_at_the_enron_size_on_card(card, enron_case):
+    """Four slabs of the Enron regime at B = 8: the sharded push, one
+    launch, against the persistent push."""
     case, n, l_max = enron_case
     keys, vals, d = (torch.as_tensor(case[k], device=card)
                      for k in ("ku", "xu", "d"))
     us = torch.arange(8, device=card)
     tau = float(case["tau"])
+    before = horner_push_slabs.launches
     got = torch.cat(slab_horner_push(keys[us], vals[us],
                                      _slabs_on_card(case, n, 4, card), tau,
                                      n=n, l_max=l_max, backend="kernel"))
+    assert horner_push_slabs.launches == before + 1
     lay = SpmmLayout.from_edges(case["src"], case["dst"], case["w"], n, card)
     whole = horner_push_rows(keys, vals, d, us, lay, tau, l_max=l_max)
     np.testing.assert_allclose(got[:n].t().cpu().numpy(),
                                whole.cpu().numpy(), atol=ATOL, rtol=0)
 
 
+def _sharded(card, devices):
+    from repro_torch.core import build, shard_query
+    g = generators.barabasi_albert(300, 4, seed=3, directed=False)
+    idx = build.build_index(g, eps=0.1, exact_d=True, device=card)
+    return g, idx, shard_query.shard_index(
+        idx, g, shard_query.serving_mesh(len(devices), devices=devices))
+
+
 @pytest.mark.cuda
-def test_slab_step_raises_without_library_on_card(card, monkeypatch,
+def test_sharded_index_is_one_launch_a_push_on_card(card):
+    """A ShardedIndex with every shard on the card: a single-source and
+    a top-k batch are one ``horner_push_slabs`` launch each (the rows
+    read from the shards' tables, no row fetch, no persistent push),
+    within ATOL of the one-device answers."""
+    from repro_torch.core import shard_query
+    from repro_torch.core.single_source import single_source_device
+    g, idx, si = _sharded(card, [card] * 4)
+    us = np.arange(0, 300, 37, dtype=np.int32)
+    launches = (horner_push_slabs.launches, horner_push_rows.launches)
+    got = shard_query.sharded_single_source(si, us)
+    assert horner_push_slabs.launches == launches[0] + 1
+    shard_query.sharded_topk(si, us, 10)
+    assert horner_push_slabs.launches == launches[0] + 2
+    assert horner_push_rows.launches == launches[1]
+    np.testing.assert_allclose(got, single_source_device(idx, g, us,
+                                                         device=card),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mixed_mesh_runs_the_exchange_on_card(card):
+    """A mesh of two shards on the card and two on the CPU takes the
+    route of several devices -- one launch a level on the card, the
+    plain version on the CPU, the frontier exchanged between them --
+    within ATOL of every shard on the card; its top-k, the merge of each
+    slab's candidates across devices, within ATOL of the one-device
+    top-k, ids equal outside near-ties, at k below and above n_loc."""
+    from repro_torch.core import shard_query
+    g, idx, one = _sharded(card, [card] * 4)
+    *_, mixed = _sharded(card, [card, card, "cpu", "cpu"])
+    us = np.arange(3, 300, 41, dtype=np.int32)
+    before = horner_push_slabs.launches
+    got = shard_query.sharded_single_source(mixed, us)
+    assert horner_push_slabs.launches > before + 1
+    dense = shard_query.sharded_single_source(one, us)
+    np.testing.assert_allclose(got, dense, atol=ATOL, rtol=0)
+    rows = np.arange(len(us))[:, None]
+    for k in (10, one.n_loc + 5):
+        mv, mi = shard_query.sharded_topk(mixed, us, k)
+        ov, oi = shard_query.sharded_topk(one, us, k)
+        np.testing.assert_allclose(mv, ov, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(dense[rows, mi], dense[rows, oi],
+                                   atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_slab_push_refuses_above_the_cap_on_card(card):
+    lay = SpmmLayout.from_edges([0], [0], [0.5], 1, card)
+    many = [Slab(layout=lay, d=torch.ones(1, device=card), start=i,
+                 d_offset=i) for i in range(MAX_SLABS + 1)]
+    keys = torch.zeros((2, 4), dtype=torch.int32, device=card)
+    us = torch.arange(2, device=card)
+    before = horner_push_slabs.launches
+    with pytest.raises(ValueError, match=f"1 to {MAX_SLABS} slabs"):
+        horner_push_slabs([(keys, keys.float(), 0)], us, many,
+                          [torch.empty((1, 2), device=card) for _ in many],
+                          0.0, n=MAX_SLABS + 1, l_max=2)
+    assert horner_push_slabs.launches == before
+
+
+@pytest.mark.cuda
+def test_slab_push_raises_without_library_on_card(card, monkeypatch,
                                                   tmp_path):
-    """With no nvcc and no built library the slab step raises on a CUDA
+    """With no nvcc and no built library the slab push raises on a CUDA
     tensor, and so does a sharded index on the card: no plain
     fallback."""
-    from repro_torch.core import build, shard_query
+    from repro_torch.core import shard_query
     hp_mod = importlib.import_module(
         "repro_torch.kernels.horner_push.horner_push")
-    g = generators.barabasi_albert(60, 3, seed=1, directed=False)
-    idx = build.build_index(g, eps=0.2, exact_d=True, device=card)
-    si = shard_query.shard_index(idx, g, shard_query.serving_mesh(
-        2, devices=[card, card]))
+    g, idx, si = _sharded(card, [card, card])
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
-    monkeypatch.setattr(hp_mod, "_slab_launch", [])
-    before = horner_push_slab_step.launches
+    monkeypatch.setattr(hp_mod, "_launch", [])
+    before = horner_push_slabs.launches
     with pytest.raises(RuntimeError, match="nvcc"):
         shard_query.sharded_single_source(si, [0, 5])
     with pytest.raises(RuntimeError, match="nvcc"):
         shard_query.sharded_topk(si, [0, 5], 4)
-    assert horner_push_slab_step.launches == before
+    assert horner_push_slabs.launches == before

@@ -7,8 +7,9 @@ counterpart of the reference's forced host devices.
 The same seeded inputs go through both packages. The reference's own
 S > 1 answers need forced host devices, which must be set before JAX
 starts, so one subprocess computes them (``ref_4way``); everything else
-runs here. The CUDA slab-step kernel is held against its plain version
-in tests/test_torch_cuda.py (on the card only).
+runs here. The CUDA kernel of the slab push (``horner_push_slabs``) is
+held against its plain version in tests/test_torch_cuda.py (on the card
+only).
 """
 import dataclasses
 import os
@@ -44,10 +45,17 @@ from repro_torch.core import walks as twalks
 from repro_torch.core.single_source import (batched_single_source_sharded,
                                             pod_slabs,
                                             prune_tau, single_source_batch,
-                                            single_source_device)
+                                            single_source_device,
+                                            slab_horner_push)
 from repro_torch.join import JoinConfig, run_join
-from repro_torch.kernels.horner_push import (horner_slab_step_plain,
-                                             slab_rows)
+from repro_torch.kernels import horner_push as hpk
+from repro_torch.kernels.horner_push import (MAX_SEGMENTS, MAX_SLABS, Slab,
+                                             frontier_view,
+                                             horner_push_slabs,
+                                             horner_push_slabs_plain,
+                                             horner_slab_step_plain,
+                                             rows_by_owner, top_level,
+                                             workspace_numel)
 from repro_torch.kernels.spmv_ell import SpmmLayout
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
@@ -228,6 +236,24 @@ def test_topk_ties_go_to_the_smaller_id_across_shards():
         assert (i[b][tie] < i[b][tie + 1]).all()
 
 
+@pytest.mark.parametrize("S", [3, 4])
+def test_topk_merge_across_devices_equals_one_sort(S):
+    """The merge that shards on several devices take -- each slab's
+    stable candidates, pad rows masked, a second stable sort -- equals
+    the one stable top-k that shards on one device take, ids and scores,
+    on a star whose leaves tie exactly."""
+    from repro_torch.core.topk import stable_topk
+    from repro_torch.graph import generators
+    star = generators.barabasi_albert(40, 1, seed=0, directed=False)
+    idx = tbuild.build_index(star, eps=0.1, exact_d=True, device="cpu")
+    si = tsq.shard_index(idx, star, _mesh(S))
+    outs = tsq.sharded_scores(si, np.arange(6))
+    for k in (1, 5, 12, 40):
+        v, i = tsq._merge_topk(outs, si.n, si.n_loc, k, "cpu")
+        wv, wi = stable_topk(torch.cat(outs)[:si.n].t(), k)
+        assert torch.equal(v, wv) and torch.equal(i, wi)
+
+
 def test_single_source_batch_with_a_mesh_matches_reference():
     g, ri, tg, ti = _cell("er")
     got = single_source_batch(ti, tg, US, mesh=_mesh(3))
@@ -280,13 +306,11 @@ def _ref_slab_push(ku, xu, d, blocks, tau, n, l_max, n_loc):
     return np.concatenate(acc, axis=1)
 
 
-@pytest.mark.parametrize("S", [1, 2, 3])
-@pytest.mark.parametrize("name", ["powerlaw", "multigraph", "sinks"])
-def test_slab_step_matches_the_reference_slab_push(name, S):
-    """The plain slab step, level by level over the slabs with the
-    frontier gathered between levels, against a NumPy transcription of
-    the reference's slab push on the same rows and dst-partitioned
-    edges."""
+def _slab_case(name, S):
+    """The reference's rows of US and its dst-partitioned edges on a zoo
+    graph cut into S slabs (the last padded past n), as the port's
+    slabs on the CPU (d sliced with them, d_offset = the slab's
+    start)."""
     g, ri, tg, ti = _cell(name)
     n_pad, n_loc = thp.shard_layout(g.n, S)
     ku = ri.hp.keys[US]
@@ -295,39 +319,207 @@ def test_slab_step_matches_the_reference_slab_push(name, S):
     dpad[:g.n] = ri.d
     d = [dpad[s * n_loc:(s + 1) * n_loc] for s in range(S)]
     cap = rsq.required_edge_cap(g, S, n_loc)
-    bs, bd, bw = rsq.partition_edges(g, ri.plan.sqrt_c, S, n_loc, cap)
+    blocks = list(zip(*rsq.partition_edges(g, ri.plan.sqrt_c, S, n_loc,
+                                           cap)))
+    slabs = [Slab(layout=SpmmLayout.from_edges(s_, d_, w_, n_loc, "cpu"),
+                  d=torch.as_tensor(d[s]), start=s * n_loc,
+                  d_offset=s * n_loc)
+             for s, (s_, d_, w_) in enumerate(blocks)]
     tau = np.float32(prune_tau(ri.plan))
-    want = _ref_slab_push(ku, xu, d, list(zip(bs, bd, bw)), tau, g.n,
-                          ri.plan.l_max, n_loc)
-    keys, vals, _, top = slab_rows(torch.as_tensor(ku), torch.as_tensor(xu),
-                                   g.n, ri.plan.l_max)
-    layouts = [SpmmLayout.from_edges(s_, d_, w_, n_loc, "cpu")
-               for s_, d_, w_ in zip(bs, bd, bw)]
+    return g, ri, ku, xu, d, blocks, slabs, tau, n_loc
+
+
+def _per_level_push(ku, xu, slabs, tau, n, l_max, bf16=False):
+    """The PR-21 route on the plain step: every level on every slab from
+    l_max, the slabs all-gathered (concatenated) between levels, as
+    bfloat16 under ``bf16``."""
+    keys, vals = torch.as_tensor(ku), torch.as_tensor(xu)
     x = None
-    for level in range(ri.plan.l_max, -1, -1):
+    for level in range(l_max, -1, -1):
         outs = [horner_slab_step_plain(
-            x, lay, keys, vals, torch.as_tensor(d[s]), level, float(tau),
-            n=g.n, slab_start=s * n_loc, d_offset=s * n_loc)
-            for s, lay in enumerate(layouts)]
+            x, sl.layout, keys, vals, sl.d, level, float(tau), n=n,
+            slab_start=sl.start, d_offset=sl.d_offset) for sl in slabs]
         x = torch.cat(outs)
-    got = x.t().numpy()
+        if bf16 and level > 0:
+            x = x.to(torch.bfloat16).float()
+    return x
+
+
+def _slabs_plain(ku, xu, slabs, tau, n, l_max, **kw):
+    """``horner_push_slabs_plain`` over every level, the rows as one
+    segment: the (rows, B) node-major result."""
+    B = len(ku)
+    n_rows = sum(sl.layout.n for sl in slabs)
+    full = torch.empty((n_rows, B))
+    horner_push_slabs_plain(
+        [(torch.as_tensor(ku), torch.as_tensor(xu), 0)], torch.arange(B),
+        slabs, [full[sl.start:sl.start + sl.layout.n] for sl in slabs],
+        float(tau), n=n, l_max=l_max, **kw)
+    return full
+
+
+@pytest.mark.parametrize("S", [1, 2, 3])
+@pytest.mark.parametrize("name", ["powerlaw", "multigraph", "sinks"])
+def test_slab_step_matches_the_reference_slab_push(name, S):
+    """``horner_push_slabs_plain`` -- the plain version of the slab
+    kernel, every level over every slab into the shared frontier --
+    against the per-level route on the plain step (the slabs gathered
+    between levels) and against a NumPy transcription of the
+    reference's slab push on the same rows and dst-partitioned edges."""
+    g, ri, ku, xu, d, blocks, slabs, tau, n_loc = _slab_case(name, S)
+    l_max = ri.plan.l_max
+    want = _ref_slab_push(ku, xu, d, blocks, tau, g.n, l_max, n_loc)
+    got = _slabs_plain(ku, xu, slabs, tau, g.n, l_max)
+    per_level = _per_level_push(ku, xu, slabs, tau, g.n, l_max)
+    np.testing.assert_allclose(got.numpy(), per_level.numpy(), atol=ATOL,
+                               rtol=0)
+    got = got.t().numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got[:, :g.n], r_source(ri, g, np.asarray(US)),
                                atol=ATOL, rtol=0)
 
 
 def test_slab_rows_find_the_top_level():
-    """Levels above the highest seeded one stay exactly zero, which is
-    where the sharded push starts."""
-    g, ri, tg, ti = _cell("dag")
-    keys, vals, runs, top = slab_rows(torch.as_tensor(ri.hp.keys[US]),
-                                      torch.as_tensor(ri.vals_f32()[US]),
-                                      g.n, ri.plan.l_max)
-    live = ri.hp.keys[US][ri.hp.keys[US] != thp.INT32_PAD_KEY]
+    """The push starts at the highest level that holds a seed: levels
+    above it are exactly zero, so launching a range from l_max gives the
+    bits of one from the top; and the levels launched one at a time
+    (ranges of one sharing the frontier) give the bits of one call over
+    all of them."""
+    g, ri, ku, xu, d, blocks, slabs, tau, n_loc = _slab_case("dag", 2)
+    l_max = ri.plan.l_max
+    live = ku[ku != thp.INT32_PAD_KEY]
+    top = top_level(torch.as_tensor(ku), g.n, l_max)
     assert top == int((live // g.n).max())
-    assert runs.dtype == torch.int32 and runs.shape == (len(US),
-                                                        ri.plan.l_max + 2)
-    assert (torch.diff(keys.long(), dim=1) >= 0).all()
+    assert top_level(torch.full((3, 4), thp.INT32_PAD_KEY), g.n, l_max) == -1
+    whole = _slabs_plain(ku, xu, slabs, tau, g.n, l_max)
+    B, n_rows = len(US), 2 * n_loc
+    ws = torch.full((workspace_numel(n_rows, B, l_max),), float("nan"))
+    outs = [torch.empty((n_loc, B)) for _ in slabs]
+    rows = [(torch.as_tensor(ku), torch.as_tensor(xu), 0)]
+    for level in range(l_max, -1, -1):
+        horner_push_slabs_plain(rows, torch.arange(B), slabs, outs,
+                                float(tau), n=g.n, l_max=l_max, hi=level,
+                                lo=level, n_rows=n_rows, workspace=ws)
+        if level > top:    # nothing ran: the frontier is untouched
+            assert torch.isnan(frontier_view(ws, n_rows, B)).all()
+    assert torch.equal(torch.cat(outs), whole)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_row_source_by_owner_equals_the_psum_fetch(S):
+    """The kernel's row source -- each id's row read from the shard that
+    owns it -- gives the psum row fetch's rows bit for bit."""
+    g, ri, tg, ti = _cell("powerlaw")
+    si = tsq.shard_index(ti, tg, _mesh(S))
+    us = torch.as_tensor(np.r_[US, g.n - 1, 5, 5], dtype=torch.int64)
+    rows = [(k, v, s * si.n_loc) for s, (k, v) in enumerate(zip(si.keys,
+                                                              si.vals))]
+    ku, xu = rows_by_owner(rows, us)
+    want_k, want_x = tsq._query_rows(si, us)
+    assert torch.equal(ku, want_k)
+    assert torch.equal(xu.view(torch.int32), want_x.view(torch.int32))
+    # an id no segment holds is an empty row
+    ku, _ = rows_by_owner(rows[:1], us)
+    assert (ku[us >= si.n_loc] == thp.INT32_PAD_KEY).all()
+
+
+@pytest.mark.parametrize("name", ["powerlaw", "sinks"])
+def test_bf16_frontier_matches_the_bf16_gather(name):
+    """``bf16_frontier``: every frontier value rounded through bfloat16
+    where it is written gives the bits of the per-level route whose
+    gather sent bfloat16; the result of level 0 stays float32."""
+    g, ri, ku, xu, d, blocks, slabs, tau, n_loc = _slab_case(name, 3)
+    l_max = ri.plan.l_max
+    got = _slabs_plain(ku, xu, slabs, tau, g.n, l_max, bf16_frontier=True)
+    want = _per_level_push(ku, xu, slabs, tau, g.n, l_max, bf16=True)
+    assert torch.equal(got, want)
+    exact = _slabs_plain(ku, xu, slabs, tau, g.n, l_max)
+    assert not torch.equal(got, exact)
+    assert torch.all((got - exact).abs() <= 0.01 * exact + 1e-7)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Placed(Slab):
+    """A slab that reports a device of its own while its tensors stay on
+    the CPU: two such "devices" run the route of a mesh of several."""
+    where: torch.device = torch.device("cpu")
+
+    @property
+    def device(self) -> torch.device:
+        return self.where
+
+
+def _recording(monkeypatch):
+    calls = []
+    real = hpk.horner_push_slabs_plain
+
+    def record(rows, us, slabs, outs, tau, **kw):
+        calls.append((slabs[0].device, len(slabs), kw["hi"], kw["lo"]))
+        return real(rows, us, slabs, outs, tau, **kw)
+
+    monkeypatch.setattr(hpk, "horner_push_slabs_plain", record)
+    return calls
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_slab_push_routes_by_device(monkeypatch, bf16):
+    """Every slab on one device: one call over every level. Slabs on two
+    devices: one call a level a device from the top level, the frontier
+    exchanged between them, with the one-device route's bits."""
+    g, ri, ku, xu, d, blocks, slabs, tau, n_loc = _slab_case("powerlaw", 4)
+    l_max = ri.plan.l_max
+    keys, vals = torch.as_tensor(ku), torch.as_tensor(xu)
+    calls = _recording(monkeypatch)
+    one = slab_horner_push(keys, vals, slabs, float(tau), n=g.n,
+                           l_max=l_max, bf16_frontier=bf16)
+    assert calls == [(torch.device("cpu"), 4, l_max, 0)]
+    calls.clear()
+    two = [_Placed(**{f.name: getattr(sl, f.name)
+                      for f in dataclasses.fields(Slab)},
+                   where=torch.device("cpu", s // 2))
+           for s, sl in enumerate(slabs)]
+    got = slab_horner_push(keys, vals, two, float(tau), n=g.n, l_max=l_max,
+                           bf16_frontier=bf16)
+    top = top_level(keys, g.n, l_max)
+    assert calls == [(torch.device("cpu", i), 2, level, level)
+                     for level in range(top, -1, -1) for i in (0, 1)]
+    assert torch.equal(torch.cat(got), torch.cat(one))
+
+
+def test_slab_push_refuses_more_slabs_than_the_cap():
+    """Above ``MAX_SLABS`` slabs (or ``MAX_SEGMENTS`` row segments) a
+    launch the kernel's route raises before it builds anything; it never
+    degrades to another route. The plain version has no parameter table
+    and takes them all."""
+    from repro_torch.kernels.horner_push.horner_push import _check_caps
+    lay = SpmmLayout.from_edges([0], [0], [0.5], 1, "cpu")
+    many = [Slab(layout=lay, d=torch.ones(1), start=i, d_offset=i)
+            for i in range(MAX_SLABS + 1)]
+    row = (torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 1)), 0)
+    with pytest.raises(ValueError, match=f"1 to {MAX_SLABS} slabs"):
+        _check_caps(many, [row])
+    with pytest.raises(ValueError, match=f"at most {MAX_SEGMENTS} row"):
+        _check_caps(many[:1], [row] * (MAX_SEGMENTS + 1))
+    _check_caps(many[:MAX_SLABS], [row] * MAX_SEGMENTS)
+
+
+@pytest.mark.parametrize("name", ["powerlaw", "sinks"])
+def test_cpu_mesh_above_the_slab_cap_matches_the_per_level_route(name):
+    """A CPU mesh of more shards than the kernel's slab cap runs the
+    plain version over all of them: the slab push equals the per-level
+    route, and the sharded engine's answers the one-device push's."""
+    S = MAX_SLABS + 1
+    g, ri, ku, xu, d, blocks, slabs, tau, n_loc = _slab_case(name, S)
+    l_max = ri.plan.l_max
+    np.testing.assert_allclose(
+        _slabs_plain(ku, xu, slabs, tau, g.n, l_max).numpy(),
+        _per_level_push(ku, xu, slabs, tau, g.n, l_max).numpy(), atol=ATOL,
+        rtol=0)
+    _, _, tg, ti = _cell(name)
+    si = tsq.shard_index(ti, tg, _mesh(S))
+    np.testing.assert_allclose(tsq.sharded_single_source(si, US),
+                               single_source_device(ti, tg, US, device="cpu"),
+                               atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
