@@ -125,6 +125,28 @@ Phases (any failure raises and the script exits non-zero):
      engine, top-k ids equal outside near-ties; then the kernel and host
      launches of one sharded push (S = 4, B = 8) from a trace of ten,
      and the device's busy share;
+  3i. the paper's comparison and the sling-serve config at full size:
+     on ``barabasi_albert(3000, 4)`` (the reference benchmarks' largest
+     size) a SLING index at eps = 0.15, ``montecarlo.build(eps=0.15,
+     n_w_override=2000)`` and ``linearize.build(R=100)`` (T = 11, L =
+     3); per-query times of 200 pairs through ``query_pairs``,
+     ``query_pairs_kernel``, Monte Carlo and Linearize, and of 5
+     sources through ``single_source_device``, ``single_source_naive``
+     (n pair joins), Monte Carlo and Linearize; ``query_pairs_kernel``
+     and ``ops.spmm`` held to their ``_reference`` twins (TOL_KERNEL);
+     then on a 1,000-node twin every method's max error against host
+     ``power.all_pairs`` (SLING's must stay within eps; the others are
+     reported), Linearize's diagonal-dominance margin on ``cycle(4)``
+     (must be negative), ``estimate_simrank_by_walks`` on three pairs
+     within 0.02 of power and ``walk_positions`` (a stopped walk stays
+     stopped, each step to an in-neighbour). Last, ``sling_paper.
+     full()``: ``powerlaw_fast(10^6, k=16)``, a float32
+     ``build_index_scale`` at phase 3e's eps, and ``sling_serve_step``
+     on 1,024 seeded sources at l_max = 12 in one push launch (its
+     first 8 rows within TOL_KERNEL of the plain push, the result left
+     on the card), with its device time, bound and device peak. The
+     counters are zeroed before and read after each part; ``hp_join``,
+     ``spmm`` and ``horner_push`` must launch;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -208,6 +230,13 @@ N_PRIOR_USERS = 8
 QUANT_FRAC = 0.2       # eps share reserved for quantization (phase 3d)
 N_SCALE = 1_000_000    # phase 3e: benchmarks/bench_space.py:148 run_scale
 SCALE_EPS = 0.5        # its eps: the packed width stays ~64
+# phase 3i: the paper's competitors at the reference benchmarks' largest
+# size (benchmarks/bench_single_pair.py:17), errors on a smaller twin
+N_BASE, N_TWIN = 3_000, 1_000
+BASE_EPS = 0.15        # SLING's eps there (examples/sling_serve.py)
+MC_WALKS = 2_000       # Monte Carlo walks a node (n_w_override)
+LIN_R = 100            # Linearize's walks a node (T = 11, L = 3)
+N_PAIR_Q, N_SOURCE_Q = 200, 5
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -2215,6 +2244,300 @@ def slab_row(g, idx, eng, nodes, launches: int, dev) -> dict:
     return row
 
 
+def baselines_phase(dev) -> dict:
+    """Phase 3i's first three parts (see the module docstring): SLING
+    beside the paper's two competitors on BA(3,000), errors on a
+    1,000-node twin against host power, the walk oracles and the
+    kernel-level entry points. Returns the launches of the part."""
+    import numpy as np
+    import torch
+
+    from repro_torch.baselines import linearize, montecarlo, power
+    from repro_torch.core import build, walks
+    from repro_torch.core.single_source import (single_source_device,
+                                                single_source_naive)
+    from repro_torch.graph import csr, generators
+    from repro_torch.kernels.horner_push import horner_push_rows
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.hp_join.ops import (query_pairs_kernel,
+                                                 query_pairs_reference)
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.kernels.spmv_ell import ops as spmm_ops
+
+    kernels = {"hp_join": hp_join, "horner_push": horner_push_rows,
+               "spmm": spmm}
+    for kern in kernels.values():
+        kern.launches = 0
+    horner_push_rows.steps = 0
+    t_phase = time.perf_counter()
+
+    def methods(g):
+        """SLING, Monte Carlo and Linearize on ``g``, with build seconds."""
+        out, secs = {}, {}
+        for name, fn in (
+                ("sling", lambda: build.build_index(
+                    g, eps=BASE_EPS, seed=0, device=dev)),
+                ("mc", lambda: montecarlo.build(
+                    g, eps=BASE_EPS, seed=0, n_w_override=MC_WALKS,
+                    device=dev)),
+                ("linearize", lambda: linearize.build(
+                    g, R=LIN_R, seed=0, device=dev))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        return tuple(out.values()), secs
+
+    # ---- the competitors on BA(3,000) ---------------------------------
+    g = generators.barabasi_albert(N_BASE, 4, seed=0, directed=False)
+    (idx, mc, lin), secs = methods(g)
+    rng = np.random.default_rng(0)
+    us = rng.integers(0, g.n, N_PAIR_Q).astype(np.int32)
+    vs = rng.integers(0, g.n, N_PAIR_Q).astype(np.int32)
+    src = rng.choice(g.n, N_SOURCE_Q, replace=False)
+    pair_ms = {
+        "sling query_pairs": time_ms(
+            lambda: idx.query_pairs(us, vs, device=dev), 5) / N_PAIR_Q,
+        "sling query_pairs_kernel": time_ms(
+            lambda: query_pairs_kernel(idx, us, vs, device=dev),
+            5) / N_PAIR_Q,
+        "mc": time_ms(lambda: [montecarlo.query_pair(mc, int(u), int(v))
+                               for u, v in zip(us, vs)], 1) / N_PAIR_Q,
+        "linearize": time_ms(lambda: [
+            linearize.query_pair(lin, g, int(u), int(v))
+            for u, v in zip(us, vs)], 1) / N_PAIR_Q}
+    source_ms = {
+        "sling single_source_device": time_ms(lambda: [
+            single_source_device(idx, g, [u], device=dev) for u in src],
+            1) / N_SOURCE_Q,
+        "single_source_naive": time_ms(lambda: [
+            single_source_naive(idx, g, int(u), device=dev) for u in src],
+            1) / N_SOURCE_Q,
+        "mc": time_ms(lambda: [montecarlo.query_single_source(mc, int(u))
+                               for u in src], 1) / N_SOURCE_Q,
+        "linearize": time_ms(lambda: [
+            linearize.query_single_source(lin, g, int(u)) for u in src],
+            1) / N_SOURCE_Q}
+    print(f"[baselines] BA({g.n:,}, 4) m={g.m:,}: builds "
+          + ", ".join(f"{k} {v:.2f}s" for k, v in secs.items())
+          + f"; SLING eps={BASE_EPS} width {idx.hp.width} "
+          f"{idx.nbytes():,} bytes; Monte Carlo t={mc.t} n_w={mc.n_w} "
+          f"{mc.nbytes():,} bytes; Linearize T={lin.T} R={LIN_R} L=3; "
+          f"card {card_line()}")
+    print(f"[baselines] per pair query ({N_PAIR_Q} pairs): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in pair_ms.items()))
+    print(f"[baselines] per single-source query ({N_SOURCE_Q} sources): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in source_ms.items()))
+
+    # ---- the kernel-level entry points on that index --------------------
+    err_join = float(np.abs(query_pairs_kernel(idx, us, vs, device=dev)
+                            - query_pairs_reference(idx, us, vs,
+                                                    device=dev)).max())
+    w = csr.normalized_pull_weights(g, idx.plan.sqrt_c)
+    x = torch.rand((g.n, 64), generator=torch.Generator().manual_seed(0))
+    err_spmm = float((spmm_ops.spmm(x, g, w, device=dev)
+                      - spmm_ops.spmm_reference(x, g, w, device=dev)
+                      ).abs().max())
+    print(f"[entry] query_pairs_kernel vs query_pairs_reference "
+          f"({N_PAIR_Q} pairs): {err_join:.3g}; ops.spmm vs spmm_reference "
+          f"((n, 64)): {err_spmm:.3g} (TOL_KERNEL {TOL_KERNEL})")
+    if max(err_join, err_spmm) > TOL_KERNEL:
+        raise RuntimeError("a kernel-level entry disagrees with its plain "
+                           "twin")
+    del idx, mc, lin
+
+    # ---- errors on the 1,000-node twin against host power ---------------
+    g1 = generators.barabasi_albert(N_TWIN, 4, seed=0, directed=False)
+    t0 = time.perf_counter()
+    S = power.all_pairs(g1, c=0.6, iters=50)
+    t_power = time.perf_counter() - t0
+    (idx1, mc1, lin1), _ = methods(g1)
+    pu = rng.integers(0, g1.n, N_PAIR_Q)
+    pv = rng.integers(0, g1.n, N_PAIR_Q)
+    src1 = rng.choice(g1.n, N_SOURCE_Q, replace=False)
+    want = S[pu, pv]
+    pair_err = {
+        "sling": np.abs(idx1.query_pairs(pu, pv, device=dev) - want).max(),
+        "mc": max(abs(montecarlo.query_pair(mc1, int(u), int(v)) - s)
+                  for u, v, s in zip(pu, pv, want)),
+        "linearize": max(abs(linearize.query_pair(lin1, g1, int(u), int(v))
+                             - s) for u, v, s in zip(pu, pv, want))}
+    off = [np.arange(g1.n) != u for u in src1]
+    src_err = {
+        "sling": max(np.abs(r - S[u])[o].max() for u, r, o in zip(
+            src1, single_source_device(idx1, g1, src1, device=dev), off)),
+        "single_source_naive": max(np.abs(single_source_naive(
+            idx1, g1, int(u), device=dev) - S[u])[o].max()
+            for u, o in zip(src1, off)),
+        "mc": max(np.abs(montecarlo.query_single_source(mc1, int(u))
+                         - S[u]).max() for u in src1),
+        "linearize": max(np.abs(linearize.query_single_source(
+            lin1, g1, int(u)) - S[u]).max() for u in src1)}
+    margin = linearize.system_matrix_dd_margin(linearize.system_matrix(
+        generators.cycle(4), c=0.6, T=60, R=None, device=dev))
+    print(f"[baselines] twin BA({g1.n:,}, 4): power.all_pairs on the host "
+          f"{t_power:.2f}s; max error, {N_PAIR_Q} pairs: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in pair_err.items())
+          + f"; {N_SOURCE_Q} sources (SLING off the diagonal): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in src_err.items())
+          + f" (SLING's eps {BASE_EPS}); Linearize's system on cycle(4) "
+          f"diagonal-dominance margin {margin:.4g} (Appendix A: < 0)")
+    if max(pair_err["sling"], src_err["sling"],
+           src_err["single_source_naive"]) > BASE_EPS or margin >= 0:
+        raise RuntimeError(f"SLING outside eps, or cycle(4) diagonally "
+                           f"dominant: {pair_err} {src_err} {margin}")
+
+    # ---- the walk oracles on the card -----------------------------------
+    est = {(u, v): walks.estimate_simrank_by_walks(
+        g1, u, v, c=0.6, n_walks=20000, seed=0, device=dev)
+        for u, v in ((3, 11), (0, 1), (20, 40))}
+    gap = max(abs(e - S[u, v]) for (u, v), e in est.items())
+    dg = walks.DeviceGraph.from_graph(g1, dev)
+    traj = walks.walk_positions(
+        dg.in_ptr, dg.in_idx, dg.in_deg, torch.arange(4096, device=dev) %
+        g1.n, torch.Generator(device=dev).manual_seed(0), idx1.plan.sqrt_c,
+        20)
+    stopped = (traj == -1).to(torch.int8)
+    stays = bool((stopped[:, 1:] >= stopped[:, :-1]).all())
+    # each move a -> b is an in-edge of a: edge (b -> a) is in the graph
+    a, b = traj[:, :-1].long(), traj[:, 1:].long()
+    moved = b >= 0
+    ekey = torch.as_tensor(g1.edge_dst.astype(np.int64) * g1.n
+                           + g1.edge_src, device=dev).sort().values
+    q = a[moved] * g1.n + b[moved]
+    at = torch.searchsorted(ekey, q).clamp_(max=len(ekey) - 1)
+    in_nbr = bool((ekey[at] == q).all())
+    print(f"[oracles] estimate_simrank_by_walks (20,000 walk pairs) on "
+          f"(3, 11), (0, 1), (20, 40): "
+          + ", ".join(f"{e:.4f} vs {S[u, v]:.4f}" for (u, v), e in
+                      est.items())
+          + f"; max gap {gap:.4f} (bound 0.02, tests/test_walks.py:13); "
+          f"walk_positions (4,096 walks, 20 steps): a stopped walk stays "
+          f"stopped {stays}, {int(moved.sum()):,} steps, each to an "
+          f"in-neighbour {in_nbr}")
+    if gap >= 0.02 or not stays or not in_nbr:
+        raise RuntimeError("a walk oracle failed on the card")
+
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    launches["horner_push_steps"] = horner_push_rows.steps
+    print(f"[baselines] launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def sling_serve_phase(dev, tmp) -> tuple[dict, dict]:
+    """Phase 3i's last part, ``sling-serve`` at the config's full size
+    (see the module docstring): ``powerlaw_fast(cfg.n, k=cfg.m //
+    cfg.n)``, a float32 ``build_index_scale`` at phase 3e's eps, then
+    ``sling_serve_step(cfg)`` on ``cfg.batch`` seeded sources, one push
+    launch, its result left on the card. Returns the launches of the
+    part and the push's row (time, bound, error on its first 8 rows
+    against the plain push)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base as configs
+    from repro_torch.core import build
+    from repro_torch.core.index import SlingIndex
+    from repro_torch.graph import generators
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 horner_push_rows_plain,
+                                                 level_runs_plain,
+                                                 persistent_grid,
+                                                 workspace_numel)
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import SpmmLayout, spmm
+    from repro_torch.train import steps
+
+    kernels = {"hp_join": hp_join, "horner_push": horner_push_rows,
+               "spmm": spmm}
+    for kern in kernels.values():
+        kern.launches = 0
+    horner_push_rows.steps = 0
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get("sling-serve").full()
+    t0 = time.perf_counter()
+    g = generators.powerlaw_fast(cfg.n, k=cfg.m // cfg.n, seed=0)
+    t_gen = time.perf_counter() - t0
+    path = str(Path(tmp) / "sling-serve.sling")
+    st = build.build_index_scale(g, path, eps=SCALE_EPS, quant_frac=0.0,
+                                 quantize=None, device=dev)
+    idx = SlingIndex.load(path, device=dev)
+    os.remove(path)
+    print(f"[sling-serve] {cfg.name}: powerlaw_fast({cfg.n:,}, "
+          f"k={cfg.m // cfg.n}, seed=0) in {t_gen:.2f}s: m={g.m:,} (of "
+          f"{cfg.m:,} drawn), max in-degree {int(g.in_deg.max()):,}; "
+          f"build_index_scale(eps={SCALE_EPS}, float32) -> "
+          f"{st['builder']}: d {st['d_wall_s']:.3f}s, hp "
+          f"{st['hp_wall_s']:.3f}s, pack {st['pack_wall_s']:.3f}s; "
+          f"entries {st['entries']:,}, width {idx.hp.width} (the config's "
+          f"hp_width {cfg.hp_width} is for its eps {cfg.eps}), "
+          f"{st['bytes']:,} bytes")
+    index = {"keys": idx.hp.keys, "vals": idx.vals_f32(), "d": idx.d}
+    lay = SpmmLayout.pull(g, cfg.c ** 0.5, dev)
+    us = torch.as_tensor(np.random.default_rng(0).choice(
+        cfg.n, cfg.batch, replace=False), device=dev)
+    step = steps.sling_serve_step(cfg)
+
+    def push():
+        return step(index, {"layout": lay}, {"us": us})
+
+    t0 = time.perf_counter()
+    out = push()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    launches["horner_push_steps"] = horner_push_rows.steps
+    if launches["horner_push"] != 1:
+        raise RuntimeError(f"sling_serve_step at B={cfg.batch} was not one "
+                           f"push launch: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ok = out.shape == (cfg.batch, cfg.n) and bool(torch.isfinite(out).all())
+    tau = steps._sling_tau(cfg)
+    plain = horner_push_rows_plain(index["keys"], index["vals"], index["d"],
+                                   us[:8], lay, tau, l_max=cfg.l_max)
+    err = float((out[:8] - plain).abs().max())
+    top = float(out.max())
+    del out, plain
+    # the bound: the ids, the B rows' live entries (key, value, d_k) and
+    # the CSR read once, the (B, n) result written once; the operations
+    # of every level that runs over every edge and column
+    live = int(idx.hp.counts.to(dev).long()[us].sum())
+    levels_run = max(int(level_runs_plain(index["keys"][us], cfg.n,
+                                          cfg.l_max)[1].max()), 0) + 1
+    in_out = 8 * cfg.batch + 12 * live + 8 * g.m + 4 * (cfg.n + 1) \
+        + 4 * cfg.n * cfg.batch
+    b_ms, b_by = bound_ms(in_out, 2 * levels_run * g.m * cfg.batch)
+    row = {"B": cfg.batch, "n": cfg.n, "m": g.m, "width": idx.hp.width,
+           "levels_run": levels_run, "max_abs_err": err,
+           "ms": device_ms(push, "horner_push_kernel", 3),
+           "push_ms": time_ms(push, 3), "first_call_s": t_first,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "workspace_gb": workspace_numel(cfg.n, cfg.batch,
+                                           cfg.l_max) * 4 / 1e9,
+           "device_peak_gib": peak}
+    print(f"[sling-serve] sling_serve_step(B={cfg.batch}, l_max="
+          f"{cfg.l_max}, tau={tau:.4g}): one push launch ({levels_run} of "
+          f"{cfg.l_max + 1} levels run; grid "
+          f"{persistent_grid(lay, cfg.batch)} blocks of 1,024); kernel "
+          f"{row['ms']:.3f} ms (device time), step {row['push_ms']:.3f} "
+          f"ms (CUDA events), first call {t_first:.2f}s; bound "
+          f"{b_ms:.4f} ms ({b_by}); workspace {row['workspace_gb']:.2f} GB "
+          f"+ result {4 * cfg.n * cfg.batch / 1e9:.2f} GB, device peak "
+          f"{peak:.2f} GiB; result ({cfg.batch}, {cfg.n:,}) finite {ok}, "
+          f"max {top:.4g}, left on the card; first 8 rows vs the plain "
+          f"push {err:.3g} (TOL_KERNEL {TOL_KERNEL}); phase "
+          f"{time.perf_counter() - t_phase:.1f}s; card {card_line()}")
+    if not ok or not err <= TOL_KERNEL:
+        raise RuntimeError(f"sling_serve_step at full size: finite {ok}, "
+                           f"error {err}")
+    return launches, row
+
+
 def update_phase(g, dev) -> dict:
     """The dynamic-graph path on the card at the Enron regime: build
     with ``STALE_FRAC``, warm an engine, then for each churn level in
@@ -2497,10 +2820,14 @@ def spmm_row(g, p, dev, nodes, launches: int) -> dict:
 
 
 def device_ms(fn, key: str, reps: int) -> float:
-    """Mean device milliseconds per call of the kernels whose name holds
-    ``key`` in ``reps`` calls of ``fn``, from torch.profiler's device
-    activity: the kernel alone, where back-to-back CUDA events would
-    time the host's dispatch."""
+    """Mean device milliseconds per launch of the kernel whose name holds
+    ``key`` (each caller's ``fn`` launches it once) over ``reps`` calls
+    of ``fn``, from torch.profiler's device activity: the kernel alone,
+    where back-to-back CUDA events would time the host's dispatch. The
+    mean is over the launches the profiler recorded: a window can drop
+    some of their activity records though the launches ran (seen at
+    n = 10^6, where one record of three came back), and dividing by
+    ``reps`` would then read low."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2512,12 +2839,16 @@ def device_ms(fn, key: str, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(r.self_device_time_total for r in prof.key_averages()
-                 if r.device_type == DeviceType.CUDA and key in r.key)
+        rows = [r for r in prof.key_averages()
+                if r.device_type == DeviceType.CUDA and key in r.key]
+        us = sum(r.self_device_time_total for r in rows)
+        seen = sum(r.count for r in rows)
         if us > 0:
-            return us / reps / 1e3
-        # a window can come back without the kernel's activity records
-        # though its launches ran (seen at n = 10^6): profile again
+            if seen != reps:
+                print(f"[profile] {key}: {seen} activity records for "
+                      f"{reps} launches in window {window}; the mean is "
+                      f"over the {seen}")
+            return us / seen / 1e3
         print(f"[profile] no device time for {key} in profiler window "
               f"{window} of 3")
     raise RuntimeError(f"the profiler saw no device time for {key}")
@@ -2702,12 +3033,13 @@ def horner_push_parts(g, p, eng, us) -> dict:
 
 
 def horner_row(g, p, eng, nodes, launches: int, steps: int,
-               scale) -> dict:
+               scale, serve_row: dict) -> dict:
     """``horner_push`` at B = 8 (serving, the row) and B = 16 (the
     prior's batch, under ``b16``), each on a batch of the main path's
     nodes, and at B = 2 and 8 on phase 3e's 10^6-node engine (under
     ``n1e6``; ``scale`` is its (g, plan, engine)); see
-    :func:`horner_push_case`."""
+    :func:`horner_push_case`. ``serve_row``, phase 3i's push at the
+    sling-serve batch of 1,024 over 10^6 nodes, goes under ``b1024``."""
     import numpy as np
 
     from repro_torch.kernels.horner_push import persistent_grid
@@ -2740,7 +3072,8 @@ def horner_row(g, p, eng, nodes, launches: int, steps: int,
             "source": "src/repro_torch/csrc/horner_push.cu",
             "replaces": "src/repro/kernels/horner_push/horner_push.py:69",
             "launches": launches,
-            "max_abs_err": max(c["max_abs_err"] for c in cases + big),
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in cases + big + [serve_row]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "steps": steps,
@@ -2752,6 +3085,7 @@ def horner_row(g, p, eng, nodes, launches: int, steps: int,
             "n1e6": {f"B={c['B']}": {k: v for k, v in c.items()
                                      if k not in ("B", "parts")}
                      for c in big},
+            "b1024": serve_row,
             "shape": f"B=8 W={eng._width_cap} n={g.n} m={g.m} "
                      f"levels={p.l_max + 1}"}
 
@@ -3009,10 +3343,21 @@ def main() -> int:
             total[k] = total.get(k, 0) + sh[k]
         print(f"[sharded] launches {sh}; all paths {total}")
 
+        # ---- 3i. baselines, oracles, entry points, sling-serve at size --
+        base = baselines_phase(dev)
+        serve, serve_row = sling_serve_phase(dev, tmp)
+        paper = {k: base[k] + serve[k] for k in base}
+        for k in paper:
+            total[k] += paper[k]
+        print(f"[paper] launches {paper}; all paths {total}")
+        if min(paper[k] for k in ("hp_join", "spmm", "horner_push")) <= 0:
+            raise RuntimeError(f"a kernel did not launch in phase 3i: "
+                               f"{paper}")
+
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),
                horner_row(g, p, eng, nodes, total["horner_push"],
-                          total["horner_push_steps"], scale),
+                          total["horner_push_steps"], scale, serve_row),
                slab_row(g, idx, eng, nodes,
                         total["horner_push_slabs"], dev)]
     del scale
@@ -3038,7 +3383,8 @@ def main() -> int:
     # ---- 6. output --------------------------------------------------------
     print(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                    if k not in ("shape", "fma_bound_ms",
-                                                "parts", "b16", "n1e6")}
+                                                "parts", "b16", "n1e6",
+                                                "b1024")}
                                   for kk in kernels]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

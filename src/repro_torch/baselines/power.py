@@ -36,3 +36,8 @@ def all_pairs(g: csr.Graph, c: float = 0.6, iters: int = 50) -> np.ndarray:
         S = c * (W @ S @ W.T)
         np.fill_diagonal(S, 1.0)
     return S
+
+
+def single_pair(g: csr.Graph, u: int, v: int, c: float = 0.6,
+                iters: int = 50) -> float:
+    return float(all_pairs(g, c, iters)[u, v])

@@ -3,8 +3,9 @@ ArchSpec (port of ``repro/configs/base.py``).
 
 Each arch module defines ``full()`` (the exact assigned config),
 ``smoke()`` (a reduced config of the same family for CPU tests) and the
-shape cells it takes part in. The port holds xDeepFM so far; the other
-families join with their slices.
+shape cells it takes part in. The port holds xDeepFM and the paper's
+own ``sling-serve`` cell so far; the other families join with their
+slices.
 """
 from __future__ import annotations
 
@@ -45,4 +46,4 @@ def all_archs() -> dict[str, ArchSpec]:
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import xdeepfm  # noqa: F401  (registers)
+    from repro_torch.configs import sling_paper, xdeepfm  # noqa: F401

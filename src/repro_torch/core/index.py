@@ -185,14 +185,23 @@ class SlingIndex:
                 j += 1
         return float(s)
 
+    def device_arrays(self, device=None):
+        """(keys, float32 vals, d) on ``device`` (``cuda`` unless
+        ``device="cpu"``), warm-cached per index epoch
+        (``core/device_state.py``), so repeated one-shot queries skip the
+        upload."""
+        from repro_torch.core import device_state
+        ia = device_state.index_arrays(self, device)
+        return ia.keys, ia.vals, ia.d
+
     def query_pairs(self, us, vs, device=None) -> np.ndarray:
         """Batched device pair join on ``device`` (``cuda`` unless
         ``device="cpu"``), whatever device the storage lies on."""
         self.refuse_reduced("query_pairs")
-        dev = resolve_device(device)
+        keys, vals, d = self.device_arrays(device)
+        dev = d.device
         return _pair_query_batch(
-            self.hp.keys.to(dev), self.vals_f32(device=dev),
-            self.d.to(dev),
+            keys, vals, d,
             torch.as_tensor(np.asarray(us), dtype=torch.int64, device=dev),
             torch.as_tensor(np.asarray(vs), dtype=torch.int64, device=dev),
             self.n).cpu().numpy()

@@ -9,7 +9,8 @@ with tau = (sqrt c)^L * theta (:func:`prune_tau`), the smallest of
 Alg 6's per-group thresholds.
 
   * ``single_source_paper`` / ``single_source_horner`` -- host float64
-    references (NumPy);
+    references (NumPy); ``single_source_naive`` -- n pair queries
+    (Alg 3), the paper's strawman;
   * ``horner_push`` -- the plain PyTorch push over a batch of rows;
   * ``batched_single_source`` -- (B,) query ids -> (B, n) scores through
     the chosen backend: the Hopper push kernel, one launch, on ``cuda``;
@@ -28,6 +29,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.graph import csr
 from repro_torch.kernels import horner_push as hpk
 from repro_torch.kernels.horner_push import Slab, top_level
@@ -298,6 +300,31 @@ def single_source_batch(idx, g: csr.Graph, us, mesh=None,
     from repro_torch.core import shard_query
     si = shard_query.shard_index(idx, g, mesh, axis=axis)
     return shard_query.sharded_single_source(si, us)
+
+
+def single_source_naive(idx, g: csr.Graph, u: int, *,
+                        device=None) -> np.ndarray:
+    """n invocations of Alg 3 (the paper's strawman; Figure 2): (n,)
+    float64 NumPy. On ``cuda`` (the default) the n pairs (u, v) go
+    through the pair join kernel (``hp_join``) in batches of the
+    engine's pair batch; on the CPU through ``query_pair_host``, as in
+    the reference."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return np.array([idx.query_pair_host(u, v, g) for v in range(idx.n)])
+    from repro_torch.kernels.hp_join import fold_sqrt_d, hp_join
+    from repro_torch.serve.engine import EngineConfig
+    idx.refuse_reduced("single_source_naive")
+    keys, vals, d = idx.device_arrays(dev)
+    folded = fold_sqrt_d(keys, vals, d)
+    B = EngineConfig().pair_batch
+    us = torch.full((B,), u, dtype=torch.int32, device=dev)
+    out = torch.empty(idx.n, dtype=torch.float32, device=dev)
+    for lo in range(0, idx.n, B):
+        vs = torch.arange(lo, min(lo + B, idx.n), dtype=torch.int32,
+                          device=dev)
+        out[lo:lo + B] = hp_join(keys, folded, us[:len(vs)], vs)
+    return out.cpu().numpy().astype(np.float64)
 
 
 def _pod_axes(mesh, n: int):

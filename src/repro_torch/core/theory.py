@@ -126,6 +126,13 @@ def phase2_pairs_vec(mu_hat, eps_d: float, delta_d: float, c: float):
                    * math.log(4.0 / delta_d)).astype(np.int64)
 
 
+def phase2_pairs(mu_hat: float, eps_d: float, delta_d: float,
+                 c: float) -> int:
+    """Alg 4 lines 12-13: total pair budget n_r* for phase 2 (the scalar
+    facade over :func:`phase2_pairs_vec`, so the two cannot drift)."""
+    return int(phase2_pairs_vec(mu_hat, eps_d, delta_d, c))
+
+
 # A pair score is a bilinear form in the stored vals with d~ in between.
 # Per-entry errors b on vals and b_d on d~ cost at most
 # 2b/(1 - sqrt c) (first order, |H(.)|_1 <= 1/(1 - sqrt c)),

@@ -19,14 +19,21 @@ step is split over the shards of one mesh axis, the graph replicated on
 each shard's device; the random numbers are drawn once, on the first
 shard's device, and then split, so the meet indicators equal the
 unsharded walk's bit for bit.
+
+``walk_positions`` (whole trajectories) and ``estimate_simrank_by_walks``
+(the Lemma-3 estimator, over ``paired_meet_chunked``) are test oracles.
+They draw from torch's generator too, so tests hold them to Lemma 3's
+facts rather than to the reference's bits.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.graph import csr
 
 # pairs per walk dispatch (lanes of one chunk)
@@ -169,3 +176,66 @@ def paired_meet(dg: DeviceGraph, start_a: torch.Tensor,
         live = torch.nonzero(go & ~hit).squeeze(1)
         lane, pa, pb = lane[live], pa[live], pb[live]
     return met
+
+
+def paired_meet_chunked(dg: DeviceGraph, start_a, start_b,
+                        gen: torch.Generator, sqrt_c: float, t_max: int,
+                        chunk: int = DEFAULT_CHUNK, mesh=None,
+                        mesh_axis: str = "data") -> np.ndarray:
+    """Host-driven loop over :func:`paired_meet` in chunks of ``chunk``
+    pairs (the starts are host arrays; each chunk goes to ``dg``'s
+    device and its indicators come back): bool (W,) NumPy. The
+    reference pads each chunk to a compile bucket; eager torch needs no
+    bucket, so a chunk runs at its own size."""
+    start_a, start_b = np.asarray(start_a), np.asarray(start_b)
+    out = np.zeros(len(start_a), dtype=bool)
+    for lo in range(0, len(start_a), chunk):
+        sa, sb = (torch.as_tensor(x[lo:lo + chunk].astype(np.int64),
+                                  device=dg.device)
+                  for x in (start_a, start_b))
+        out[lo:lo + chunk] = paired_meet(dg, sa, sb, gen, sqrt_c, t_max,
+                                         mesh, mesh_axis).cpu().numpy()
+    return out
+
+
+def walk_positions(dg_in_ptr, dg_in_idx, dg_in_deg, starts,
+                   gen: torch.Generator, sqrt_c: float,
+                   t_max: int) -> torch.Tensor:
+    """Full trajectories over a :class:`DeviceGraph`'s arrays: (W,
+    t_max+1) int32 positions, -1 from the step at which a walk stops on.
+    A test oracle for hitting probabilities. Every lane draws two
+    uniforms a step (continue, in-edge), stopped or not, on ``gen``'s
+    device, which must be the arrays'."""
+    pos = torch.as_tensor(starts, device=dg_in_ptr.device).long()
+    alive = torch.ones_like(pos, dtype=torch.bool)
+    traj = torch.empty((len(pos), t_max + 1), dtype=torch.int32,
+                       device=pos.device)
+    traj[:, 0] = pos
+    last = dg_in_idx.numel() - 1
+    for t in range(1, t_max + 1):
+        r = torch.rand((2, len(pos)), generator=gen, device=pos.device)
+        deg = dg_in_deg[pos]
+        ok = alive & (r[0] < sqrt_c) & (deg > 0)
+        off = torch.minimum((r[1] * deg).long(), deg - 1).clamp_(min=0)
+        nxt = dg_in_idx[(dg_in_ptr[pos] + off).clamp_(0, last)]
+        pos = torch.where(ok, nxt, pos)
+        alive = ok
+        traj[:, t] = torch.where(ok, pos, -1)
+    return traj
+
+
+def estimate_simrank_by_walks(g: csr.Graph, u: int, v: int, c: float,
+                              n_walks: int, seed: int = 0,
+                              t_max: int | None = None, *,
+                              device=None) -> float:
+    """Direct Lemma-3 estimator on ``device`` (``cuda`` unless
+    ``device="cpu"``): the fraction of ``n_walks`` walk pairs from (u, v)
+    that meet. O(n_walks / eps^2) -- a test oracle."""
+    dev = resolve_device(device)
+    dg = DeviceGraph.from_graph(g, dev)
+    sc = math.sqrt(c)
+    t_max = t_max or default_t_max(sc)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    met = paired_meet_chunked(dg, np.full(n_walks, u), np.full(n_walks, v),
+                              gen, sc, t_max)
+    return float(met.mean())

@@ -38,8 +38,15 @@ class Graph:
     def in_deg(self) -> np.ndarray:
         return np.diff(self.in_ptr)
 
+    @property
+    def out_deg(self) -> np.ndarray:
+        return np.diff(self.out_ptr)
+
     def in_neighbors(self, v: int) -> np.ndarray:
         return self.in_idx[self.in_ptr[v]:self.in_ptr[v + 1]]
+
+    def out_neighbors(self, v: int) -> np.ndarray:
+        return self.out_idx[self.out_ptr[v]:self.out_ptr[v + 1]]
 
     def validate(self) -> None:
         if self.in_ptr.shape != (self.n + 1,) or \

@@ -106,6 +106,35 @@ def multigraph(n: int, m: int, seed: int = 0) -> csr.Graph:
     return csr.from_edges(n, src, dst, dedup=False)
 
 
+def grid2d(rows: int, cols: int) -> csr.Graph:
+    """4-neighbor undirected grid (mesh-GNN-like regular graph)."""
+    n = rows * cols
+    a_l, b_l = [], []
+    for r in range(rows):
+        for c in range(cols):
+            v = r * cols + c
+            if c + 1 < cols:
+                a_l.append(v)
+                b_l.append(v + 1)
+            if r + 1 < rows:
+                a_l.append(v)
+                b_l.append(v + cols)
+    return csr.undirected(n, np.array(a_l), np.array(b_l))
+
+
+def cycle(n: int) -> csr.Graph:
+    """Directed n-cycle: the Appendix-A adversarial case for Linearize
+    (its Gauss-Seidel system matrix is not diagonally dominant at c=0.6)."""
+    v = np.arange(n, dtype=np.int64)
+    return csr.from_edges(n, v, (v + 1) % n)
+
+
+def star(n: int) -> csr.Graph:
+    """Hub node 0 with n-1 spokes, undirected. Extreme degree skew."""
+    spokes = np.arange(1, n, dtype=np.int64)
+    return csr.undirected(n, np.zeros(n - 1, dtype=np.int64), spokes)
+
+
 # Table 3 of the paper: (n, m, directed) of the public graphs whose
 # regimes the synthetic stand-ins match.
 PAPER_GRAPHS = {

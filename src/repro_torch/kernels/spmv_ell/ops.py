@@ -1,7 +1,10 @@
 """The CSR layout of the Â operator that the ``spmm`` and Horner-step
-kernels walk.
+kernels walk, and the reference's kernel-level entries over a graph.
 
-Port of the layout half of ``repro/kernels/spmv_ell/ops.py``. The TPU
+Port of ``repro/kernels/spmv_ell/ops.py``: :func:`spmm` and
+:func:`spmm_reference` take (x, graph, per-edge weights) as the
+reference's do; its Pallas tiling arguments (``bn``, ``eb``,
+``interpret``) and ``block_align`` have no counterpart here. The TPU
 layout groups edges into destination blocks padded for a one-hot
 matmul; the port's layout is a plain CSR over the operator's *outputs*
 (:class:`SpmmLayout`): ``in_ptr``/``in_idx``/``w`` list, per output row,
@@ -23,7 +26,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.graph import csr
+from repro_torch.kernels.spmv_ell.spmv_ell import spmm as spmm_kernel
+from repro_torch.kernels.spmv_ell.spmv_ell import spmm_plain
 
 # in-degree above which the kernels give a row a block of its own
 HEAVY_DEGREE = 32
@@ -115,3 +121,25 @@ class SpmmLayout:
         return SpmmLayout.from_edges(g.edge_dst, g.edge_src,
                                      csr.normalized_pull_weights(g, sqrt_c),
                                      g.n, device)
+
+
+def _graph_inputs(x, g: csr.Graph, w, device):
+    """x as contiguous float32 on ``device`` (``cuda`` unless
+    ``device="cpu"``) and the operator out[v] = sum_{u in I(v)} w_(u->v)
+    x[u] there, ``w`` in the graph's edge order."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x).to(dev, torch.float32).contiguous()
+    return x, SpmmLayout.from_edges(g.edge_src, g.edge_dst, w, g.n, dev)
+
+
+def spmm(x, g: csr.Graph, w: np.ndarray, *, device=None) -> torch.Tensor:
+    """out[v] = sum_{u in I(v)} w_(u->v) * x[u] for x (n, F), through the
+    ``spmm`` kernel on ``device``: the Hopper kernel on ``cuda`` (it
+    raises if it cannot run), the plain version on the CPU."""
+    return spmm_kernel(*_graph_inputs(x, g, w, device))
+
+
+def spmm_reference(x, g: csr.Graph, w: np.ndarray, *,
+                   device=None) -> torch.Tensor:
+    """The plain version of :func:`spmm` on ``device``."""
+    return spmm_plain(*_graph_inputs(x, g, w, device))

@@ -1,6 +1,7 @@
 """Step factories (port of the serving half of ``repro/train/steps.py``).
 
-Each returns ``step(params, batch)``, run under ``torch.inference_mode``
+The recsys steps return ``step(params, batch)``, the SLING steps
+``step(index, graph, batch)``; each runs under ``torch.inference_mode``
 (the port runs eagerly: nothing is traced or compiled). Training steps
 come with the training slice.
 """
@@ -33,4 +34,58 @@ def recsys_retrieval_step(cfg) -> Callable:
             scores = recsys_lib.score_candidates(cfg, params, batch)
             top_v, top_i = stable_topk(scores[None], RETRIEVAL_K)
             return {"scores": scores, "top_v": top_v[0], "top_i": top_i[0]}
+    return step
+
+
+def _sling_tau(cfg) -> float:
+    """Resolved Horner prune threshold (single_source.prune_tau) at the
+    paper's operating point theta = 0.000725; the configs carry (c,
+    l_max) but no theory.SlingPlan."""
+    return 0.000725 * (cfg.c ** 0.5) ** cfg.l_max
+
+
+def sling_serve_step(cfg) -> Callable:
+    """Batched single-source SimRank (Alg 6, Horner) as a serving cell:
+    ``index`` {"keys" (N, W) int32, "vals" (N, W) float32, "d" (n,)
+    float32}, ``graph`` {"layout": Â's ``SpmmLayout``} (the reference
+    passes the edge list, edge_src / edge_dst / w, which the layout
+    holds grouped by destination), ``batch`` {"us" (B,) ids} -> (B,
+    cfg.n) float32 scores on the index's device: one launch of the
+    Horner push kernel on ``cuda``."""
+    from repro_torch.core.single_source import batched_single_source
+
+    tau = _sling_tau(cfg)
+
+    def step(index, graph, batch):
+        with torch.inference_mode():
+            return batched_single_source(
+                index["keys"], index["vals"], index["d"], graph["layout"],
+                torch.as_tensor(batch["us"], device=index["keys"].device),
+                tau, n=cfg.n, l_max=cfg.l_max)
+    return step
+
+
+def sling_serve_step_sharded(cfg, mesh,
+                             bf16_frontier: bool = False) -> Callable:
+    """Pod-scale variant (``single_source.batched_single_source_sharded``):
+    queries over the mesh's data axes, nodes over "model". ``graph``
+    holds the reference's destination-partitioned edges ("blk_src",
+    "blk_dstl", "blk_w", each (S_model, E); ``shard_query.
+    partition_edges``) and optionally "slabs", the
+    ``single_source.pod_slabs`` of them built once, which the push then
+    reads instead. Returns (B, cfg.n) float32 on the mesh's first
+    device."""
+    from repro_torch.core.single_source import batched_single_source_sharded
+
+    tau = _sling_tau(cfg)
+
+    def step(index, graph, batch):
+        with torch.inference_mode():
+            return batched_single_source_sharded(
+                index["keys"], index["vals"], index["d"],
+                graph.get("blk_src"), graph.get("blk_dstl"),
+                graph.get("blk_w"), torch.as_tensor(batch["us"]).cpu(),
+                tau, cfg.n, cfg.l_max,
+                mesh, bf16_frontier=bf16_frontier,
+                slabs=graph.get("slabs"))
     return step

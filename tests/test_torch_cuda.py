@@ -140,6 +140,24 @@ def test_push_rows_with_hubs_match_plain_on_card(card, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1024, 1028, 2048])
+def test_push_rows_at_the_sling_serve_batch_on_card(card, B):
+    """The sling-serve config's batch of 1,024 sources in one launch:
+    256 column groups of 4, one slot a big row (a group of 256 threads),
+    the mid and wide rows run with their neighbours; 1,028 (257 groups,
+    more than a group's threads) and 2,048 take the path where a thread
+    owns whole column groups of a big row."""
+    rng = np.random.default_rng(B)
+    n, l_max = 700, 12
+    case = table_case(rng, n=n, rows=1500, W=24, l_max=l_max, m=6 * n,
+                      hubs=(0, 3, 3, 3, 99, 400), dup=True)
+    got, plain = _push_on_card(case, n, l_max, card, B, seed=B)
+    assert got.shape == (B, n) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 8, 16, 300])
 def test_push_rows_on_a_graph_smaller_than_the_grid_on_card(card, B):
     """n = 5 nodes: the grid is capped at a level's work, and most
@@ -872,3 +890,44 @@ def test_slab_push_raises_without_library_on_card(card, monkeypatch,
     with pytest.raises(RuntimeError, match="nvcc"):
         shard_query.sharded_topk(si, [0, 5], 4)
     assert horner_push_slabs.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_query_pairs_kernel_matches_reference_on_card(card, seed):
+    """The kernel-level pair entry through ``hp_join`` on the card
+    against its plain twin, and against the batched join."""
+    from repro_torch.core import build
+    from repro_torch.kernels.hp_join.ops import (query_pairs_kernel,
+                                                 query_pairs_reference)
+    g = generators.barabasi_albert(300, 3, seed=seed, directed=False)
+    idx = build.build_index(g, eps=0.15, seed=seed, device=card)
+    rng = np.random.default_rng(seed)
+    us = rng.integers(0, g.n, 500).astype(np.int32)
+    vs = rng.integers(0, g.n, 500).astype(np.int32)
+    before = hp_join.launches
+    got = query_pairs_kernel(idx, us, vs)
+    assert hp_join.launches == before + 1
+    np.testing.assert_allclose(got, query_pairs_reference(idx, us, vs),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, idx.query_pairs(us, vs), atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 33, 256])
+def test_spmm_entry_matches_reference_on_card(card, f):
+    """The kernel-level ``spmm(x, g, w)`` on the card against
+    ``spmm_reference``."""
+    from repro_torch.graph import csr
+    from repro_torch.kernels.spmv_ell.ops import spmm as spmm_entry
+    from repro_torch.kernels.spmv_ell.ops import spmm_reference
+    g = generators.barabasi_albert(1001, 4, seed=f, directed=False)
+    w = csr.normalized_pull_weights(g, 0.7746)
+    x = np.random.default_rng(f).normal(size=(g.n, f)).astype(np.float32)
+    before = spmm.launches
+    got = spmm_entry(x, g, w)
+    assert spmm.launches == before + 1 and got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               spmm_reference(x, g, w).cpu().numpy(),
+                               atol=ATOL, rtol=0)
