@@ -82,3 +82,32 @@ def recsys_params_from_jax(cfg, params_np: dict, device=None):
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(a))
     return model
+
+
+def adamw_state_from_jax(state_np, model):
+    """The port's :class:`~repro_torch.optim.adamw.AdamWState` for
+    ``model`` (an ``XDeepFM`` or any tree ``adamw.named_leaves`` takes)
+    from the reference's ``AdamWState`` with NumPy leaves (``step``, and
+    ``m`` and ``v`` shaped like the reference's parameters), on the
+    model's device; m and v in float32."""
+    from repro_torch.optim.adamw import AdamWState, named_leaves
+    leaves = named_leaves(model)
+    names = [n for n, _ in leaves]
+    dev = leaves[0][1].device
+    moments = []
+    for field in ("m", "v"):
+        src = dict(named_leaves(getattr(state_np, field)))
+        if set(src) != set(names):
+            raise ValueError(f"state {field} names differ: given "
+                             f"{sorted(src)}, the model has {sorted(names)}")
+        out = {}
+        for n, p in leaves:
+            a = np.array(src[n], np.float32)
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{field}/{n}: shape {a.shape}, expected "
+                                 f"{tuple(p.shape)}")
+            out[n] = torch.from_numpy(a).to(dev)
+        moments.append(out)
+    step = torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step=step, m=moments[0], v=moments[1])

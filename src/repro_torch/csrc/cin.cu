@@ -15,6 +15,19 @@
 // (BB, h*m) outer-product tile in VMEM and hits the MXU with the
 // (h*m, h') weight.
 //
+// The layer's gradient runs here too. The reference trains through
+// jax.grad of the einsum form (src/repro/models/recsys.py:95); its
+// Pallas kernel has no backward. For g = dL/dout (B, h', D):
+//   * dxk = the layer on (x0, g, W permuted (1, 0, 2)), cin_launch;
+//   * dx0 = the layer on (xk, g, W permuted (2, 0, 1)), cin_launch: xk
+//     in the x0 slot is 200 wide at layers 2-3, past the slab's m <= 123,
+//     so that launch reads x0 from device memory (Mode kStream);
+//   * dW = cin_wgrad_launch: the GEMM dW[i, k] = sum_r g[r, i] * z[r, k]
+//     over the B*D data rows r, z formed on the fly as the layer forms
+//     it, on the same consumers (Mode kWgrad), depth-split into chunks
+//     that a second pass adds in chunk order (no atomics).
+// Each is bound by operations, 3 * 2*B*D*h*m*h' at the TF32 rate.
+//
 // What bounds it on the H100: operations on the tensor cores. The
 // layer is a GEMM whose A operand is made on the fly: rows r = b*D + d
 // (M = B*D), depth k = a*m + j (K = h*m, walked flat, so m = 39 needs
@@ -74,7 +87,9 @@
 // Shared memory: a stage is 2 * 16 KB (A) + 2 * 25 KB (W) = 82 KB; two
 // stages, the barriers and the x0 slab (m * 512 bytes, 19.5 KB at
 // m = 39) make 185 KB at m = 39, plus 1 KB to align the swizzle atoms;
-// three stages would not fit the 227 KB a block may use. m <= 123.
+// three stages would not fit the 227 KB a block may use. The slab
+// fits for m <= 123; a wider x0 is read from device memory (kStream),
+// and dW's producer keeps nothing beyond the stages (166 KB).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -206,13 +221,20 @@ __device__ __forceinline__ void wgmma_m64n200k8(float (&d)[kAcc], uint64_t da,
       : "memory");
 }
 
+// What a launch of cin_kernel computes: the layer with x0's slab in
+// shared memory (m <= 123), the layer with x0 read from device memory
+// (any m), or the weight gradient dW.
+enum Mode { kSlab = 0, kStream = 1, kWgrad = 2 };
+
 struct Params {
   const float* x0;
   const float* xk;
-  float* dst;             // out (s = 1) or the (s, B, hp, D) scratch
-  long long M;            // B * D rows
+  const float* g;         // kWgrad: the output's gradient (B, hp, D)
+  float* dst;             // the result (s = 1) or the (s, ...) scratch
+  long long M;            // GEMM rows: B * D (layer), h * m (kWgrad)
+  long long R;            // kWgrad: B * D, the depth
   long long units;        // row tiles * column tiles * s
-  long long chunk_elems;  // B * hp * D: one chunk's partial sums
+  long long chunk_elems;  // one chunk's partial sums: B*hp*D or hp*h*m
   int m, h, hp, D, s, n_ct, tiles;
 };
 
@@ -232,27 +254,40 @@ __device__ __forceinline__ Unit unit_of(const Params& p, long long u) {
   return w;
 }
 
-// Chunk c (4 consecutive k) of row pt of A_hi and A_lo in stage memory
-// sg, from four z in float32: z_hi = tf32(z), z_lo = tf32(z - z_hi)
-// (the difference is exact)
-__device__ __forceinline__ void store_z4(uint8_t* sg, int pt, int c,
-                                         const float (&z)[4]) {
+// Chunk c (4 consecutive k) of row `row` of an operand's two parts,
+// hi at `base` and lo at base + part_bytes, from four z in float32:
+// z_hi = tf32(z), z_lo = tf32(z - z_hi) (the difference is exact)
+__device__ __forceinline__ void store_split4(uint8_t* base, int part_bytes,
+                                             int row, int c,
+                                             const float (&z)[4]) {
   uint32_t hi[4], lo[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     hi[i] = tf32_bits(z[i]);
     lo[i] = tf32_bits(z[i] - __uint_as_float(hi[i]));
   }
-  const uint32_t off = swz(pt, c);
-  *reinterpret_cast<uint4*>(sg + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-  *reinterpret_cast<uint4*>(sg + kABytes + off) =
+  const uint32_t off = swz(row, c);
+  *reinterpret_cast<uint4*>(base + off) =
+      make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(base + part_bytes + off) =
       make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// Chunk c of row pt of A_hi and A_lo in stage memory sg
+__device__ __forceinline__ void store_z4(uint8_t* sg, int pt, int c,
+                                         const float (&z)[4]) {
+  store_split4(sg, kABytes, pt, c, z);
 }
 
 // Warpgroup 2 produces: for each k-tile it waits until both consumers
 // have released the stage, starts the two TMA boxes of W (thread 0),
 // and forms its row's 32 z of A_hi and A_lo (thread pt owns row pt of
 // the tile, so its x0 slab column and its walk over k are its own).
+// Without the slab (kSlab false: x0 too wide for shared memory beside
+// the two stages) each x0[r, j] is read from device memory where z
+// needs it; the row's x0 is reused h times a unit, so L1 and L2 serve
+// most of those reads.
+template <bool kSlab>
 __device__ __forceinline__ void produce(const CUtensorMap* wmap,
                                         const Params& p, uint8_t* smem,
                                         uint32_t s_base, uint32_t bars,
@@ -271,8 +306,14 @@ __device__ __forceinline__ void produce(const CUtensorMap* wmap,
     auto xk_at = [&](int aa) {
       return live && aa < p.h ? __ldg(xk_row + (long long)aa * p.D) : 0.f;
     };
-    for (int j = 0; j < p.m; ++j)
-      x0s[j * kBM + pt] = live ? __ldg(x0_row + (long long)j * p.D) : 0.f;
+    // x0[r, jj], 0 for rows past M
+    auto x0_at = [&](int jj) {
+      if constexpr (kSlab) return x0s[jj * kBM + pt];
+      else return live ? __ldg(x0_row + (long long)jj * p.D) : 0.f;
+    };
+    if constexpr (kSlab)
+      for (int jj = 0; jj < p.m; ++jj)
+        x0s[jj * kBM + pt] = live ? __ldg(x0_row + (long long)jj * p.D) : 0.f;
     // the walk over k = a*m + j; xv = xk[r, a], xn = xk[r, a + 1] ahead
     const int k0 = w.t0 * kBK;
     int a = k0 / p.m, j = k0 - a * p.m;
@@ -298,7 +339,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* wmap,
           for (int i = 0; i < 4; ++i) {
             const int kk = 4 * c + i;
             const bool nx = kk >= split;
-            z[i] = (nx ? xn : xv) * x0s[(j + kk - (nx ? p.m : 0)) * kBM + pt];
+            z[i] = (nx ? xn : xv) * x0_at(j + kk - (nx ? p.m : 0));
           }
           store_z4(sg, pt, c, z);
         }
@@ -314,7 +355,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* wmap,
           float z[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            z[i] = xv * x0s[j * kBM + pt];
+            z[i] = xv * x0_at(j);
             if (++j == p.m) {
               j = 0;
               ++a;
@@ -336,9 +377,75 @@ __device__ __forceinline__ void produce(const CUtensorMap* wmap,
   }
 }
 
+// Warpgroup 2 produces the weight gradient's operands. The GEMM is
+// dW[i, k] = sum_r g[r, i] * z[r, k] with z[r, k] = xk[r, a] * x0[r, j],
+// k = a*m + j: rows k, columns i, depth r (the B*D data rows). For each
+// depth tile of 32 r, thread pt forms A[k, r] for its row k = row0 + pt
+// (a and j fixed for the unit) and B[i, r] = g[r, i] for the columns
+// i = col0 + pt and col0 + pt + 128, splits both into their TF32 parts
+// and stores them K-major along r, in the layout that TMA writes for
+// the layer's W. Every value is 0 past K, h' or B*D. The consumers wait
+// on the stage's W barrier (thread 0 arrives on it after its stores)
+// and on the A barrier, which all 128 threads reach after theirs.
+__device__ __forceinline__ void produce_wgrad(const Params& p, uint8_t* smem,
+                                              uint32_t bars, int pt) {
+  int st = 0;
+  uint32_t phase = 0;
+  for (long long u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const Unit w = unit_of(p, u);
+    const long long k = w.row0 + pt;
+    const bool klive = k < p.M;
+    const int a = klive ? (int)(k / p.m) : 0;
+    const int j = klive ? (int)(k - (long long)a * p.m) : 0;
+    const int n0 = w.col0 + pt, n1 = w.col0 + pt + 128;
+    const bool has1 = pt + 128 < kBN;
+    for (int kt = w.t0; kt < w.t1; ++kt) {
+      mbar_wait(bars + 32 + 8 * st, phase ^ 1);   // the stage is free
+      uint8_t* sg = smem + st * kStage;
+      const long long r0 = (long long)kt * kBK;
+      long long b = r0 / p.D;          // data row r = b*D + d, walked
+      long long d = r0 - b * p.D;
+#pragma unroll 1
+      for (int c = 0; c < kBK / 4; ++c) {
+        float z[4], g0[4], g1[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = r0 + 4 * c + e < p.R;
+          z[e] = live && klive
+                     ? __ldg(p.xk + (b * p.h + a) * p.D + d) *
+                           __ldg(p.x0 + (b * p.m + j) * p.D + d)
+                     : 0.f;
+          g0[e] = live && n0 < p.hp ? __ldg(p.g + (b * p.hp + n0) * p.D + d)
+                                    : 0.f;
+          g1[e] = live && has1 && n1 < p.hp
+                      ? __ldg(p.g + (b * p.hp + n1) * p.D + d)
+                      : 0.f;
+          if (++d == p.D) {
+            d = 0;
+            ++b;
+          }
+        }
+        store_z4(sg, pt, c, z);
+        store_split4(sg + 2 * kABytes, kWBytes, pt, c, g0);
+        if (has1) store_split4(sg + 2 * kABytes, kWBytes, pt + 128, c, g1);
+      }
+      // this thread's stores, visible to the tensor cores' reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (pt == 0) mbar_arrive(bars + 8 * st);
+      mbar_arrive(bars + 16 + 8 * st);
+      if (++st == kStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
 // Warpgroups 0 and 1 consume: warpgroup g runs the 12 wgmma of each
 // k-tile on rows 64g..64g+63, promotes the tile's sums into acc, and
-// writes acc at the end of the unit.
+// writes acc at the end of the unit: out[b, c, d] for row r = b*D + d
+// of a layer, dW[c, r] (row r = k) of the weight gradient.
+template <bool kToWgrad>
 __device__ __forceinline__ void consume(const Params& p, uint32_t s_base,
                                         uint32_t bars, int wg, int t) {
   int st = 0;
@@ -389,20 +496,23 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t s_base,
     for (int hr = 0; hr < 2; ++hr) {
       const long long r = un.row0 + wg * 64 + w * 16 + (lane >> 2) + 8 * hr;
       if (r < p.M) {
-        const long long b = r / p.D;
-        float* orow = dst + b * p.hp * p.D + (r - b * p.D);
+        const long long b = kToWgrad ? 0 : r / p.D;
+        // column c of this row lies at orow[c * stride]
+        float* orow = kToWgrad ? dst + r : dst + b * p.hp * p.D + (r - b * p.D);
+        const long long stride = kToWgrad ? p.M : p.D;
 #pragma unroll
         for (int jn = 0; jn < kBN / 8; ++jn)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = un.col0 + 8 * jn + 2 * (lane & 3) + e;
-            if (c < p.hp) orow[(long long)c * p.D] = acc[4 * jn + 2 * hr + e];
+            if (c < p.hp) orow[(long long)c * stride] = acc[4 * jn + 2 * hr + e];
           }
       }
     }
   }
 }
 
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 cin_kernel(const __grid_constant__ CUtensorMap wmap, const Params p) {
   extern __shared__ uint8_t smem_raw[];
@@ -426,10 +536,13 @@ cin_kernel(const __grid_constant__ CUtensorMap wmap, const Params p) {
   __syncthreads();
   if (t >= 256) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    produce(&wmap, p, smem, s_base, bars, x0s, t - 256);
+    if constexpr (kMode == kWgrad)
+      produce_wgrad(p, smem, bars, t - 256);
+    else
+      produce<kMode == kSlab>(&wmap, p, smem, s_base, bars, x0s, t - 256);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    consume(p, s_base, bars, t >> 7, t);
+    consume<kMode == kWgrad>(p, s_base, bars, t >> 7, t);
   }
 }
 
@@ -486,6 +599,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Launches cin_kernel<kMode> on min(units, SMs) blocks with `smem`
+// bytes of shared memory, then, for s > 1, the chunk sum into `out`.
+template <int kMode>
+int run(const CUtensorMap& wmap, Params p, size_t smem, float* out,
+        float* scratch, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      cin_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  p.dst = p.s > 1 ? scratch : out;
+  p.n_ct = (p.hp + kBN - 1) / kBN;
+  p.units = (p.M + kBM - 1) / kBM * p.n_ct * p.s;
+  const long long grid = p.units < sms ? p.units : sms;
+  cin_kernel<kMode><<<(unsigned)grid, kThreads, smem, stream>>>(wmap, p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (p.s > 1) {
+    const long long n = p.chunk_elems;
+    long long blocks = (n + 255) / 256;
+    if (blocks > 16LL * sms) blocks = 16LL * sms;
+    cin_sum_chunks<<<(unsigned)blocks, 256, 0, stream>>>(scratch, out, n,
+                                                         p.s);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int cin_split_launch(const float* W, float* w2, int hp, int K,
@@ -501,6 +644,11 @@ extern "C" int cin_split_launch(const float* W, float* w2, int hp, int K,
 
 // Returns a cudaError_t, or 100000 + the CUresult of a failed tensor-map
 // encoding.
+// The layer. x0's slab stays in shared memory while it fits beside the
+// two stages (m <= 123); a wider x0 (the input gradient of
+// a 200-map layer puts its 200-wide xk in the x0 slot) is read from
+// device memory instead. Returns a cudaError_t, or 100000 + the
+// CUresult of a failed tensor-map encoding.
 extern "C" int cin_launch(const float* x0, const float* xk, const float* w2,
                           float* out, float* scratch, long long B, int m,
                           int h, int hp, int D, int s, cudaStream_t stream) {
@@ -512,8 +660,8 @@ extern "C" int cin_launch(const float* x0, const float* xk, const float* w2,
   if (m <= 0 || h <= 0 || D <= 0 || s <= 0 || s > tiles ||
       (s > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = kStages * kStage + kBarBytes + (size_t)m * kBM * 4 + 1024;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t base = kStages * kStage + kBarBytes + 1024;
+  const size_t slab = base + (size_t)m * kBM * 4;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap wmap;
@@ -527,36 +675,52 @@ extern "C" int cin_launch(const float* x0, const float* xk, const float* w2,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (cr != CUDA_SUCCESS) return 100000 + (int)cr;
-  cudaError_t e = cudaFuncSetAttribute(
-      cin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  Params p;
+  Params p = {};
   p.x0 = x0;
   p.xk = xk;
-  p.dst = s > 1 ? scratch : out;
   p.M = M;
   p.m = m;
   p.h = h;
   p.hp = hp;
   p.D = D;
   p.s = s;
-  p.n_ct = (hp + kBN - 1) / kBN;
   p.tiles = tiles;
-  p.units = (M + kBM - 1) / kBM * p.n_ct * s;
   p.chunk_elems = B * hp * D;
-  const long long grid = p.units < sms ? p.units : sms;
-  cin_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(wmap, p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (s > 1) {
-    const long long n = p.chunk_elems;
-    long long blocks = (n + 255) / 256;
-    if (blocks > 16LL * sms) blocks = 16LL * sms;
-    cin_sum_chunks<<<(unsigned)blocks, 256, 0, stream>>>(scratch, out, n, s);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-  return 0;
+  if (slab <= kMaxSmem) return run<kSlab>(wmap, p, slab, out, scratch, stream);
+  return run<kStream>(wmap, p, base, out, scratch, stream);
+}
+
+// The weight gradient of a layer: dW[i, a, j] = sum_{b, d} g[b, i, d] *
+// xk[b, a, d] * x0[b, j, d] into dw (h', h, m), for x0 (B, m, D), xk
+// (B, h, D) and g (B, h', D), float32 and contiguous. The depth B*D is
+// cut into s chunks (s <= its 32-row tiles) whose partial sums the
+// scratch (s, h', h*m) holds for the chunk sum. Returns a cudaError_t.
+extern "C" int cin_wgrad_launch(const float* x0, const float* xk,
+                                const float* g, float* dw, float* scratch,
+                                long long B, int m, int h, int hp, int D,
+                                int s, cudaStream_t stream) {
+  const long long K = (long long)h * m;
+  if (K == 0 || hp == 0) return 0;
+  const long long R = B * D;
+  const long long tiles = (R + kBK - 1) / kBK;
+  if (m <= 0 || h <= 0 || D <= 0 || s <= 0 || (R > 0 && s > tiles) ||
+      tiles > 0x7fffffffLL || (s > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaMemsetAsync(dw, 0, K * hp * 4, stream);
+  CUtensorMap unused = {};
+  Params p = {};
+  p.x0 = x0;
+  p.xk = xk;
+  p.g = g;
+  p.M = K;
+  p.R = R;
+  p.m = m;
+  p.h = h;
+  p.hp = hp;
+  p.D = D;
+  p.s = s;
+  p.tiles = (int)tiles;
+  p.chunk_elems = K * hp;
+  return run<kWgrad>(unused, p, kStages * kStage + kBarBytes + 1024, dw,
+                     scratch, stream);
 }

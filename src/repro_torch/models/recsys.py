@@ -1,19 +1,24 @@
 """xDeepFM (Lian et al., KDD'18): linear + CIN + deep MLP over sparse
-field embeddings, for serving (port of ``repro/models/recsys.py``).
+field embeddings, for serving and training (port of
+``repro/models/recsys.py``).
 
 Assigned config: 39 sparse fields, embed_dim 10, CIN layers 200-200-200,
 MLP 400-400. Every CIN layer
     x^k_{h,d} = sum_{i,j} W^k_{h,i,j} * x^{k-1}_{i,d} * x^0_{j,d}
 goes through ``kernels/cin`` by device: the Hopper kernel for CUDA
-tensors, the plain version for CPU tensors. The MLP's matrix products
-and the embedding gathers are torch ops.
+tensors, the plain version for CPU tensors; under autograd the layer's
+gradient runs the ``cin`` backward kernels on the card. The MLP's
+matrix products and the embedding gathers are torch ops.
 
 Parameters live in an :class:`XDeepFM` module under the reference's
 names (``tables.embed``, ``tables.linear``, ``recsys.cin_w.<k>``,
 ``recsys.mlp_w.<k>``, ``recsys.mlp_b.<k>``, ``recsys.mlp_out``,
 ``recsys.cin_out``, ``recsys.bias``, ``recsys.sim_w``), drawn from a
-``torch.Generator``. They carry no gradient: training is not ported
-yet.
+``torch.Generator`` (``init_params``). They are made without
+``requires_grad``, so serving records no graph; the training entry
+points (``train.trainer``, ``train.steps.recsys_train_step``) turn it
+on for the model they train. ``loss_fn`` is the reference's stable
+BCE-with-logits in float32.
 
 SLING integration (DESIGN.md section 5): with ``sim_prior``,
 ``score_candidates`` adds ``sim_w`` times a SimRank single-source prior
@@ -114,6 +119,14 @@ class XDeepFM(nn.Module):
         return self.tables["embed"].device
 
 
+def init_params(cfg: RecsysConfig, generator: torch.Generator | None = None,
+                device=None) -> XDeepFM:
+    """The reference's ``init_params``: an :class:`XDeepFM` drawn from
+    ``generator`` (seeded 0 on ``device`` when None; ``device`` is
+    ``cuda`` unless the caller passes ``device="cpu"``)."""
+    return XDeepFM(cfg, generator=generator, device=device)
+
+
 def cin(x0: torch.Tensor, weights, backend: str = "auto") -> torch.Tensor:
     """Compressed Interaction Network: x0 (B, F, D); weights: list of
     (H_k, H_{k-1}, F). Returns (B, sum_k H_k) sum-pooled features, every
@@ -175,6 +188,17 @@ def forward(cfg: RecsysConfig, params: XDeepFM, batch: dict,
         logit = logit + r.sim_w * torch.as_tensor(batch["sim_scores"],
                                                   device=dev)
     return logit
+
+
+def loss_fn(cfg: RecsysConfig, params: XDeepFM, batch: dict) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["labels"]``
+    (B,), in float32, in the reference's stable form max(l, 0) - l*y +
+    log1p(exp(-|l|))."""
+    logit = forward(cfg, params, batch).to(torch.float32)
+    y = torch.as_tensor(batch["labels"], device=logit.device).to(
+        torch.float32)
+    return torch.mean(torch.clamp(logit, min=0) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
 
 
 def score_candidates(cfg: RecsysConfig, params: XDeepFM, batch: dict,

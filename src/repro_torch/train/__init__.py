@@ -1,2 +1,3 @@
-"""Step functions of the port (the serving half of
-``repro/train/steps.py`` so far)."""
+"""Training and step functions of the port: the step factories
+(``steps``), the loop (``trainer``), checkpoints (``checkpoint``) and
+the elastic plan (``elastic``)."""

@@ -1,9 +1,12 @@
-"""Step factories (port of the serving half of ``repro/train/steps.py``).
+"""Step factories (port of the recsys and SLING steps of
+``repro/train/steps.py``; the LM and GNN steps come with their models).
 
-The recsys steps return ``step(params, batch)``, the SLING steps
-``step(index, graph, batch)``; each runs under ``torch.inference_mode``
-(the port runs eagerly: nothing is traced or compiled). Training steps
-come with the training slice.
+``recsys_train_step`` returns ``step(params, opt_state, batch) ->
+(params, opt_state, {"loss"})``: one AdamW step in place, the CIN's
+gradient through its kernels on the card. The serving steps return
+``step(params, batch)``, the SLING steps ``step(index, graph, batch)``;
+each runs under ``torch.inference_mode`` (the port runs eagerly:
+nothing is traced or compiled).
 """
 from __future__ import annotations
 
@@ -15,6 +18,20 @@ from repro_torch.core.topk import stable_topk
 from repro_torch.models import recsys as recsys_lib
 
 RETRIEVAL_K = 128
+
+
+def recsys_train_step(cfg, opt) -> Callable:
+    """One training step of the xDeepFM ``params`` (an ``XDeepFM``,
+    trained in place) on ``batch`` (ids, labels[, mh_ids]) with the
+    AdamW ``opt``: the loss, its gradient on every leaf, the update."""
+    from repro_torch.train.trainer import value_and_grad
+
+    def step(params, opt_state, batch):
+        loss, grads = value_and_grad(
+            lambda p, b: recsys_lib.loss_fn(cfg, p, b), params, batch)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+    return step
 
 
 def recsys_serve_step(cfg) -> Callable:

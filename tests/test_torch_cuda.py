@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.cin import (cin_forward, cin_forward_reference,
-                                     cin_layer, cin_layer_ref)
+from repro_torch.kernels.cin import (cin_forward,
+                                     cin_forward_reference, cin_grad_w,
+                                     cin_grad_x0, cin_grad_xk, cin_layer,
+                                     cin_layer_backward_plain, cin_layer_ref)
 from repro_torch.kernels.cin.cin import (depth_split, split_weights,
                                          split_weights_on_card)
 from repro_torch.graph import generators
@@ -502,16 +504,169 @@ def test_cin_full_width_layer_on_card(card):
 
 
 @pytest.mark.cuda
-def test_cin_refuses_tensors_that_record_a_gradient(card):
-    """The kernel has no backward: rather than return an output cut off
-    from autograd, the wrapper raises; under no_grad it launches."""
+def test_cin_routes_grad_tensors_through_cinlayer_on_card(card):
+    """A tensor that records a gradient goes through the autograd
+    Function (whose backward runs the gradient kernels); under no_grad
+    the wrapper launches the layer kernel alone and records nothing."""
     x0, xk, W = (torch.as_tensor(a, device=card)
                  for a in _cin_case(1, 8, 4, 4, 6, 3))
     W.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        cin_layer(x0, xk, W)
+    before = cin_layer.launches
+    out = cin_layer(x0, xk, W)
+    assert type(out.grad_fn).__name__ == "CinLayerBackward"
+    assert cin_layer.launches == before + 1
     with torch.no_grad():
-        assert cin_layer(x0, xk, W).shape == (8, 6, 3)
+        plain = cin_layer(x0, xk, W)
+        assert plain.shape == (8, 6, 3) and plain.grad_fn is None
+    assert cin_layer.launches == before + 2
+    assert torch.equal(out.detach(), plain)
+
+
+# (B, m, h, h', D) of the gradient cases: small and ragged; xDeepFM's
+# layer 1 (h = m = 39) and layers 2-3 (h = 200: dx0 puts the 200-wide
+# xk in the layer kernel's x0 slot, which then streams x0 from device
+# memory); h' = 450 (three column tiles); m = 130 past the slab; the
+# serve batch at full width
+CIN_GRAD_SHAPES = [(13, 4, 4, 6, 4), (37, 5, 3, 65, 10),
+                   (64, 39, 39, 200, 10), (16, 39, 200, 200, 10),
+                   (5, 39, 200, 450, 10), (3, 130, 17, 129, 7),
+                   (512, 39, 200, 200, 10)]
+
+
+def _grad_case(seed, B, m, h, hp, D, card):
+    x0, xk, W = (torch.as_tensor(a, device=card)
+                 for a in _cin_case(seed, B, m, h, hp, D))
+    g = torch.as_tensor(np.random.default_rng(seed + 1).normal(
+        size=(B, hp, D)).astype(np.float32), device=card)
+    return x0, xk, W, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CIN_GRAD_SHAPES, ids=str)
+def test_cin_grad_kernels_match_plain_on_card(card, shape):
+    """Each gradient kernel against the plain formulas in float64,
+    relative to the gradient's max |value| (TOL_CIN = 2e-5); one launch
+    each."""
+    x0, xk, W, g = _grad_case(sum(shape), *shape, card)
+    refs = cin_layer_backward_plain(x0.double(), xk.double(), W.double(),
+                                    g.double())
+    for fn, ref in zip((cin_grad_x0, cin_grad_xk, cin_grad_w), refs):
+        before = fn.launches
+        got = fn(x0, xk, W, g)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        err = float((got.double() - ref).abs().max() / ref.abs().max())
+        assert err <= 2e-5, (fn.__name__, err)
+
+
+@pytest.mark.cuda
+def test_cin_layer_streams_a_wide_x0_on_card(card):
+    """The layer with m = 200 in the x0 slot (past the shared-memory
+    slab's 123): x0 read from device memory, within 2e-5."""
+    x0, xk, W = (torch.as_tensor(a, device=card)
+                 for a in _cin_case(11, 64, 200, 39, 200, 10))
+    got = cin_layer(x0, xk, W)
+    ref = cin_layer_ref(x0.double(), xk.double(), W.double())
+    assert float((got.double() - ref).abs().max()) <= \
+        2e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cin_grads_two_calls_give_the_same_bits_on_card(card):
+    """No atomics: the depth chunks are summed in chunk order."""
+    x0, xk, W, g = _grad_case(3, 512, 39, 200, 200, 10, card)
+    for fn in (cin_grad_x0, cin_grad_xk, cin_grad_w):
+        assert torch.equal(fn(x0, xk, W, g), fn(x0, xk, W, g))
+
+
+@pytest.mark.cuda
+def test_cin_autograd_never_runs_the_plain_path_on_card(card, monkeypatch):
+    """The CIN stack under autograd on CUDA tensors runs the forward and
+    the three gradient kernels and none of the plain formulas; its
+    gradients match autograd through the plain stack."""
+    cin_mod = importlib.import_module("repro_torch.kernels.cin.cin")
+    rng = np.random.default_rng(5)
+    B, m, D = 40, 39, 10
+    x0 = torch.as_tensor(rng.normal(size=(B, m, D)).astype(np.float32),
+                         device=card)
+    Ws = [torch.as_tensor((rng.normal(size=s) / np.sqrt(s[1] * s[2]))
+                          .astype(np.float32), device=card)
+          for s in ((200, 39, 39), (200, 200, 39), (120, 200, 39))]
+    cot = torch.as_tensor(rng.normal(size=(B, 520)).astype(np.float32),
+                          device=card)
+
+    def grads(backend):
+        leaves = [x0.clone().requires_grad_(True)] + \
+            [w.clone().requires_grad_(True) for w in Ws]
+        out = cin_forward(leaves[0], leaves[1:], backend=backend)
+        return torch.autograd.grad(out, leaves, cot)
+
+    want = grads("plain")
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain CIN formula ran on the card")
+    for name in ("cin_layer_ref", "cin_grad_xk_plain", "cin_grad_x0_plain",
+                 "cin_grad_w_plain"):
+        monkeypatch.setattr(cin_mod, name, refuse)
+    before = [f.launches for f in (cin_layer, cin_grad_x0, cin_grad_xk,
+                                   cin_grad_w)]
+    got = grads("auto")
+    torch.cuda.synchronize()
+    after = [f.launches for f in (cin_layer, cin_grad_x0, cin_grad_xk,
+                                  cin_grad_w)]
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 3, 3]
+    for gg, ww in zip(got, want):
+        assert float((gg - ww).abs().max()) <= 2e-5 * float(ww.abs().max())
+
+
+@pytest.mark.cuda
+def test_cin_grads_raise_without_library_on_card(card, monkeypatch,
+                                                 tmp_path):
+    cin_mod = importlib.import_module("repro_torch.kernels.cin.cin")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    monkeypatch.setattr(cin_mod, "_launch", [])
+    x0, xk, W, g = _grad_case(2, 4, 3, 3, 5, 2, card)
+    for fn in (cin_grad_x0, cin_grad_xk, cin_grad_w):
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="nvcc"):
+            fn(x0, xk, W, g)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+def test_recsys_train_step_on_card_matches_cpu(card):
+    """One xDeepFM smoke train step from the same parameters and batch on
+    the card (CIN kernels forward and backward) and on the CPU (plain):
+    equal losses to float32 order, parameters within 1e-3 of lr but on
+    near-zero gradients whose sign may flip (at most 2 lr)."""
+    from repro_torch.configs import xdeepfm
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.models import recsys
+    from repro_torch.optim.adamw import AdamW, named_leaves
+    from repro_torch.train.steps import recsys_train_step
+    cfg = xdeepfm.smoke()
+    lr = 1e-3
+    opt = AdamW(lr=lr)
+    batch = RecsysStream(cfg.n_fields, cfg.vocab_per_field, 64,
+                         cfg.multi_hot_fields, cfg.bag_size).batch_at(0)
+    out = {}
+    for dev in ("cpu", card):
+        model = recsys.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu").to(dev)
+        step = recsys_train_step(cfg, opt)
+        model, _, m = step(model, opt.init(model), batch)
+        out[str(dev)] = (float(m["loss"]), {
+            n: p.detach().cpu() for n, p in named_leaves(model)})
+    (l_c, p_c), (l_g, p_g) = out["cpu"], out[str(card)]
+    assert abs(l_c - l_g) <= 1e-5 * abs(l_c)
+    for n in p_c:
+        d = (p_c[n] - p_g[n]).abs() / lr
+        assert float(d.max()) <= 2.0 + 1e-3, n
+        assert int((d > 1e-3).sum()) <= max(1, d.numel() // 1000), n
 
 
 @pytest.mark.cuda
