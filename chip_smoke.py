@@ -160,7 +160,11 @@ Phases (any failure raises and the script exits non-zero):
      ``cin_grad_w``) must launch. One more step by parts, traced:
      forward, backward and AdamW by CUDA events, the device time by
      kernel family (cin, index, fill, gemm, other) and of each ``cin``
-     mode. Then, outside the counts, each gradient kernel against its
+     mode and its launches (``cin_mode``: layer, stream, wgrad, dx0,
+     gt, g2, split, sum), the g pre-passes of dW and dx0 on lines of
+     their own, the traced step's device peak; the step must run the
+     dx0, wgrad, gt, g2 and layer modes and never the streamed layer.
+     Then, outside the counts, each gradient kernel against its
      plain version on the card at B = 512 (the model's embeddings and
      O(1) inputs) and on a 4,096-row slice of a train batch (the plain
      dx0 materialises (B, 200, 200, 10): 13 GB in float64 there, 20 GB
@@ -209,9 +213,12 @@ Phases (any failure raises and the script exits non-zero):
      float32-FMA bound beside it, then timed at retrieval_cand's
      shapes); the three CIN gradient kernels at the same shapes (g
      unit normal): times, launches and the error against the plain
-     version at B = 512 from phase 3j, the 3xTF32 bound, the plain version's time and
-     ``torch.autograd.grad`` of that input through one ``torch.einsum``
-     a layer as the library call;
+     version at B = 512 from phase 3j, the 3xTF32 bound, the plain
+     version's time and ``torch.autograd.grad`` of that input through
+     one ``torch.einsum`` a layer as the library call; the pre-passes
+     inside dx0's and dW's times (W permuted and g by rows, split, for
+     dx0; g transposed and split for dW) held to their plain versions'
+     bits and timed;
   5. accuracy: on a 64-node graph built with the exact diagonal, every
      pair, single-source and top-k answer is within eps + 1e-5 of exact
      SimRank (power method), for the float32 index, an int16 index
@@ -275,7 +282,7 @@ ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "persistent_push_ms", "push_err",
               "levels_one_at_a_time_equal", "mixed_mesh_err",
               "mixed_mesh_launches", "mixed_mesh_topk", "rel_err",
-              "train_step_mode_ms")
+              "train_step_mode_ms", "prepass_ms")
 
 
 def card_line() -> str:
@@ -805,18 +812,78 @@ def cin_row(model, batch, dev, launches: int) -> dict:
     return row
 
 
+def cin_stream_check(dev) -> None:
+    """The layer kernel's mode with x0 read from device memory (x0 wider
+    than its shared-memory slab, m = 200; no main path runs it since
+    dx0 has its own kernel): one layer at B = 512 with the shapes of a
+    200-wide layer's dx0 as the layer kernel once took them, x0 and xk
+    (512, 200, 10) and W (39, 200, 200), O(1) inputs, held against its
+    plain version and float64 within TOL_CIN of max |out|, with the
+    profiler's kernel names showing the mode it ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.cin import cin_layer, cin_layer_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x0, xk = (torch.randn((512, 200, 10), generator=gen, device=dev)
+              for _ in range(2))
+    W = torch.randn((39, 200, 200), generator=gen, device=dev) / 200.0
+    with torch.inference_mode():
+        got = cin_layer(x0, xk, W)
+        e_plain = rel_err(got, cin_layer(x0, xk, W, backend="plain"))
+        e64 = rel_err(got, cin_layer_ref(x0.double(), xk.double(),
+                                         W.double()))
+        ms = time_ms(lambda: cin_layer(x0, xk, W), 20)
+        modes = set()
+        for _ in range(3):   # the profiler may keep no record of a window
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                cin_layer(x0, xk, W)
+                torch.cuda.synchronize()
+            modes = {cin_mode(r.key) for r in prof.key_averages()
+                     if r.device_type == DeviceType.CUDA
+                     and "cin_kernel" in r.key.lower()}
+            if modes:
+                break
+    print(f"[kernel] cin with x0 streamed (m = 200, B = 512): vs plain "
+          f"{e_plain:.3g}, vs float64 {e64:.3g} of max |out|, "
+          f"{ms:.4f} ms; the profiler's cin_kernel modes: "
+          f"{sorted(modes) or 'no record in 3 windows'}")
+    if not max(e_plain, e64) <= TOL_CIN:
+        raise RuntimeError(f"cin with x0 streamed disagrees with its plain "
+                           f"version: {e_plain}, {e64}")
+    if modes and modes != {"stream"}:
+        raise RuntimeError(f"a 200-wide x0 ran cin_kernel's modes {modes}, "
+                           f"not the streamed one")
+
+
 GRAD_KERNELS = ("cin_grad_x0", "cin_grad_xk", "cin_grad_w")
 
 
+# the parts of csrc/cin.cu by kernel name: cin_kernel's three modes (the
+# layer with x0's slab, the layer with x0 streamed, dW), dx0's kernel,
+# dW's and dx0's g pre-passes, the W splits (the layer's and dx0's), the
+# chunk sum
+CIN_MODES = ("layer", "stream", "wgrad", "dx0", "gt", "g2", "split", "sum")
+
+
 def cin_mode(name: str) -> str:
-    """The part of ``csrc/cin.cu`` a kernel name (demangled or not)
-    belongs to: cin_kernel's three modes, the W split, the chunk sum."""
-    for mode, tags in (("layer", ("<0>", "ili0e")),
-                       ("stream", ("<1>", "ili1e")),
-                       ("wgrad", ("<2>", "ili2e"))):
-        if "cin_kernel" in name and any(t in name for t in tags):
+    """The part of ``csrc/cin.cu`` a kernel name (demangled, mangled or
+    lower-cased) belongs to, one of CIN_MODES; a name it does not know
+    is returned as it is, so a new kernel shows under its own name."""
+    low = name.lower()
+    if "cin_kernel" in low:
+        for mode, k in zip(CIN_MODES, range(3)):
+            if f"<{k}>" in low or f"ili{k}e" in low:
+                return mode
+    for mode, tag in (("dx0", "cin_x0grad_kernel"), ("gt", "cin_split_gt"),
+                      ("g2", "cin_split_g"), ("split", "cin_split"),
+                      ("sum", "cin_sum_chunks")):
+        if tag in low:
             return mode
-    return "split" if "cin_split" in name else "sum"
+    return name
 
 
 def grad_cases(model, batch, dev, seed: int):
@@ -1073,22 +1140,26 @@ def train_phase(dev, tmp) -> dict:
         return [a.elapsed_time(b) for a, b in zip(e, e[1:])]
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         parts = traced_step()
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
     rows = [r for r in prof.key_averages()
             if r.device_type == DeviceType.CUDA
             and not getattr(r, "is_user_annotation", False)]
     buckets = {"cin": 0.0, "index": 0.0, "fill": 0.0, "gemm": 0.0,
                "other": 0.0}
     by_kernel = {}
+    mode_calls = {}
     for r in rows:
         us = r.self_device_time_total
         low = r.key.lower()
         if "cin_" in low:
             key = "cin"
-            mode = cin_mode(low)
+            mode = cin_mode(r.key)
             by_kernel[mode] = by_kernel.get(mode, 0.0) + us / 1e3
+            mode_calls[mode] = mode_calls.get(mode, 0) + r.count
         elif "index" in low or "scatter" in low or "gather" in low:
             key = "index"
         elif "fill" in low:
@@ -1105,12 +1176,32 @@ def train_phase(dev, tmp) -> dict:
           f"{sum(parts):.3f}); device time by kernel family "
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                       for k, v in buckets.items())
-          + f"; cin kernels by mode {by_kernel} (layer: forward, dxk "
-            f"and layer 1's dx0; stream: dx0 of 200-wide layers; "
-            f"wgrad: dW)")
+          + f"; cin kernels by mode {by_kernel}, launches {mode_calls} "
+            f"(layer: forward and dxk; dx0: every layer's dx0, the GEMM "
+            f"over g with xk in its epilogue; wgrad: dW; gt: dW's g "
+            f"pre-pass; g2: dx0's g pre-pass; split: the W splits of the "
+            f"layer and of dx0; sum: the depth chunks' sum; stream: the "
+            f"layer with x0 read from device memory, which training must "
+            f"not run)")
+    # each pre-pass reads g once and writes its two TF32 parts
+    g_bytes = sum(4 * (1 + 2) * B * W.shape[0] * cfg.embed_dim
+                  for W in model.recsys.cin_w)
+    for mode, what in (("gt", "dW's g pre-pass (cin_split_gt)"),
+                       ("g2", "dx0's g pre-pass (cin_split_g)")):
+        ms = by_kernel.get(mode, 0.0)
+        print(f"[train] {what}: {ms:.3f} ms for {mode_calls.get(mode, 0)} "
+              f"launches, {g_bytes / 1e9:.3f} GB moved "
+              f"({g_bytes / 1e6 / max(ms, 1e-9):.1f} GB/s); each launch's "
+              f"copy lives for its gradient call")
+    print(f"[train] the traced step's device peak {step_peak:.2f} GiB")
     for line in prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=12).splitlines():
         print(f"[train] {line}")
+    if "stream" in by_kernel or not all(k in by_kernel for k in
+                                        ("layer", "dx0", "wgrad", "gt",
+                                         "g2")):
+        raise RuntimeError(f"the train step did not run the CIN gradient's "
+                           f"modes as designed: {by_kernel}")
     del state, batches
 
     # ---- the gradient kernels vs plain: B = 512 and a train slice ----
@@ -1149,6 +1240,7 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
     import torch
 
     from repro_torch.kernels import cin as kcin
+    from repro_torch.kernels.cin import cin as kc
     from repro_torch.kernels.cin import ref
 
     plain = {"cin_grad_x0": lambda x0, xk, W, g: ref.cin_grad_x0_plain(
@@ -1168,6 +1260,26 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
     ys = [torch.einsum("ihm,bhd,bmd->bid", W, xk, x0)
           for x0, xk, W in leaves]
     gs = [g for *_, g in layers]
+    # the pre-passes inside the wrappers' times, each a tuple of outputs:
+    # dx0's split of W permuted and of g by rows, dW's g transposed and
+    # split; each held to its plain version's bits
+    prepass = {"cin_grad_x0": (
+                   lambda W, g: (kc.split_weights_x0_on_card(W),
+                                 kc.split_grad_rows_on_card(g)),
+                   lambda W, g: (kc.split_weights_x0(W),
+                                 kc.split_grad_rows(g))),
+               "cin_grad_w": (lambda W, g: (kc.split_grad_t_on_card(g),),
+                              lambda W, g: (kc.split_grad_t(g),))}
+    pre = {}
+    for k, (card_fn, plain_fn) in prepass.items():
+        same = all(torch.equal(x, y) for _, _, W, g in layers
+                   for x, y in zip(card_fn(W, g), plain_fn(W, g)))
+        if not same:
+            raise RuntimeError(f"{k}'s pre-pass disagrees with its plain "
+                               f"version")
+        pre[k] = tuple(time_ms(lambda: [fn(W, g) for _, _, W, g in layers],
+                               reps) for fn, reps in ((card_fn, 20),
+                                                      (plain_fn, 5)))
     rows = []
     for k in GRAD_KERNELS:
         fn = getattr(kcin, k)
@@ -1184,7 +1296,7 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
             ys, wrt, gs, retain_graph=True), 5)
         lib = torch.autograd.grad(ys, wrt, gs, retain_graph=True)
         e_lib = max(rel_err(a, b) for a, b in zip(lib, outs))
-        mode = {"cin_grad_x0": "stream", "cin_grad_xk": "layer",
+        mode = {"cin_grad_x0": "dx0", "cin_grad_xk": "layer",
                 "cin_grad_w": "wgrad"}[k]
         row = {"name": k, "route": "cuda",
                "source": "src/repro_torch/csrc/cin.cu",
@@ -1193,13 +1305,16 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms, "rel_err": rel,
                "train_step_mode_ms": train_ms.get(mode),
+               "prepass_ms": pre.get(k, (None,))[0],
                "shape": f"B={B} m={m} D={D} layers "
                         + "-".join(str(W.shape[1]) for _, _, W, _ in layers)
                         + f"-{layers[-1][2].shape[0]}"}
         print(f"[kernel] {k}: vs plain {rel:.3g} of max |grad| (phase 3j, "
               f"bound {TOL_CIN}), the einsum autograd library call vs the "
               f"kernel {e_lib:.3g}; {ops / 3 / 1e9:.2f} GFLOP (x3 on the "
-              f"tensor cores), kernel at {ops / 3 / ms / 1e9:.2f} TFLOP/s")
+              f"tensor cores), kernel at {ops / 3 / ms / 1e9:.2f} TFLOP/s"
+              + (f"; its pre-pass (in ms) {pre[k][0]:.4f} ms, plain "
+                 f"{pre[k][1]:.4f} ms, equal bits" if k in pre else ""))
         rows.append(row)
         del outs, lib
     return rows
@@ -3841,6 +3956,7 @@ def main() -> int:
     del scale
     kernels.append(spmm_row(g, p, dev, nodes, total["spmm"]))
     kernels.append(cin_row(model, serve_batch, dev, total["cin"]))
+    cin_stream_check(dev)
     kernels.extend(cin_grad_rows(model, serve_batch, dev, total, train_ms,
                                  grad_errors))
     del model

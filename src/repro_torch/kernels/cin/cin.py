@@ -36,15 +36,34 @@ form (``repro/models/recsys.py:95``); its Pallas kernel has no
 backward. Here :class:`CinLayer` is the layer's
 ``torch.autograd.Function``: when autograd records a graph through
 :func:`cin_layer`, its backward runs three wrappers, each counting its
-launches: :func:`cin_grad_xk` (the layer kernel on x0, g and W
-permuted), :func:`cin_grad_x0` (the layer kernel on xk, g and W
-permuted; xk in the x0 slot is 200 wide at layers 2-3, so the kernel
-reads x0 from device memory instead of its shared-memory slab) and
-:func:`cin_grad_w` (``cin_wgrad``, the same consumers over a GEMM whose
-depth is the B*D data rows). On a CUDA tensor they launch or raise; on
-a CPU tensor they run the plain formulas of ``ref.py``. Under
-``no_grad`` / ``inference_mode`` :func:`cin_layer` launches the layer
-kernel directly, as serving always has.
+launches:
+
+* :func:`cin_grad_xk`: the layer kernel on x0, g and W permuted;
+* :func:`cin_grad_x0`: the contraction regrouped as a GEMM over g with
+  xk in the epilogue, T[r, j*h8 + a] = sum_i g[r, i] * W[i, a, j], then
+  dx0[r, j] = sum_a xk[r, a] * T[r, j*h8 + a] (``cin_grad_x0_launch``,
+  rows r = b*D + d, depth h'). Both operands are split by pre-passes
+  and brought by TMA: A is g by rows (:func:`split_grad_rows`, 1.05 GB
+  for the call at B = 65,536), B is W permuted with h rounded up to h8,
+  a multiple of 8 (:func:`split_weights_x0`); a column tile holds
+  J = 200 // h8 whole j (:func:`x0grad_tiling`). The depth is h' (200),
+  not h*h' (40,000), and no column of the tile is padding;
+* :func:`cin_grad_w`: ``cin_wgrad``, the GEMM dW[i, k] = sum_r g[r, i] *
+  z[r, k] with rows k = a*m + j and depth the B*D data rows. A pre-pass
+  (:func:`split_grad_t`) writes g transposed to (h', B*D) in its two
+  TF32 parts, so the kernel brings it by TMA (1.05 GB for the call at
+  B = 65,536); its producer forms z from x0 and xk depth tiles staged
+  in shared memory by coalesced copies.
+
+Each is bound by operations, 3 x 2*B*D*h*m*h' at the TF32 rate; on
+the card what holds dx0 back is its epilogue's xk reads and the
+operands' traffic, and dW its producer's work a depth tile (copies,
+product, split). Shared memory: dx0 the two 82 KB stages alone
+(165 KB), dW the stages and a ring of 3 depth tiles of x0 and xk rows
+(18.6 KB at m = 39, at most 55 KB). On a CUDA tensor they launch or
+raise; on a CPU tensor they run the plain formulas of ``ref.py``.
+Under ``no_grad`` / ``inference_mode`` :func:`cin_layer` launches the
+layer kernel directly, as serving always has.
 """
 from __future__ import annotations
 
@@ -60,22 +79,29 @@ CIN_BACKENDS = ("auto", "plain")
 TILE_ROWS, TILE_MAPS, TILE_K = 128, 200, 32   # csrc/cin.cu kBM, kBN, kBK
 CARD_SMS = 132         # the H100 SXM's SMs: the split targets one wave
 MIN_CHUNK_TILES = 8    # k-tiles a depth chunk keeps at least
-_launch = []   # the bound C functions, filled on first launch
+_launch = {}   # the bound C functions by name, filled on first launch
 
 
-def _launcher():
-    """(cin_split_launch, cin_launch, cin_wgrad_launch) of the built
-    library."""
+def _launcher() -> dict:
+    """The bound C functions of the built library, keyed by their names
+    without ``_launch``: cin_split, cin, cin_wgrad, cin_split_wx0,
+    cin_grad_x0, cin_split_gt, cin_split_g."""
     if not _launch:
         lib = _build.load("cin")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        split, layer = lib.cin_split_launch, lib.cin_launch
-        wgrad = lib.cin_wgrad_launch
-        split.argtypes = [ptr, ptr, i32, i32, ptr]
-        layer.argtypes = [ptr] * 5 + [ctypes.c_longlong] + [i32] * 5 + [ptr]
-        wgrad.argtypes = layer.argtypes
-        split.restype = layer.restype = wgrad.restype = ctypes.c_int
-        _launch.extend((split, layer, wgrad))
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        layer = [ptr] * 5 + [i64] + [i32] * 5 + [ptr]
+        grad_split = [ptr, ptr, i64, i32, i32, ptr]
+        for name, argtypes in (
+                ("cin_split", [ptr, ptr, i32, i32, ptr]),
+                ("cin", layer),
+                ("cin_wgrad", layer),
+                ("cin_split_wx0", [ptr, ptr, i32, i32, i32, ptr]),
+                ("cin_grad_x0", [ptr] * 4 + [i64] + [i32] * 6 + [ptr]),
+                ("cin_split_gt", grad_split),
+                ("cin_split_g", grad_split)):
+            fn = getattr(lib, name + "_launch")
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _launch[name] = fn
     return _launch
 
 
@@ -121,14 +147,7 @@ def split_weights_on_card(W: torch.Tensor) -> torch.Tensor:
     """:func:`split_weights` by the ``cin_split`` kernel, for a CUDA
     tensor W; the same bits."""
     hp, h, m = W.shape
-    K = h * m
-    w2 = torch.empty((2, hp, -(-K // 4) * 4), dtype=torch.float32,
-                     device=W.device)
-    W = W.contiguous()
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    _build.check(_launcher()[0](W.data_ptr(), w2.data_ptr(), hp, K, stream),
-                 "cin_split")
-    return w2
+    return _on_card("cin_split", (2, hp, -(-h * m // 4) * 4), W, hp, h * m)
 
 
 def depth_split(rows: int, hp: int, K: int) -> int:
@@ -142,6 +161,85 @@ def depth_split(rows: int, hp: int, K: int) -> int:
         return 1
     return max(1, min(CARD_SMS // tiles,
                       -(-K // TILE_K) // MIN_CHUNK_TILES))
+
+
+def split_weights_x0(W: torch.Tensor) -> torch.Tensor:
+    """dx0's B operand: W (h', h, m) -> (2, m*h8, Kp) float32, row
+    c = j*h8 + a holding W[:, a, j] in its two TF32 parts (h8 = h
+    rounded up to 8, rows a >= h zero; Kp = h' rounded up to 4, zero
+    past h'): :func:`split_weights` of W permuted to (m, h8, h'). The
+    plain version of the ``cin_split_wx0`` kernel."""
+    hp, h, m = W.shape
+    h8 = -(-h // 8) * 8
+    wp = W.new_zeros((m, h8, hp))
+    wp[:, :h] = W.permute(2, 1, 0)
+    return split_weights(wp.reshape(m * h8, hp, 1))
+
+
+def split_grad_t(g: torch.Tensor) -> torch.Tensor:
+    """dW's B operand: g (B, h', D) -> (2, h', Rp) float32, column
+    r = b*D + d holding g[b, :, d] in its two TF32 parts (Rp = B*D
+    rounded up to 4, zero past B*D): :func:`split_weights` of g
+    transposed to (h', B*D). The plain version of the ``cin_split_gt``
+    kernel."""
+    B, hp, D = g.shape
+    return split_weights(g.permute(1, 0, 2).reshape(hp, B * D, 1))
+
+
+def split_grad_rows(g: torch.Tensor) -> torch.Tensor:
+    """dx0's A operand: g (B, h', D) -> (2, B*D, Kp) float32, row
+    r = b*D + d holding g[b, :, d] in its two TF32 parts (Kp = h'
+    rounded up to 4, zero past h'): :func:`split_weights` of g permuted
+    to (B*D, h'). The plain version of the ``cin_split_g`` kernel."""
+    B, hp, D = g.shape
+    return split_weights(g.permute(0, 2, 1).reshape(B * D, hp, 1))
+
+
+def _on_card(name: str, shape, src: torch.Tensor, *args) -> torch.Tensor:
+    """A new float32 ``shape`` tensor written from ``src`` by the split
+    kernel ``name`` of :func:`_launcher` (called as fn(src, out, *args,
+    stream))."""
+    out = torch.empty(shape, dtype=torch.float32, device=src.device)
+    if out.numel() == 0:
+        return out
+    src = src.contiguous()
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    _build.check(_launcher()[name](src.data_ptr(), out.data_ptr(), *args,
+                                   stream), name)
+    return out
+
+
+def split_weights_x0_on_card(W: torch.Tensor) -> torch.Tensor:
+    """:func:`split_weights_x0` by the ``cin_split_wx0`` kernel, for a
+    CUDA tensor W; the same bits."""
+    hp, h, m = W.shape
+    return _on_card("cin_split_wx0", (2, m * -(-h // 8) * 8, -(-hp // 4) * 4),
+                    W, hp, h, m)
+
+
+def split_grad_t_on_card(g: torch.Tensor) -> torch.Tensor:
+    """:func:`split_grad_t` by the ``cin_split_gt`` kernel, for a CUDA
+    tensor g; the same bits."""
+    B, hp, D = g.shape
+    return _on_card("cin_split_gt", (2, hp, -(-B * D // 4) * 4), g, B, hp, D)
+
+
+def split_grad_rows_on_card(g: torch.Tensor) -> torch.Tensor:
+    """:func:`split_grad_rows` by the ``cin_split_g`` kernel, for a CUDA
+    tensor g; the same bits."""
+    B, hp, D = g.shape
+    return _on_card("cin_split_g", (2, B * D, -(-hp // 4) * 4), g, B, hp, D)
+
+
+def x0grad_tiling(m: int, h: int) -> tuple[int, int, int, int]:
+    """(h8, J, n_sub, units a row tile) of dx0's kernel for x0 width m
+    and xk width h: h8 = h rounded up to 8 (the columns of one j in the
+    B operand); a 200-column tile holds J = 200 // h8 whole j, or, past
+    h8 = 200, one j over n_sub = ceil(h8 / 200) column tiles walked in
+    order; a row tile has ceil(m / J) units."""
+    h8 = -(-h // 8) * 8
+    J = TILE_MAPS // h8 if h8 <= TILE_MAPS else 1
+    return h8, J, -(-h8 // TILE_MAPS), -(-m // J)
 
 
 def _layer_on_card(x0: torch.Tensor, xk: torch.Tensor,
@@ -159,10 +257,10 @@ def _layer_on_card(x0: torch.Tensor, xk: torch.Tensor,
     scratch = torch.empty((s, B, hp, D), dtype=torch.float32,
                           device=x0.device) if s > 1 else None
     stream = torch.cuda.current_stream(x0.device).cuda_stream
-    err = _launcher()[1](x0.data_ptr(), xk.data_ptr(), w2.data_ptr(),
-                         out.data_ptr(),
-                         None if scratch is None else scratch.data_ptr(),
-                         B, m, h, hp, D, s, stream)
+    err = _launcher()["cin"](x0.data_ptr(), xk.data_ptr(), w2.data_ptr(),
+                             out.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(),
+                             B, m, h, hp, D, s, stream)
     _build.check(err, "cin")
     return out
 
@@ -228,15 +326,29 @@ def cin_grad_xk(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
 
 def cin_grad_x0(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
                 g: torch.Tensor) -> torch.Tensor:
-    """dL/dx0 (B, m, D) of one layer: on a CUDA tensor the layer kernel
-    on (xk, g, W permuted (2, 0, 1)), xk in the x0 slot (read from
-    device memory where it is too wide for the kernel's shared-memory
-    slab), on a CPU tensor :func:`~repro_torch.kernels.cin.ref.
-    cin_grad_x0_plain`. ``cin_grad_x0.launches`` counts its launches."""
+    """dL/dx0 (B, m, D) of one layer: on a CUDA tensor the ``cin_grad_x0``
+    kernel (a 3xTF32 GEMM over :func:`split_grad_rows` of g and
+    :func:`split_weights_x0` of W, both brought by TMA, then a dot with
+    xk in its epilogue), on a CPU tensor
+    :func:`~repro_torch.kernels.cin.ref.cin_grad_x0_plain`.
+    ``cin_grad_x0.launches`` counts its launches."""
     _check_grad(x0, xk, W, g)
     if x0.device.type == "cpu":
         return cin_grad_x0_plain(xk, W, g)
-    out = _layer_on_card(xk, g, W.permute(2, 0, 1).contiguous())
+    B, m, D = x0.shape
+    h, hp = xk.shape[1], W.shape[0]
+    xk, g = xk.contiguous(), g.contiguous()
+    out = torch.empty((B, m, D), dtype=torch.float32, device=x0.device)
+    if out.numel() == 0:
+        return out
+    wt = split_weights_x0_on_card(W)
+    g2 = split_grad_rows_on_card(g)
+    _, J, n_sub, _ = x0grad_tiling(m, h)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    err = _launcher()["cin_grad_x0"](xk.data_ptr(), g2.data_ptr(),
+                                     wt.data_ptr(), out.data_ptr(), B, m, h,
+                                     hp, D, J, n_sub, stream)
+    _build.check(err, "cin_grad_x0")
     _count(cin_grad_x0)
     return out
 
@@ -244,7 +356,8 @@ def cin_grad_x0(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
 def cin_grad_w(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
                g: torch.Tensor) -> torch.Tensor:
     """dL/dW (h', h, m) of one layer: on a CUDA tensor the ``cin_wgrad``
-    kernel (3xTF32 ``wgmma`` over the B*D data rows, depth-split by
+    kernel (3xTF32 ``wgmma`` over the B*D data rows with
+    :func:`split_grad_t` of g as its B operand, depth-split by
     :func:`depth_split` into chunks summed in chunk order), on a CPU
     tensor :func:`~repro_torch.kernels.cin.ref.cin_grad_w_plain`.
     ``cin_grad_w.launches`` counts its launches."""
@@ -253,18 +366,20 @@ def cin_grad_w(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
         return cin_grad_w_plain(x0, xk, g)
     B, m, D = x0.shape
     h, hp = xk.shape[1], W.shape[0]
-    x0, xk, g = x0.contiguous(), xk.contiguous(), g.contiguous()
+    x0, xk = x0.contiguous(), xk.contiguous()
     dw = torch.empty(W.shape, dtype=torch.float32, device=x0.device)
     if dw.numel() == 0:
         return dw
+    gt = split_grad_t_on_card(g)
     s = depth_split(h * m, hp, B * D)
     scratch = torch.empty((s, hp, h * m), dtype=torch.float32,
                           device=x0.device) if s > 1 else None
     stream = torch.cuda.current_stream(x0.device).cuda_stream
-    err = _launcher()[2](x0.data_ptr(), xk.data_ptr(), g.data_ptr(),
-                         dw.data_ptr(),
-                         None if scratch is None else scratch.data_ptr(),
-                         B, m, h, hp, D, s, stream)
+    err = _launcher()["cin_wgrad"](x0.data_ptr(), xk.data_ptr(),
+                                   gt.data_ptr(), dw.data_ptr(),
+                                   None if scratch is None
+                                   else scratch.data_ptr(),
+                                   B, m, h, hp, D, s, stream)
     _build.check(err, "cin_wgrad")
     _count(cin_grad_w)
     return dw

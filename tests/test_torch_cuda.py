@@ -16,8 +16,13 @@ from repro_torch.kernels.cin import (cin_forward,
                                      cin_forward_reference, cin_grad_w,
                                      cin_grad_x0, cin_grad_xk, cin_layer,
                                      cin_layer_backward_plain, cin_layer_ref)
-from repro_torch.kernels.cin.cin import (depth_split, split_weights,
-                                         split_weights_on_card)
+from repro_torch.kernels.cin.cin import (depth_split, split_grad_rows,
+                                         split_grad_rows_on_card,
+                                         split_grad_t,
+                                         split_grad_t_on_card, split_weights,
+                                         split_weights_on_card,
+                                         split_weights_x0,
+                                         split_weights_x0_on_card)
 from repro_torch.graph import generators
 from repro_torch.core import hp_index
 from repro_torch.core.single_source import slab_horner_push
@@ -523,14 +528,23 @@ def test_cin_routes_grad_tensors_through_cinlayer_on_card(card):
 
 
 # (B, m, h, h', D) of the gradient cases: small and ragged; xDeepFM's
-# layer 1 (h = m = 39) and layers 2-3 (h = 200: dx0 puts the 200-wide
-# xk in the layer kernel's x0 slot, which then streams x0 from device
-# memory); h' = 450 (three column tiles); m = 130 past the slab; the
-# serve batch at full width
+# layer 1 (h = m = 39: dx0's column tile holds J = 5 whole j of h8 = 40
+# columns) and layers 2-3 (h = 200: J = 1); h' = 450 (three column tiles
+# of dW); m = 130 past the layer's slab and past dW's 128 staged x0 rows;
+# the serve batch at full width. Then the redesign's edges: h = 17
+# (h8 = 24, J = 8 with 8 columns of the tile past the unit's j); h = 201
+# and 450 (h8 = 208 and 456: one j walks 2 and 3 column tiles); h' = 13
+# and 203, not multiples of 8 (the last k-tile's live k8 steps); B*D =
+# 130 and 290 rows, not multiples of 128; m = 1 (dW stages 1 x0 row and
+# up to 128 xk rows a depth tile)
 CIN_GRAD_SHAPES = [(13, 4, 4, 6, 4), (37, 5, 3, 65, 10),
                    (64, 39, 39, 200, 10), (16, 39, 200, 200, 10),
                    (5, 39, 200, 450, 10), (3, 130, 17, 129, 7),
-                   (512, 39, 200, 200, 10)]
+                   (512, 39, 200, 200, 10),
+                   (29, 39, 17, 200, 10), (7, 12, 201, 33, 10),
+                   (6, 39, 450, 70, 10), (40, 39, 200, 203, 10),
+                   (13, 39, 200, 200, 10), (29, 7, 39, 13, 10),
+                   (50, 1, 200, 200, 10), (20, 1, 1, 3, 5)]
 
 
 def _grad_case(seed, B, m, h, hp, D, card):
@@ -572,12 +586,69 @@ def test_cin_layer_streams_a_wide_x0_on_card(card):
         2e-5 * float(ref.abs().max())
 
 
+def _cin_kernel_modes(fn, *args):
+    """The modes of csrc/cin.cu's GEMM kernels that one call of ``fn``
+    launched, from a profiler trace: cin_kernel's 0 layer (slab), 1 layer
+    (x0 streamed), 2 dW, and 3 for cin_x0grad_kernel (dx0)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    return {mode for n in names if "cin_kernel" in n for mode in range(3)
+            if f"<{mode}>" in n or f"ILi{mode}E" in n} | \
+        {3 for n in names if "cin_x0grad_kernel" in n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [39, 200])
+def test_cin_grad_x0_runs_the_dx0_gemm_on_card(card, h):
+    """dx0 of xDeepFM's layer 1 (h = 39) and of a 200-wide layer runs
+    dx0's kernel (3), never the layer kernel's modes: one launch, within
+    2e-5 of float64."""
+    x0, xk, W, g = _grad_case(h, 512, 39, h, 200, 10, card)
+    assert _cin_kernel_modes(cin_grad_x0, x0, xk, W, g) == {3}
+    assert _cin_kernel_modes(cin_grad_w, x0, xk, W, g) == {2}
+    before = cin_grad_x0.launches
+    got = cin_grad_x0(x0, xk, W, g)
+    torch.cuda.synchronize()
+    assert cin_grad_x0.launches == before + 1
+    ref = cin_layer_backward_plain(x0.double(), xk.double(), W.double(),
+                                   g.double())[0]
+    assert float((got.double() - ref).abs().max()) <= \
+        2e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 200, 10), (13, 65, 10),
+                                   (3, 7, 3), (1, 1, 1)], ids=str)
+def test_cin_grad_pre_passes_equal_plain_bits_on_card(card, shape):
+    """dW's pre-pass (g transposed to (h', B*D) in two TF32 parts), dx0's
+    (g by rows, (B*D, h')) and dx0's split of W permuted to (m*h8, h')
+    equal their plain versions bit for bit, pads included."""
+    B, hp, D = shape
+    g = torch.as_tensor(np.random.default_rng(B).normal(
+        size=shape).astype(np.float32), device=card)
+    gt = split_grad_t_on_card(g)
+    assert gt.shape == (2, hp, -(-B * D // 4) * 4)
+    assert torch.equal(gt, split_grad_t(g))
+    g2 = split_grad_rows_on_card(g)
+    assert g2.shape == (2, B * D, -(-hp // 4) * 4)
+    assert torch.equal(g2, split_grad_rows(g))
+    for h, m in ((39, 39), (200, 39), (17, 5), (450, 2)):
+        W = torch.as_tensor(_cin_case(h, 1, m, h, hp, 1)[2], device=card)
+        assert torch.equal(split_weights_x0_on_card(W), split_weights_x0(W))
+
+
 @pytest.mark.cuda
 def test_cin_grads_two_calls_give_the_same_bits_on_card(card):
-    """No atomics: the depth chunks are summed in chunk order."""
-    x0, xk, W, g = _grad_case(3, 512, 39, 200, 200, 10, card)
-    for fn in (cin_grad_x0, cin_grad_xk, cin_grad_w):
-        assert torch.equal(fn(x0, xk, W, g), fn(x0, xk, W, g))
+    """No atomics: the depth chunks are summed in chunk order, dx0's
+    quads in a fixed order."""
+    for h in (200, 39):
+        x0, xk, W, g = _grad_case(3, 512, 39, h, 200, 10, card)
+        for fn in (cin_grad_x0, cin_grad_xk, cin_grad_w):
+            assert torch.equal(fn(x0, xk, W, g), fn(x0, xk, W, g))
 
 
 @pytest.mark.cuda
