@@ -175,6 +175,34 @@ Phases (any failure raises and the script exits non-zero):
      (equal bits), one more step from each (equal bits, in
      ``torch.use_deterministic_algorithms``: the embedding gradient's
      ``index_add_`` adds with atomics);
+  3k. the GNN stack on the card (``models/gnn.py``; plain torch ops,
+     as the reference's are XLA scatters): (a) full_graph_sm
+     (``GNN_SHAPE_DEFS``: 2,708 nodes, d_feat 1,433) on
+     ``barabasi_albert(2708, 2)``, each of gcn-cora, gat-cora, pna and
+     graphcast at ``full()`` with d_in = d_feat (graphcast at its 16
+     layers x 512 on ``_gnn_cell``'s layout: n grid nodes, the mesh on
+     n mesh nodes, 2n g2m and 2n m2g edges, seeded; its mesh is
+     ``grid2d(52, 52)``, 2,704 nodes and 10,608 edges, since through the
+     BA graph's hubs its residual sums overflow float32 at random
+     init), one warm-up and 5
+     timed ``gnn_train_step``s with ``AdamW(lr=1e-3)``: every loss
+     (finite), the step p50 and max by CUDA events, TFLOP/s by
+     ``gnn_model_flops``, the ``gnn_infer_step`` p50 and the device
+     peak, parameters and outputs on the card; (b) minibatch_lg:
+     ``sample_subgraph`` on phase 3's Enron graph, 1,024 seeded seeds,
+     fanout (15, 10), n_pad = 169,984 and m_pad = 168,960, ``knn=``
+     phase 3f's all-source ``KnnGraph`` loaded from its file (host
+     seconds, N and M), then gcn-cora, gat-cora and pna at ``full()``
+     with d_in = 602 take 3 steps on it (features and labels drawn on
+     the card from a seeded generator), the same lines. GraphCast is
+     left out of (b): at 16 x 512 over 339,968 nodes its saved
+     activations come to roughly 60-70 GB. Then a checkpoint at
+     ``gcn-cora`` ``smoke()`` (two steps, ``save``, ``restore`` into
+     another model with equal bits, one more step from each with equal
+     bits under ``torch.use_deterministic_algorithms``), and last
+     ``examples/torch_train_gnn_simrank.py`` on the card with the
+     counters zeroed before and read after: its ``build_index`` must
+     launch ``spmm`` and its ``run_join`` ``horner_push``;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -274,6 +302,12 @@ LIN_R = 100            # Linearize's walks a node (T = 11, L = 3)
 N_PAIR_Q, N_SOURCE_Q = 200, 5
 TRAIN_STEPS = 6        # phase 3j: fit steps at full width, B = 65,536
 N_SLICE = 4_096        # rows of a train batch held against the plain grads
+# phase 3k: the GNN stack (launch/specs.py GNN_SHAPE_DEFS)
+GNN_ARCHS = ("gcn-cora", "gat-cora", "pna", "graphcast")
+GNN_STEPS = (1, 5)     # full_graph_sm: warm-up steps, timed steps
+LG_STEPS = (1, 2)      # minibatch_lg: 3 steps, the first a warm-up
+LG_SEEDS, LG_FANOUT = 1_024, (15, 10)
+MESH_GRID = (52, 52)   # graphcast's mesh: 2,704 nodes, 10,608 edges
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -964,6 +998,20 @@ def grad_checks(label: str, cases: dict) -> dict:
     return model_err
 
 
+def train_state(model, opt_state) -> list:
+    """Copies of a model's leaves and its AdamW state, in order."""
+    from repro_torch.optim.adamw import named_leaves
+    return ([p.detach().clone() for _, p in named_leaves(model)]
+            + [opt_state.step.clone()]
+            + [t.clone() for t in opt_state.m.values()]
+            + [t.clone() for t in opt_state.v.values()])
+
+
+def same_bits(a: list, b: list) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def checkpoint_check(dev, tmp) -> None:
     """A checkpoint at ``xdeepfm.smoke()`` on the card (the full-width
     file would be ~5 GB): two train steps, ``save``, ``restore`` into a
@@ -988,14 +1036,6 @@ def checkpoint_check(dev, tmp) -> None:
     stream = RecsysStream(cfg.n_fields, cfg.vocab_per_field, 256,
                           cfg.multi_hot_fields, cfg.bag_size)
 
-    def state_of(model, st):
-        return ([p.detach().clone() for _, p in named_leaves(model)]
-                + [st.step.clone()] + [t.clone() for t in st.m.values()]
-                + [t.clone() for t in st.v.values()])
-
-    def equal(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a, b))
-
     a = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     sa = opt.init(a)
     for k in range(2):
@@ -1007,9 +1047,9 @@ def checkpoint_check(dev, tmp) -> None:
     b = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
     sb = opt.init(b)
     b, sb, mf = checkpoint.restore(ckpt, checkpoint.latest_step(ckpt), b, sb)
-    restored = equal(state_of(a, sa), state_of(b, sb))
+    restored = same_bits(train_state(a, sa), train_state(b, sb))
     batch = stream.batch_at(2)
-    saved = state_of(a, sa)
+    saved = train_state(a, sa)
     det = torch.are_deterministic_algorithms_enabled()
     warn = torch.is_deterministic_algorithms_warn_only_enabled()
     with warnings.catch_warnings():
@@ -1020,7 +1060,7 @@ def checkpoint_check(dev, tmp) -> None:
             b, sb, lb = step(b, sb, batch)
         finally:
             torch.use_deterministic_algorithms(det, warn_only=warn)
-    stepped = equal(state_of(a, sa), state_of(b, sb)) and \
+    stepped = same_bits(train_state(a, sa), train_state(b, sb)) and \
         torch.equal(la["loss"], lb["loss"])
     # the same step twice from the saved state, atomics on
     c = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(2))
@@ -1030,7 +1070,7 @@ def checkpoint_check(dev, tmp) -> None:
         with torch.no_grad():
             leaf.copy_(t)
     c, sc, _ = step(c, sc, batch)
-    atomics_equal = equal(state_of(a, sa), state_of(c, sc))
+    atomics_equal = same_bits(train_state(a, sa), train_state(c, sc))
     print(f"[train] checkpoint at {cfg.name} on the card (cut: the "
           f"full-width file would be ~5 GB): save {t_save * 1e3:.1f} ms, "
           f"step {mf['step']}; restored state equal bits: {restored}; one "
@@ -1224,6 +1264,262 @@ def train_phase(dev, tmp) -> dict:
                            f"path: {launches}")
     return {**launches, "train_kernel_ms": by_kernel,
             "grad_errors": errors}
+
+
+def gnn_steps(cfg, batch, dev, steps: tuple, n: int, m: int,
+              d_feat: int, label: str) -> dict:
+    """``steps[0]`` warm-up and ``steps[1]`` timed ``gnn_train_step``s of
+    ``cfg`` at full width on ``batch`` (already on the card) with
+    ``AdamW(lr=1e-3)``, then ``gnn_infer_step`` five times: each step
+    timed by CUDA events from its call to its loss's read. Prints the
+    losses, the step p50 and max, TFLOP/s at p50 (``gnn_model_flops``
+    at n, m, d_feat) and the device peak; every loss must be finite,
+    and the parameters and the outputs must lie on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.specs import gnn_model_flops
+    from repro_torch.models import gnn as G
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.steps import gnn_infer_step, gnn_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    step = gnn_train_step(cfg, opt)
+    losses, step_ms = [], []
+    for k in range(sum(steps)):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        e1.record()
+        e1.synchronize()
+        if k >= steps[0]:
+            step_ms.append(e0.elapsed_time(e1))
+    infer = gnn_infer_step(cfg)
+    out = infer(params, batch)
+    infer_ms = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = infer(params, batch)
+        e1.record()
+        e1.synchronize()
+        infer_ms.append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p50 = float(np.percentile(step_ms, 50))
+    flops = gnn_model_flops(cfg, n, m, d_feat)
+    on_card = all(p.device.type == "cuda" for p in params.parameters()) \
+        and out.device.type == "cuda"
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"[gnn] {label} {cfg.name} ({n_par:,} parameters, out "
+          f"{tuple(out.shape)}): losses {losses}; step ms (CUDA events, "
+          f"call to loss read) {[round(t, 3) for t in step_ms]}, p50 "
+          f"{p50:.3f} max {max(step_ms):.3f}; {flops / 1e12:.4f} TFLOP a "
+          f"step (gnn_model_flops), {flops / p50 / 1e9:.3f} TFLOP/s at "
+          f"p50; infer p50 {float(np.percentile(infer_ms, 50)):.3f} ms; "
+          f"device peak {peak:.3f} GiB ({base:.3f} GiB allocated before "
+          f"the model, the batch and earlier phases' state); on the card "
+          f"{on_card}")
+    if not all(math.isfinite(l) for l in losses):
+        raise RuntimeError(f"{label} {cfg.name}: a loss is not finite: "
+                           f"{losses}")
+    if not on_card:
+        raise RuntimeError(f"{label} {cfg.name}: parameters or outputs "
+                           "off the card")
+    return {"p50": p50, "peak": peak}
+
+
+def gnn_checkpoint_check(dev, tmp) -> None:
+    """A checkpoint at ``gcn-cora`` ``smoke()`` on the card: two steps on
+    the CLI's graph, ``save``, ``restore`` into a model drawn from
+    another seed (equal bits), then one more step from the unsaved
+    state and one from the restored state, which must give equal bits.
+    ``index_add`` and the gathers' gradients add with atomics on the
+    card, so both steps run under ``torch.use_deterministic_algorithms``
+    (as phase 3j); the ops that warn there are printed."""
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.launch.train import gnn_graph_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import checkpoint
+    from repro_torch.train.steps import gnn_train_step
+    from repro_torch.train.trainer import to_device
+
+    cfg = cfg_base.get("gcn-cora").smoke()
+    opt = AdamW(lr=1e-3)
+    step = gnn_train_step(cfg, opt)
+    a = G.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = to_device(gnn_graph_batch(cfg), a)
+    sa = opt.init(a)
+    for _ in range(2):
+        a, sa, _ = step(a, sa, batch)
+    ckpt = str(Path(tmp) / "gnn_ckpt")
+    checkpoint.save(ckpt, 1, a, sa, extra={"cursor": 2})
+    b = G.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    sb = opt.init(b)
+    b, sb, mf = checkpoint.restore(ckpt, checkpoint.latest_step(ckpt), b, sb)
+    restored = same_bits(train_state(a, sa), train_state(b, sb))
+    det = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a, sa, la = step(a, sa, batch)
+            b, sb, lb = step(b, sb, batch)
+        finally:
+            torch.use_deterministic_algorithms(det, warn_only=warn)
+    stepped = same_bits(train_state(a, sa), train_state(b, sb)) and \
+        torch.equal(la["loss"], lb["loss"])
+    warned = sorted({str(w.message).split(".")[0][:80] for w in caught})
+    print(f"[gnn] checkpoint at {cfg.name} on the card: step {mf['step']}; "
+          f"restored state equal bits: {restored}; one more step from the "
+          f"restored and from the unsaved state (deterministic mode) equal "
+          f"bits: {stepped}; ops that warned there: {warned}")
+    if not restored or not stepped:
+        raise RuntimeError(f"GNN checkpoint round trip on the card: "
+                           f"restored {restored}, stepped {stepped}")
+
+
+def gnn_phase(g, dev, tmp) -> dict:
+    """Phase 3k, the GNN stack on the card (see the module docstring).
+    GraphCast is left out of minibatch_lg: at 16 layers x 512 over
+    339,968 nodes (grid and mesh) its saved activations come to roughly
+    60-70 GB. Returns the launches of the example's path (its ``build_index``
+    and ``run_join``), which phase 3k zeroes before and reads after."""
+    import dataclasses
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.data.pipeline import gnn_batch
+    from repro_torch.device import synchronize
+    from repro_torch.graph import generators
+    from repro_torch.graph.sampler import sample_subgraph
+    from repro_torch.join import KnnGraph
+    from repro_torch.kernels.horner_push import horner_push_rows
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.launch.specs import GNN_SHAPE_DEFS
+
+    t_phase = time.perf_counter()
+
+    def full(arch, d_feat):
+        return dataclasses.replace(cfg_base.get(arch).full(), d_in=d_feat)
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    # ---- (a) full_graph_sm: the four configs at full width -------------
+    d = GNN_SHAPE_DEFS["full_graph_sm"]
+    gs = generators.barabasi_albert(d["n"], 2, seed=0, directed=False)
+    print(f"[gnn] full_graph_sm: barabasi_albert({d['n']}, 2): m={gs.m} "
+          f"({100 * (gs.m / d['m'] - 1):+.2f}% of the cell's {d['m']:,})")
+    for arch in GNN_ARCHS:
+        cfg = full(arch, d["d_feat"])
+        if cfg.kind != "graphcast":
+            batch = gnn_batch(gs, d["d_feat"], cfg.n_classes)
+            gnn_steps(cfg, on_card(batch), dev, GNN_STEPS, gs.n, gs.m,
+                      d["d_feat"], "full_graph_sm")
+            continue
+        # _gnn_cell's layout: n grid nodes, then the n mesh nodes that
+        # carry the cell's graph; 2n g2m and 2n m2g edges, seeded. The
+        # mesh is a 52 x 52 grid (degree <= 4, as a weather mesh's), not
+        # the BA graph: through the BA graph's hubs (in-degree 166) the
+        # 16 residual sum layers overflow float32 at random init (loss
+        # inf at step 0), in the reference's arithmetic as in the port's
+        gm = generators.grid2d(*MESH_GRID)
+        n = gm.n
+        print(f"[gnn] full_graph_sm graphcast mesh: grid2d{MESH_GRID}: "
+              f"n={n} m={gm.m} ({100 * (gm.m / d['m'] - 1):+.2f}% of the "
+              f"cell's {d['m']:,}), max in-degree {int(gm.in_deg.max())}")
+        rng = np.random.default_rng(0)
+        batch = {
+            "feats": rng.normal(size=(2 * n, d["d_feat"])).astype(
+                np.float32),
+            "edge_src": (gm.edge_src + n).astype(np.int32),
+            "edge_dst": (gm.edge_dst + n).astype(np.int32),
+            "edge_mask": np.ones(gm.m, np.float32),
+            "node_mask": np.ones(2 * n, np.float32),
+            "n_grid": np.int32(n),
+            "g2m_src": rng.integers(0, n, 2 * n).astype(np.int32),
+            "g2m_dst": rng.integers(n, 2 * n, 2 * n).astype(np.int32),
+            "g2m_mask": np.ones(2 * n, np.float32),
+            "m2g_src": rng.integers(n, 2 * n, 2 * n).astype(np.int32),
+            "m2g_dst": rng.integers(0, n, 2 * n).astype(np.int32),
+            "m2g_mask": np.ones(2 * n, np.float32),
+            "targets": rng.normal(size=(2 * n, cfg.n_vars)).astype(
+                np.float32),
+        }
+        gnn_steps(cfg, on_card(batch), dev, GNN_STEPS, n, gm.m,
+                  d["d_feat"], "full_graph_sm")
+
+    # ---- (b) minibatch_lg: the SimRank-weighted sampler on Enron -------
+    d = GNN_SHAPE_DEFS["minibatch_lg"]
+    knn = KnnGraph.load(os.path.join(tmp, "enron.knn.npz"))
+    rng = np.random.default_rng(11)
+    seeds = rng.choice(g.n, LG_SEEDS, replace=False)
+    t0 = time.perf_counter()
+    sub = sample_subgraph(g, seeds, LG_FANOUT, rng, d["n"], d["m"], knn=knn)
+    t_sample = time.perf_counter() - t0
+    N, M = int(sub.node_mask.sum()), int(sub.edge_mask.sum())
+    print(f"[gnn] minibatch_lg: sample_subgraph(Enron, {LG_SEEDS} seeds, "
+          f"fanout {LG_FANOUT}, knn= phase 3f's all-source KnnGraph file, "
+          f"{knn.nnz:,} scores) {t_sample:.3f} s on the host: N={N:,} "
+          f"M={M:,} in n_pad={d['n']:,} m_pad={d['m']:,}")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for arch in ("gcn-cora", "gat-cora", "pna"):
+        cfg = full(arch, d["d_feat"])
+        batch = on_card({"edge_src": sub.edge_src, "edge_dst": sub.edge_dst,
+                         "edge_mask": sub.edge_mask,
+                         "node_mask": sub.node_mask})
+        batch["feats"] = torch.randn((d["n"], d["d_feat"]), generator=gen,
+                                     device=dev)
+        batch["labels"] = torch.randint(0, cfg.n_classes, (d["n"],),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)
+        gnn_steps(cfg, batch, dev, LG_STEPS, d["n"], d["m"], d["d_feat"],
+                  "minibatch_lg")
+        del batch
+    del knn, sub
+
+    gnn_checkpoint_check(dev, tmp)
+
+    # ---- the SimRank example on the card: build_index, run_join, fit ---
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_gnn_simrank",
+        ROOT / "examples" / "torch_train_gnn_simrank.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    hp_join.launches = horner_push_rows.launches = spmm.launches = 0
+    horner_push_rows.steps = 0
+    t0 = time.perf_counter()
+    example.main(["--device", "cuda"])
+    synchronize(dev)
+    launches = {"hp_join": hp_join.launches,
+                "horner_push": horner_push_rows.launches,
+                "spmm": spmm.launches,
+                "horner_push_steps": horner_push_rows.steps}
+    print(f"[gnn] examples/torch_train_gnn_simrank.py on the card: "
+          f"{time.perf_counter() - t0:.2f} s, launches {launches}")
+    if launches["spmm"] <= 0 or launches["horner_push"] <= 0:
+        raise RuntimeError(f"the SimRank GNN example did not launch spmm "
+                           f"and horner_push: {launches}")
+    print(f"[gnn] phase {time.perf_counter() - t_phase:.1f}s; card "
+          f"{card_line()}")
+    return launches
 
 
 def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
@@ -2938,7 +3234,7 @@ def baselines_phase(dev) -> dict:
         g1, u, v, c=0.6, n_walks=20000, seed=0, device=dev)
         for u, v in ((3, 11), (0, 1), (20, 40))}
     gap = max(abs(e - S[u, v]) for (u, v), e in est.items())
-    dg = walks.DeviceGraph.from_graph(g1, dev)
+    dg = walks.DeviceGraph.from_graph(g1, device=dev)
     traj = walks.walk_positions(
         dg.in_ptr, dg.in_idx, dg.in_deg, torch.arange(4096, device=dev) %
         g1.n, torch.Generator(device=dev).manual_seed(0), idx1.plan.sqrt_c,
@@ -3946,6 +4242,12 @@ def main() -> int:
         for k in tr:
             total[k] = total.get(k, 0) + tr[k]
         print(f"[train] launches {tr}; all paths {total}")
+
+        # ---- 3k. the GNN stack: full_graph_sm, minibatch_lg, example ----
+        gn = gnn_phase(g, dev, tmp)
+        for k in gn:
+            total[k] += gn[k]
+        print(f"[gnn] launches {gn}; all paths {total}")
 
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),

@@ -3,15 +3,16 @@ ArchSpec (port of ``repro/configs/base.py``).
 
 Each arch module defines ``full()`` (the exact assigned config),
 ``smoke()`` (a reduced config of the same family for CPU tests) and the
-shape cells it takes part in. The port holds xDeepFM and the paper's
-own ``sling-serve`` cell so far; the other families join with their
-slices.
+shape cells it takes part in. The port holds the GNN family (gcn-cora,
+gat-cora, pna, graphcast), xDeepFM and the paper's own ``sling-serve``
+cell so far; the LM family joins with its slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 
 
@@ -46,4 +47,5 @@ def all_archs() -> dict[str, ArchSpec]:
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import sling_paper, xdeepfm  # noqa: F401
+    from repro_torch.configs import (gat_cora, gcn_cora,  # noqa: F401
+                                     graphcast, pna, sling_paper, xdeepfm)

@@ -70,6 +70,13 @@ def recsys_params_from_jax(cfg, params_np: dict, device=None):
                                             "sim_w") if k in r},
            **{f"recsys.{k}.{i}": a for k in ("cin_w", "mlp_w", "mlp_b")
               for i, a in enumerate(r[k])}}
+    _copy_named(model, src)
+    return model
+
+
+def _copy_named(model, src: dict) -> None:
+    """Copy ``src`` ({parameter name: array}) into ``model``'s parameters,
+    refusing other names or shapes."""
     own = dict(model.named_parameters())
     if set(src) != set(own):
         raise ValueError(f"parameter names differ: given {sorted(src)}, "
@@ -81,6 +88,24 @@ def recsys_params_from_jax(cfg, params_np: dict, device=None):
                 raise ValueError(f"{name}: shape {a.shape}, expected "
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(a))
+
+
+def gnn_params_from_jax(cfg, params_np: dict, device=None):
+    """The port's :class:`~repro_torch.models.gnn.GNNParams` from the
+    reference's ``init_params`` pytree as NumPy arrays ({"gnn": {"w":
+    [..], "b": [..], "a_src": [..], "w_pre": [..], "enc_grid", ...}}),
+    on ``device`` (``cuda`` unless ``device="cpu"``). ``cfg`` is the
+    port's GNNConfig with the reference's field values."""
+    from repro_torch.models.gnn import GNNParams
+    dev = resolve_device(device)
+    model = GNNParams(cfg, generator=torch.Generator(device=dev))
+    src = {}
+    for k, v in params_np["gnn"].items():
+        if isinstance(v, (list, tuple)):
+            src.update({f"gnn.{k}.{i}": a for i, a in enumerate(v)})
+        else:
+            src[f"gnn.{k}"] = v
+    _copy_named(model, src)
     return model
 
 

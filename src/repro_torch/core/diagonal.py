@@ -55,7 +55,8 @@ def _count_meets(dg: walks.DeviceGraph, nodes: torch.Tensor,
         oa = walks.in_edge_offsets(dg, ks, r[0])
         ob = walks.in_edge_offsets(dg, ks, r[1])
         base = dg.in_ptr[ks]
-        met = walks.paired_meet(dg, dg.in_idx[base + oa],
+        met = walks.paired_meet(dg.in_ptr, dg.in_idx, dg.in_deg,
+                                dg.in_idx[base + oa],
                                 dg.in_idx[base + ob], gen, sqrt_c, t_max,
                                 mesh=mesh, mesh_axis=mesh_axis)
         met &= oa != ob
@@ -97,7 +98,7 @@ def estimate_diagonal(g: csr.Graph, plan: theory.SlingPlan,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     if dg is None:
-        dg = walks.DeviceGraph.from_graph(g, device)
+        dg = walks.DeviceGraph.from_graph(g, device=device)
 
     deg = g.in_deg
     if nodes is None:
@@ -171,7 +172,7 @@ def estimate_diagonal_chunked(g: csr.Graph, plan: theory.SlingPlan,
     and counts held at once are O(shard)."""
     dev = resolve_device(device)
     if dg is None:
-        dg = walks.DeviceGraph.from_graph(g, dev)
+        dg = walks.DeviceGraph.from_graph(g, device=dev)
     d = np.ones(g.n, np.float32)
     for i, s0 in enumerate(range(0, g.n, shard)):
         nodes = np.arange(s0, min(g.n, s0 + shard), dtype=np.int64)

@@ -315,8 +315,7 @@ def single_source_naive(idx, g: csr.Graph, u: int, *,
     from repro_torch.kernels.hp_join import fold_sqrt_d, hp_join
     from repro_torch.serve.engine import EngineConfig
     idx.refuse_reduced("single_source_naive")
-    keys, vals, d = idx.device_arrays(dev)
-    folded = fold_sqrt_d(keys, vals, d)
+    keys, folded = fold_sqrt_d(idx, device=dev)
     B = EngineConfig().pair_batch
     us = torch.full((B,), u, dtype=torch.int32, device=dev)
     out = torch.empty(idx.n, dtype=torch.float32, device=dev)

@@ -54,14 +54,26 @@ class DeviceGraph:
     in_deg: torch.Tensor   # (n,) int64
 
     @staticmethod
-    def from_graph(g: csr.Graph, device) -> "DeviceGraph":
-        # one pad slot: a degree-0 node's pointer may equal m
-        in_idx = torch.zeros(g.m + 1, dtype=torch.int64)
+    def from_graph(g: csr.Graph, edge_cap: int | None = None, *,
+                   device=None) -> "DeviceGraph":
+        """``g`` on ``device`` (``cuda`` unless ``device="cpu"``).
+        ``in_idx`` holds ``edge_cap`` slots (m when None) and one more:
+        a degree-0 node's pointer may equal m. The reference pads to an
+        XLA shape bucket; eager torch needs none, but takes any
+        ``edge_cap >= m`` the same way (walks never read past ``in_ptr[v]
+        + in_deg[v]``, so pad slots are inert) and refuses a smaller
+        one."""
+        dev = resolve_device(device)
+        cap = g.m if edge_cap is None else int(edge_cap)
+        if cap < g.m:
+            raise ValueError(f"edge_cap {cap} is below the graph's m = "
+                             f"{g.m}")
+        in_idx = torch.zeros(cap + 1, dtype=torch.int64)
         in_idx[:g.m] = torch.from_numpy(g.in_idx.astype("int64"))
         ptr = torch.from_numpy(g.in_ptr.astype("int64"))
-        return DeviceGraph(n=g.n, m=g.m, in_ptr=ptr.to(device),
-                           in_idx=in_idx.to(device),
-                           in_deg=(ptr[1:] - ptr[:-1]).to(device))
+        return DeviceGraph(n=g.n, m=g.m, in_ptr=ptr.to(dev),
+                           in_idx=in_idx.to(dev),
+                           in_deg=(ptr[1:] - ptr[:-1]).to(dev))
 
     @property
     def device(self) -> torch.device:
@@ -138,11 +150,15 @@ def _advance_split(dgs: list, mesh, mesh_axis: str, pa, pb, r,
     return tuple(torch.cat(ts) for ts in zip(*parts))
 
 
-def paired_meet(dg: DeviceGraph, start_a: torch.Tensor,
+def paired_meet(dg_in_ptr: torch.Tensor, dg_in_idx: torch.Tensor,
+                dg_in_deg: torch.Tensor, start_a: torch.Tensor,
                 start_b: torch.Tensor, gen: torch.Generator,
-                sqrt_c: float, t_max: int, mesh=None,
+                sqrt_c: float, t_max: int, *, mesh=None,
                 mesh_axis: str = "data") -> torch.Tensor:
-    """Run paired sqrt(c)-walks; bool (W,) of the pairs that ever meet.
+    """Run paired sqrt(c)-walks over a :class:`DeviceGraph`'s arrays;
+    bool (W,) of the pairs that ever meet. The reference's positional
+    order, a ``torch.Generator`` (on the arrays' device) where it takes
+    a key.
 
     A pair meets at step l >= 0 if both walks are alive and co-located;
     pairs with start_a == start_b meet at step 0 (callers that follow
@@ -151,10 +167,13 @@ def paired_meet(dg: DeviceGraph, start_a: torch.Tensor,
     ``mesh`` splits each step's live pairs over ``mesh.shape[mesh_axis]``
     shards, with the graph replicated on every shard's device
     (``diagonal.estimate_diagonal`` runs :func:`check_walk_mesh` first).
-    The uniforms of a step are drawn once on ``dg``'s device, as without
-    a mesh, and split with the pairs, so the result equals the unsharded
-    walk's bit for bit.
+    The uniforms of a step are drawn once on the arrays' device, as
+    without a mesh, and split with the pairs, so the result equals the
+    unsharded walk's bit for bit.
     """
+    # m: the edge slots (the walk steps read only the three arrays)
+    dg = DeviceGraph(n=dg_in_deg.numel(), m=dg_in_idx.numel() - 1,
+                     in_ptr=dg_in_ptr, in_idx=dg_in_idx, in_deg=dg_in_deg)
     dgs = None
     if mesh is not None:
         dgs = [dg.to(dev) for dev in mesh.axis_devices(mesh_axis)]
@@ -193,8 +212,9 @@ def paired_meet_chunked(dg: DeviceGraph, start_a, start_b,
         sa, sb = (torch.as_tensor(x[lo:lo + chunk].astype(np.int64),
                                   device=dg.device)
                   for x in (start_a, start_b))
-        out[lo:lo + chunk] = paired_meet(dg, sa, sb, gen, sqrt_c, t_max,
-                                         mesh, mesh_axis).cpu().numpy()
+        out[lo:lo + chunk] = paired_meet(
+            dg.in_ptr, dg.in_idx, dg.in_deg, sa, sb, gen, sqrt_c, t_max,
+            mesh=mesh, mesh_axis=mesh_axis).cpu().numpy()
     return out
 
 
@@ -232,7 +252,7 @@ def estimate_simrank_by_walks(g: csr.Graph, u: int, v: int, c: float,
     ``device="cpu"``): the fraction of ``n_walks`` walk pairs from (u, v)
     that meet. O(n_walks / eps^2) -- a test oracle."""
     dev = resolve_device(device)
-    dg = DeviceGraph.from_graph(g, dev)
+    dg = DeviceGraph.from_graph(g, device=dev)
     sc = math.sqrt(c)
     t_max = t_max or default_t_max(sc)
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -8,11 +8,14 @@ from repro_torch.kernels.cin.cin import cin_layer
 from repro_torch.kernels.cin.ref import cin_layer_ref
 
 
-def cin_forward(x0: torch.Tensor, weights, backend: str = "auto"
+def cin_forward(x0: torch.Tensor, weights, *, backend: str = "auto"
                 ) -> torch.Tensor:
     """x0 (B, m, D); weights: list of (h_k, h_{k-1}, m). Returns the
     (B, sum h_k) sum-pooled CIN features, each layer through
-    :func:`cin_layer` (the Hopper kernel on the card)."""
+    :func:`cin_layer` (the Hopper kernel on the card). ``backend`` is
+    keyword-only: the reference's third positional is ``bb``, a Pallas
+    block size the port has no use for, so its call ``cin_forward(x0,
+    w, 64)`` raises ``TypeError``."""
     xk = x0
     pooled = []
     for W in weights:

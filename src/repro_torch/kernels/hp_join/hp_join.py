@@ -54,10 +54,16 @@ def hp_join_plain(keys: torch.Tensor, vals: torch.Tensor, us: torch.Tensor,
 
 
 def _check(keys, vals, us, vs) -> None:
+    if us.dim() != 1 or vs.dim() != 1:
+        # the reference's hp_join(ku, vu, kv, vv) takes gathered (B, K)
+        # rows; the port's kernel gathers the rows itself from a table
+        # and row ids, and has no gathered form (ROADMAP.md)
+        raise TypeError("hp_join takes (keys, vals, us, vs): a packed "
+                        "table and (B,) row ids, not gathered rows")
     if keys.dim() != 2 or vals.shape != keys.shape:
         raise ValueError(f"keys/vals must be one (rows, K) shape, got "
                          f"{tuple(keys.shape)} and {tuple(vals.shape)}")
-    if us.dim() != 1 or us.shape != vs.shape:
+    if us.shape != vs.shape:
         raise ValueError("us/vs must be (B,) of one shape")
     if keys.dtype != torch.int32 or vals.dtype != torch.float32 or \
             us.dtype != torch.int32 or vs.dtype != torch.int32:

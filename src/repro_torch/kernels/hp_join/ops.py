@@ -18,8 +18,18 @@ from repro_torch.core.hp_index import INT32_PAD_KEY
 from repro_torch.kernels.hp_join.hp_join import hp_join, hp_join_plain
 
 
-def fold_sqrt_d(keys: torch.Tensor, vals: torch.Tensor,
-                d: torch.Tensor) -> torch.Tensor:
+def fold_sqrt_d(index, *, device=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(keys, folded values) of an index's packed table, ready for the
+    join kernel, on ``device`` (``cuda`` unless ``device="cpu"``): the
+    reference's call and result, as tensors where it returns NumPy
+    arrays (the same bits)."""
+    keys, vals, d = index.device_arrays(device)
+    return keys, fold_sqrt_d_arrays(keys, vals, d)
+
+
+def fold_sqrt_d_arrays(keys: torch.Tensor, vals: torch.Tensor,
+                       d: torch.Tensor) -> torch.Tensor:
     """The folded values of a packed table -- ``vals * sqrt(d_k)`` at
     each entry's key, 0 at PAD -- where the tensors lie. Computed in
     float64, stored as float32."""
@@ -36,10 +46,10 @@ def _pair_inputs(index, us, vs, device):
     ``device="cpu"``; the upload is cached per index epoch) and the pair
     ids as int32 there."""
     index.refuse_reduced("query_pairs_kernel")
-    keys, vals, d = index.device_arrays(device)
+    keys, folded = fold_sqrt_d(index, device=device)
     ids = [torch.as_tensor(np.asarray(x, np.int32), device=keys.device)
            for x in (us, vs)]
-    return keys, fold_sqrt_d(keys, vals, d), *ids
+    return keys, folded, *ids
 
 
 def query_pairs_kernel(index, us, vs, *, device=None) -> np.ndarray:

@@ -1,6 +1,16 @@
-"""Shape cells and analytic FLOP counts (port of the recsys part of
-``repro/launch/specs.py``; the dry run comes later)."""
+"""Shape cells and analytic FLOP counts (port of the GNN and recsys
+parts of ``repro/launch/specs.py``; the dry run comes later)."""
 from __future__ import annotations
+
+GNN_SHAPE_DEFS = {
+    # minibatch_lg: sampled subgraph sizes from batch_nodes=1024 with
+    # fanout 15-10 over the (232965, 114.6M) parent graph; d_feat=602
+    # (Reddit). molecule: 128 graphs x (30 nodes, 64 edges) flattened.
+    "full_graph_sm": dict(n=2708, m=10556, d_feat=1433),
+    "minibatch_lg":  dict(n=169984, m=168960, d_feat=602),
+    "ogb_products":  dict(n=2449029, m=61859140, d_feat=100),
+    "molecule":      dict(n=3840, m=8192, d_feat=64),
+}
 
 RECSYS_SHAPE_DEFS = {
     "train_batch":    dict(kind="train", batch=65536),
@@ -8,6 +18,20 @@ RECSYS_SHAPE_DEFS = {
     "serve_bulk":     dict(kind="serve", batch=262144),
     "retrieval_cand": dict(kind="retrieval", n_candidates=1_000_000),
 }
+
+
+def gnn_model_flops(cfg, n: int, m: int, d_feat: int) -> float:
+    """Useful FLOPs of one training step (forward x3), the reference's
+    analytic count."""
+    dh = cfg.d_hidden
+    per_layer = 2.0 * n * dh * dh + 2.0 * m * dh
+    fwd = 2.0 * n * d_feat * dh + cfg.n_layers * per_layer
+    if cfg.kind == "pna":
+        fwd *= len(cfg.aggregators) * len(cfg.scalers) * 0.5 + 1
+    if cfg.kind == "graphcast":
+        fwd = 2.0 * n * d_feat * dh + cfg.n_layers * (
+            2.0 * m * (2 * dh) * dh + 2.0 * n * (2 * dh) * dh)
+    return 3.0 * fwd  # train = fwd + 2x bwd
 
 
 def recsys_model_flops(cfg, batch: int, train: bool) -> float:

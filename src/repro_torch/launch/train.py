@@ -1,20 +1,26 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
-[...]`` (port of ``repro/launch/train.py``, its recsys branch).
+[...]`` (port of ``repro/launch/train.py``, its gnn and recsys
+branches).
 
     python -m repro_torch.launch.train --arch xdeepfm --device cpu --steps 3
+    python -m repro_torch.launch.train --arch gcn-cora --device cpu --steps 3
     python -m repro_torch.launch.train --arch xdeepfm --full --batch 65536
 
 The smoke config by default, the full one with ``--full``; on ``cuda``
 unless ``--device cpu``. As the reference: parameters from a generator
-seeded 0, ``RecsysStream`` batches, ``AdamW(lr=cosine_schedule(lr, 10,
-steps))`` and ``fit``, which checkpoints to ``--ckpt-dir`` and resumes
-from it. The loss of every step is logged, where the reference logs
-every tenth. The LM and GNN families are not ported yet.
+seeded 0, ``AdamW(lr=cosine_schedule(lr, 10, steps))`` and ``fit``,
+which checkpoints to ``--ckpt-dir`` and resumes from it; xDeepFM on
+``RecsysStream`` batches, a GNN on one full batch of
+``barabasi_albert(256, 3)`` (``gnn_batch``; for graphcast half the
+nodes grid, half mesh, with seeded g2m / m2g edges and targets). The
+loss of every step is logged, where the reference logs every tenth. The
+LM family is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch.configs import base as cfg_base
@@ -23,7 +29,31 @@ from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.trainer import TrainerConfig, fit
 
-NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item 3)"
+NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item 2)"
+
+
+def gnn_graph_batch(cfg) -> dict:
+    """The reference CLI's GNN batch: ``gnn_batch`` of
+    ``barabasi_albert(256, 3)``, and for graphcast the grid / mesh split
+    with its seeded g2m and m2g edges and regression targets."""
+    from repro_torch.graph import generators
+    g = generators.barabasi_albert(256, 3, seed=0, directed=False)
+    batch = pipeline.gnn_batch(g, cfg.d_in, max(cfg.n_classes, 1))
+    if cfg.kind == "graphcast":
+        rng = np.random.default_rng(0)
+        n = g.n
+        batch.update({
+            "n_grid": np.int32(n // 2),
+            "g2m_src": rng.integers(0, n // 2, n).astype(np.int32),
+            "g2m_dst": rng.integers(n // 2, n, n).astype(np.int32),
+            "g2m_mask": np.ones(n, np.float32),
+            "m2g_src": rng.integers(n // 2, n, n).astype(np.int32),
+            "m2g_dst": rng.integers(0, n // 2, n).astype(np.int32),
+            "m2g_mask": np.ones(n, np.float32),
+            "targets": np.random.default_rng(1).normal(
+                size=(n, cfg.n_vars)).astype(np.float32),
+        })
+    return batch
 
 
 def main(argv=None) -> None:
@@ -44,9 +74,9 @@ def main(argv=None) -> None:
     except KeyError:
         raise SystemExit(f"arch {args.arch} {NOT_PORTED}; the port has "
                          f"{sorted(cfg_base.all_archs())}")
-    if spec.family in ("lm", "gnn"):
+    if spec.family == "lm":
         raise SystemExit(f"family {spec.family} {NOT_PORTED}")
-    if spec.family != "recsys":
+    if spec.family not in ("gnn", "recsys"):
         raise SystemExit(f"family {spec.family} has no train entrypoint")
     dev = resolve_device(args.device)
     cfg = spec.full() if args.full else spec.smoke()
@@ -55,13 +85,19 @@ def main(argv=None) -> None:
     tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                          log_every=1)
 
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if spec.family == "gnn":
+        from repro_torch.models import gnn as G
+        batch = gnn_graph_batch(cfg)
+        fit(lambda p, b: G.loss_fn(cfg, p, b), G.init_params(cfg, gen),
+            lambda step: batch, opt, tcfg)
+        return
     from repro_torch.models import recsys as R
-    params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     stream = pipeline.RecsysStream(cfg.n_fields, cfg.vocab_per_field,
                                    args.batch, cfg.multi_hot_fields,
                                    cfg.bag_size)
-    fit(lambda p, b: R.loss_fn(cfg, p, b), params, stream.batch_at, opt,
-        tcfg)
+    fit(lambda p, b: R.loss_fn(cfg, p, b), R.init_params(cfg, gen),
+        stream.batch_at, opt, tcfg)
 
 
 if __name__ == "__main__":

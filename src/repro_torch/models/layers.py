@@ -1,5 +1,18 @@
-"""Shared building blocks (port of ``repro/models/layers.py``; only
-``dense_init`` so far, the rest comes with the models that use it)."""
+"""Shared building blocks (port of ``repro/models/layers.py``:
+``dense_init``, and ``leaky_relu`` and ``segment_softmax`` for the GNN
+stack; the LM stack's layers come with it).
+
+The segment ops are the port's own counterparts of the reference's
+``compat.segment_sum`` and ``jax.ops.segment_max``. Ids out of range
+are dropped, as the reference's scatters drop them (``index_add_`` and
+``scatter_reduce`` would raise), and an empty segment sums to 0 and has
+the maximum -inf. ``compat.segment_sum`` indexes as NumPy does before
+it drops (``.at[ids].add(mode="drop")``): an id in [-num_segments, 0)
+counts from the end, whatever its docstring says; ``segment_max`` drops
+every negative id. The port does what each does. Under autograd
+``scatter_reduce``'s "amax" splits a gradient evenly among the entries
+tied at a segment's maximum, as JAX's scatter-max JVP does.
+"""
 from __future__ import annotations
 
 import math
@@ -17,3 +30,61 @@ def dense_init(gen: torch.Generator, shape, scale: float | None = None,
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return w.mul_(s).to(dtype)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``x`` where x >= 0, else ``slope * x``: the reference's form,
+    whose gradient at 0 is 1 (``F.leaky_relu``'s is the slope)."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _kept(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+          fill: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(data with the rows of out-of-range ids set to ``fill``, the ids
+    clamped into range as int64): a dropped row lands on a segment
+    where ``fill`` is the reduction's identity."""
+    ids = segment_ids.long()
+    keep = (ids >= 0) & (ids < num_segments)
+    keep = keep.view((-1,) + (1,) * (data.dim() - 1))
+    return (torch.where(keep, data, fill),
+            ids.clamp(0, max(num_segments - 1, 0)))
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """(num_segments, *data.shape[1:]): the sum of the rows of ``data``
+    whose id is each segment (``compat.segment_sum``; an id in
+    [-num_segments, 0) counts from the end)."""
+    ids = segment_ids.long()
+    ids = torch.where(ids < 0, ids + num_segments, ids)
+    data, ids = _kept(data, ids, num_segments, 0.0)
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    return out.index_add(0, ids, data)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """(num_segments, *data.shape[1:]): the maximum of the rows of
+    ``data`` whose id is each segment, -inf for an empty segment
+    (``jax.ops.segment_max``)."""
+    data, ids = _kept(data, segment_ids, num_segments, -math.inf)
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), -math.inf,
+                     dtype=data.dtype, device=data.device)
+    index = ids.view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, index, data, "amax", include_self=False)
+
+
+def segment_softmax(scores: torch.Tensor, seg_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Softmax over groups (GAT edge scores grouped by destination),
+    each column of a (M, H) ``scores`` on its own."""
+    # the reference gathers as JAX indexes: a negative id counts from
+    # the end once, then every id is clamped into range
+    ids = seg_ids.long()
+    ids = torch.where(ids < 0, ids + num_segments, ids).clamp(
+        0, max(num_segments - 1, 0))
+    smax = segment_max(scores, seg_ids, num_segments)
+    ex = torch.exp(scores - smax.index_select(0, ids))
+    den = segment_sum(ex, seg_ids, num_segments)
+    return ex / torch.clamp(den.index_select(0, ids), min=1e-20)

@@ -127,11 +127,22 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator | None = None,
     return XDeepFM(cfg, generator=generator, device=device)
 
 
-def cin(x0: torch.Tensor, weights, backend: str = "auto") -> torch.Tensor:
+def cin(x0: torch.Tensor, weights, use_kernel: bool = True, *,
+        backend: str | None = None) -> torch.Tensor:
     """Compressed Interaction Network: x0 (B, F, D); weights: list of
-    (H_k, H_{k-1}, F). Returns (B, sum_k H_k) sum-pooled features, every
-    layer through ``kernels/cin`` (``backend="plain"`` takes the plain
-    layer on the card, for comparisons)."""
+    (H_k, H_{k-1}, F). Returns (B, sum_k H_k) sum-pooled features.
+
+    ``use_kernel`` is the reference's third positional: True (the
+    port's default, where the reference's is False) takes every layer
+    through ``kernels/cin`` -- the Hopper kernel for CUDA tensors, the
+    plain version for CPU ones -- and False the plain layer on any
+    device. ``backend`` names the same choice by the layer wrapper's
+    words ("auto" or "plain") and wins over the default; with
+    ``use_kernel=False`` only "plain" is accepted."""
+    if backend is None:
+        backend = "auto" if use_kernel else "plain"
+    elif not use_kernel and backend != "plain":
+        raise ValueError(f"cin: use_kernel=False with backend {backend!r}")
     return cin_ops.cin_forward(x0, list(weights), backend=backend)
 
 

@@ -63,7 +63,7 @@ from repro_torch.core.single_source import (batched_single_source,
 from repro_torch.core.topk import batched_topk
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.graph import csr
-from repro_torch.kernels.hp_join import fold_sqrt_d, hp_join
+from repro_torch.kernels.hp_join import fold_sqrt_d_arrays, hp_join
 from repro_torch.kernels.horner_push import resolve_push_backend
 from repro_torch.kernels.spmv_ell import SpmmLayout
 from repro_torch.launch.mesh import mesh_device
@@ -215,8 +215,8 @@ class QueryEngine:
         self._tau = prune_tau(index.plan)
         self._folded_vals = None
         if self._pair_backend == "kernel":
-            self._folded_vals = fold_sqrt_d(self._keys, self._vals,
-                                            self._d)
+            self._folded_vals = fold_sqrt_d_arrays(self._keys, self._vals,
+                                                   self._d)
         self.index = index
         self.g = g
 

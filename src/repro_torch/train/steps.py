@@ -1,9 +1,10 @@
-"""Step factories (port of the recsys and SLING steps of
-``repro/train/steps.py``; the LM and GNN steps come with their models).
+"""Step factories (port of the GNN, recsys and SLING steps of
+``repro/train/steps.py``; the LM steps come with their model).
 
-``recsys_train_step`` returns ``step(params, opt_state, batch) ->
-(params, opt_state, {"loss"})``: one AdamW step in place, the CIN's
-gradient through its kernels on the card. The serving steps return
+``gnn_train_step`` and ``recsys_train_step`` return ``step(params,
+opt_state, batch) -> (params, opt_state, {"loss"})``: one AdamW step in
+place (for xDeepFM the CIN's gradient through its kernels on the
+card). The serving and inference steps return
 ``step(params, batch)``, the SLING steps ``step(index, graph, batch)``;
 each runs under ``torch.inference_mode`` (the port runs eagerly:
 nothing is traced or compiled).
@@ -15,9 +16,32 @@ from typing import Callable
 import torch
 
 from repro_torch.core.topk import stable_topk
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 
 RETRIEVAL_K = 128
+
+
+def gnn_train_step(cfg, opt) -> Callable:
+    """One training step of the GNN ``params`` (a ``GNNParams``, trained
+    in place) on a full or sampled graph ``batch`` with the AdamW
+    ``opt``: the loss, its gradient on every leaf, the update."""
+    from repro_torch.train.trainer import value_and_grad
+
+    def step(params, opt_state, batch):
+        loss, grads = value_and_grad(
+            lambda p, b: gnn_lib.loss_fn(cfg, p, b), params, batch)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+    return step
+
+
+def gnn_infer_step(cfg) -> Callable:
+    """The model's outputs on every node of ``batch``: (N, out_dim)."""
+    def step(params, batch):
+        with torch.inference_mode():
+            return gnn_lib.forward(cfg, params, batch)
+    return step
 
 
 def recsys_train_step(cfg, opt) -> Callable:

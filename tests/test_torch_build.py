@@ -17,7 +17,12 @@ from repro.core import build as rbuild
 from repro.core import diagonal as rdiagonal
 from repro.core import hp_index as rhp
 from repro.core import theory as rtheory
+from repro.core import walks as rwalks
 from repro.core.index import SlingIndex as RIndex
+from repro.kernels.cin import ops as rcin_ops
+from repro.kernels.hp_join.hp_join import hp_join as rhp_join
+from repro.kernels.hp_join import ops as rhp_ops
+from repro.models import recsys as rrecsys
 from repro.serve import EngineConfig as REngineConfig
 from repro_torch import convert
 from repro_torch.core import build as tbuild
@@ -28,6 +33,10 @@ from repro_torch.serve import EngineConfig as TEngineConfig
 from repro_torch.core import theory as ttheory
 from repro_torch.core import walks as twalks
 from repro_torch.graph import generators as tgen
+from repro_torch.kernels.cin import ops as tcin_ops
+from repro_torch.kernels.hp_join import hp_join as thp_join
+from repro_torch.kernels.hp_join import ops as thp_ops
+from repro_torch.models import recsys as trecsys
 
 ZOO = tuple(oracle.cases())
 ATOL = 1e-5
@@ -179,6 +188,14 @@ def test_build_index_takes_nothing_positional_after_block():
 
 # the port's own parameters, keyword-only after the reference's
 PORT_KEYWORDS = {"device", "verbose", "build_seconds", "read_only"}
+# and those of one function only
+OWN_KEYWORDS = {"cin": {"backend"}, "cin_forward": {"backend"},
+                "paired_meet": {"mesh", "mesh_axis"}}
+# a positional the port renames by design: a torch.Generator for a key
+RENAMED = {"paired_meet": {"key": "gen"}}
+# trailing reference parameters the port has no use for: an XLA compile
+# control, a positional verbose it takes by keyword, Pallas tiling
+DROPPED = {"fused", "verbose", "bb", "interpret"}
 
 
 def _positional(fn):
@@ -187,6 +204,13 @@ def _positional(fn):
     ps = inspect.signature(fn).parameters.values()
     return ([p.name for p in ps if p.kind == p.POSITIONAL_OR_KEYWORD],
             {p.name for p in ps if p.kind == p.KEYWORD_ONLY})
+
+
+def _gathered_rows_call(port):
+    """The reference's ``hp_join(ku, vu, kv, vv)`` on gathered rows."""
+    k = torch.zeros((4, 8), dtype=torch.int32)
+    v = torch.zeros((4, 8))
+    return port(k, v, k, v)
 
 
 SIGNATURES = {
@@ -201,24 +225,99 @@ SIGNATURES = {
     "resolve_builder": (rbuild.resolve_builder, tbuild.resolve_builder),
     "SlingIndex": (RIndex, TIndex),
     "EngineConfig": (REngineConfig, TEngineConfig),
+    "from_graph": (rwalks.DeviceGraph.from_graph,
+                   twalks.DeviceGraph.from_graph),
+    "cin": (rrecsys.cin, trecsys.cin),
+    "cin_forward": (rcin_ops.cin_forward, tcin_ops.cin_forward),
+    "paired_meet": (rwalks.paired_meet, twalks.paired_meet),
+    "fold_sqrt_d": (rhp_ops.fold_sqrt_d, thp_ops.fold_sqrt_d),
+    "hp_join": (rhp_join, thp_join),
 }
+# refused by design, with TypeError: the gathered-row join (the port's
+# kernel gathers the rows itself; ROADMAP.md, "Not ported, by design")
+REFUSED = {"hp_join": _gathered_rows_call}
 
 
 @pytest.mark.parametrize("name", sorted(SIGNATURES))
 def test_positional_order_matches_reference(name):
     """Each repaired signature reads its positional arguments as the
     reference does: the port's positional names are the reference's, in
-    its order, up to the port's own keyword-only parameters. (The port
-    drops only a trailing reference parameter it has no use for:
-    ``build_hp_table``'s ``fused``, an XLA compile control, and
-    ``build_index``'s positional ``verbose``, which it takes by
-    keyword.)"""
+    its order (``RENAMED`` aside), up to the port's own keyword-only
+    parameters. The port drops only trailing reference parameters it
+    has no use for (``DROPPED``). A form the port refuses by design
+    (``REFUSED``) raises ``TypeError`` when called by the reference's
+    positions."""
     ref, port = SIGNATURES[name]
+    if name in REFUSED:
+        with pytest.raises(TypeError):
+            REFUSED[name](port)
+        return
     r_pos, _ = _positional(ref)
     t_pos, t_kw = _positional(port)
+    renamed = RENAMED.get(name, {})
+    r_pos = [renamed.get(p, p) for p in r_pos]
     assert t_pos == r_pos[:len(t_pos)]
-    assert set(r_pos[len(t_pos):]) <= {"fused", "verbose"}
-    assert t_kw <= PORT_KEYWORDS
+    assert set(r_pos[len(t_pos):]) <= DROPPED
+    assert t_kw <= PORT_KEYWORDS | OWN_KEYWORDS.get(name, set())
+
+
+def test_from_graph_and_paired_meet_by_position(monkeypatch):
+    """The reference's calls ``DeviceGraph.from_graph(g, edge_cap)`` and
+    ``paired_meet(in_ptr, in_idx, in_deg, a, b, key, sqrt_c, t_max)``:
+    a padded edge capacity leaves the walks' bits as they were, a
+    capacity below m is refused, and without a card ``from_graph(g)``
+    raises rather than run on the CPU."""
+    g = tgen.multigraph(32, 90, seed=9)
+    rng = np.random.default_rng(3)
+    sa = torch.as_tensor(rng.integers(0, g.n, 500))
+    sb = torch.as_tensor(rng.integers(0, g.n, 500))
+    met = []
+    for cap in (None, 4096):
+        dg = twalks.DeviceGraph.from_graph(g, cap, device="cpu")
+        assert dg.in_idx.numel() == (cap or g.m) + 1
+        met.append(twalks.paired_meet(dg.in_ptr, dg.in_idx, dg.in_deg, sa,
+                                      sb, torch.Generator().manual_seed(4),
+                                      0.7746, 12))
+    assert torch.equal(met[0], met[1]) and met[0].any()
+    with pytest.raises(ValueError):
+        twalks.DeviceGraph.from_graph(g, g.m - 1, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        twalks.DeviceGraph.from_graph(g)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_cin_by_position_equals_reference(use_kernel):
+    """``cin(x0, w, use_kernel)`` by position: both choices agree with
+    the reference's einsum CIN on the CPU; ``use_kernel=False`` refuses
+    the kernel's backend, and ``cin_forward(x0, w, 64)`` (the
+    reference's ``bb``) raises TypeError."""
+    rng = np.random.default_rng(5)
+    x0 = rng.normal(size=(6, 5, 4)).astype(np.float32)
+    ws = [rng.normal(size=(3, 5, 5)).astype(np.float32),
+          rng.normal(size=(2, 3, 5)).astype(np.float32)]
+    got = trecsys.cin(torch.as_tensor(x0), [torch.as_tensor(w) for w in ws],
+                      use_kernel)
+    ref = np.asarray(rrecsys.cin(x0, ws, False))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+    with pytest.raises(ValueError):
+        trecsys.cin(torch.as_tensor(x0), [torch.as_tensor(w) for w in ws],
+                    False, backend="auto")
+    with pytest.raises(TypeError):
+        tcin_ops.cin_forward(torch.as_tensor(x0),
+                             [torch.as_tensor(w) for w in ws], 64)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_fold_sqrt_d_of_an_index_equals_reference(built, name):
+    """``fold_sqrt_d(index)`` returns the reference's (keys, folded)
+    with equal bits, on the device asked for."""
+    ri, ti = built[name]
+    rk, rf = rhp_ops.fold_sqrt_d(ri)
+    tk, tf = thp_ops.fold_sqrt_d(ti, device="cpu")
+    np.testing.assert_array_equal(tk.numpy(), rk)
+    np.testing.assert_array_equal(tf.numpy(), rf)
 
 
 def test_estimate_diagonal_subset_by_position():
@@ -299,13 +398,15 @@ def test_walk_diagonal_is_deterministic_in_seed():
 
 def test_paired_meet_semantics():
     g = tgen.with_sinks(30, 80, n_sinks=4, seed=1)
-    dg = twalks.DeviceGraph.from_graph(g, "cpu")
+    dg = twalks.DeviceGraph.from_graph(g, device="cpu")
     gen = torch.Generator().manual_seed(0)
     sinks = torch.as_tensor(np.flatnonzero(g.in_deg == 0))
     # identical starts meet at step 0; two distinct sinks never move
-    same = twalks.paired_meet(dg, sinks, sinks, gen, 0.77, 20)
+    same = twalks.paired_meet(dg.in_ptr, dg.in_idx, dg.in_deg, sinks, sinks,
+                              gen, 0.77, 20)
     assert bool(same.all())
-    apart = twalks.paired_meet(dg, sinks[:2], sinks[1:3], gen, 0.77, 20)
+    apart = twalks.paired_meet(dg.in_ptr, dg.in_idx, dg.in_deg, sinks[:2],
+                               sinks[1:3], gen, 0.77, 20)
     assert not bool(apart.any())
 
 
@@ -313,9 +414,10 @@ def test_meeting_rate_estimates_simrank():
     """Lemma 3: the fraction of walk pairs that meet is s(u, v)."""
     r, t = _graphs("powerlaw")
     S = oracle.exact_simrank(r, 0.6)
-    dg = twalks.DeviceGraph.from_graph(t, "cpu")
+    dg = twalks.DeviceGraph.from_graph(t, device="cpu")
     gen = torch.Generator().manual_seed(1)
     W = 200_000
-    met = twalks.paired_meet(dg, torch.full((W,), 3), torch.full((W,), 9),
+    met = twalks.paired_meet(dg.in_ptr, dg.in_idx, dg.in_deg,
+                             torch.full((W,), 3), torch.full((W,), 9),
                              gen, 0.6 ** 0.5, twalks.default_t_max(0.6 ** 0.5))
     assert abs(met.double().mean().item() - S[3, 9]) < 0.005

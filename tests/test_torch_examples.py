@@ -1,6 +1,7 @@
-"""The three SLING examples of the PyTorch port, run in this process on
-the CPU at small sizes, checked by their printed lines; and the rule
-that they import neither jax nor the reference package."""
+"""The examples of the PyTorch port (the three SLING examples and the
+GCN trained on SimRank anchor features), run in this process on the CPU
+at small sizes, checked by their printed lines; and the rule that they
+import neither jax nor the reference package."""
 import ast
 import importlib.util
 import re
@@ -11,7 +12,8 @@ import pytest
 from repro_torch.graph import generators
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
-NAMES = ("torch_quickstart", "torch_dynamic_graph", "torch_sling_serve")
+NAMES = ("torch_quickstart", "torch_dynamic_graph", "torch_sling_serve",
+         "torch_train_gnn_simrank")
 
 
 def _run(name, argv, capsys):
@@ -70,3 +72,17 @@ def test_sling_serve_prints_latencies_and_audit(capsys):
     m = re.fullmatch(r"\[serve\] audit max err ([0-9.]+) <= eps=0.15",
                      out[-1])
     assert m and float(m.group(1)) <= 0.15
+
+
+def test_train_gnn_simrank_loss_falls(capsys):
+    out = _run("torch_train_gnn_simrank",
+               ["--device", "cpu", "--n", "200", "--steps", "60"], capsys)
+    m = generators.barabasi_albert(200, 4, seed=0, directed=False).m
+    assert out[0] == f"graph n=200 m={m}"
+    assert out[1].startswith("SimRank anchor features via bulk join: "
+                             "(200, 8), ")
+    assert [line.split()[2] for line in out if line.startswith(
+        "[trainer]")] == ["0", "50", "59"]
+    got = re.fullmatch(r"final train accuracy: ([0-9.]+) \(loss ([0-9.]+) "
+                       r"-> ([0-9.]+)\)", out[-1])
+    assert got and float(got.group(3)) < float(got.group(2))

@@ -65,7 +65,7 @@ def test_equal_pair_meets_trivially():
 
 def test_paired_meet_chunked_chunks_and_equal_starts():
     g = _ref_graph()
-    dg = twalks.DeviceGraph.from_graph(g, "cpu")
+    dg = twalks.DeviceGraph.from_graph(g, device="cpu")
     rng = np.random.default_rng(1)
     sa = rng.integers(0, g.n, 700)
     sb = rng.integers(0, g.n, 700)
@@ -79,7 +79,8 @@ def test_paired_meet_chunked_chunks_and_equal_starts():
     one = twalks.paired_meet_chunked(dg, sa, sb,
                                      torch.Generator().manual_seed(2),
                                      SQRT_C, 10)
-    again = twalks.paired_meet(dg, torch.as_tensor(sa), torch.as_tensor(sb),
+    again = twalks.paired_meet(dg.in_ptr, dg.in_idx, dg.in_deg,
+                               torch.as_tensor(sa), torch.as_tensor(sb),
                                torch.Generator().manual_seed(2), SQRT_C, 10)
     np.testing.assert_array_equal(one, again.numpy())
 
@@ -89,7 +90,7 @@ def test_walk_positions_stop_monotone_through_in_neighbors(name):
     g = {"powerlaw": _ref_graph(), "dag": tgen.dag(40, 110, seed=5),
          "sinks": tgen.with_sinks(40, 120, n_sinks=5, seed=7),
          "multigraph": tgen.multigraph(32, 90, seed=9)}[name]
-    dg = twalks.DeviceGraph.from_graph(g, "cpu")
+    dg = twalks.DeviceGraph.from_graph(g, device="cpu")
     starts = np.arange(64) % g.n
     traj = twalks.walk_positions(dg.in_ptr, dg.in_idx, dg.in_deg, starts,
                                  torch.Generator().manual_seed(0), 0.7746,
