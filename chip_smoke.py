@@ -203,6 +203,26 @@ Phases (any failure raises and the script exits non-zero):
      ``examples/torch_train_gnn_simrank.py`` on the card with the
      counters zeroed before and read after: its ``build_index`` must
      launch ``spmm`` and its ``run_join`` ``horner_push``;
+  3l. the LM stack (``repro_torch.models.transformer``; no kernel of the
+     port: the reference's flash attention and MoE are XLA ops) at the
+     published widths, seeded weights, ``TokenStream`` data, times by
+     CUDA events, each with tokens/s, TFLOP/s by ``lm_model_flops`` and
+     the device peak, every config's wq / wk / wv scaled to fan_in
+     d_model (``lm_params``): smollm-135m whole (30 layers) -- train_4k
+     (S = 4,096) at B = 32 of the cell's 256 (1 warm-up and 3 timed
+     ``lm_train_step``s, every loss finite), prefill_32k at B = 2 (1 + 2
+     calls), decode_32k from that prefill's cache repeated to the
+     largest power-of-two batch up to 128 that fits 85 % of the free
+     memory (1 + 8 token steps near the end of 32,768 slots), long_500k
+     at B = 1 on a 524,288-slot cache drawn from a seeded generator (1 +
+     8); then gemma3-1b whole (26 layers, window 512, every 6th layer
+     global): prefill at S = 32,768, B = 1, and decode at the batch that
+     fits; then qwen3-14b, mixtral-8x22b and llama4-scout-17b-a16e at
+     their widths cut to 2 layers (each layer is its own period), every
+     expert held: prefill at S = 4,096, B = 1, and 1 + 4 decode steps.
+     For every config one decoded token against ``forward`` over the
+     prompt plus that token, all layers (``lm_agreement``: float32
+     within TOL_DECODE, bf16 within LM_BF16_DECODE bf16 ulps);
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -308,6 +328,18 @@ GNN_STEPS = (1, 5)     # full_graph_sm: warm-up steps, timed steps
 LG_STEPS = (1, 2)      # minibatch_lg: 3 steps, the first a warm-up
 LG_SEEDS, LG_FANOUT = 1_024, (15, 10)
 MESH_GRID = (52, 52)   # graphcast's mesh: 2,704 nodes, 10,608 edges
+# phase 3l: the LM stack (launch/specs.py LM_SHAPE_DEFS)
+LM_TRAIN_STEPS = (1, 3)    # train_4k: warm-up steps, timed steps
+LM_PREFILL_STEPS = (1, 2)  # prefill: warm-up calls, timed calls
+LM_DECODE_STEPS = (1, 8)   # decode_32k / long_500k: warm-up, timed tokens
+LM_CUT_DECODE = (1, 4)     # the depth-cut configs after their prefill
+LM_CUT_LAYERS = 2          # qwen3 / mixtral / scout: each layer its own period
+LM_CUT_PREFILL = 4_096
+LM_TRAIN_BATCH = 32        # train_4k's batch, cut from the cell's 256
+LM_MEM_SHARE = 0.85        # of the memory free when a decode batch is sized
+TOL_DECODE = 1e-4          # decode vs forward, float32: of max |logit|
+BF16_ULP = 2.0 ** -7       # of max |logit|: bf16's spacing at a significand of 1
+LM_BF16_DECODE = 8         # decode vs forward, bf16: in BF16_ULPs
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -326,20 +358,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def events_ms(fn):
+    """(fn's result, device ms from its call to its result being ready:
+    CUDA events, the end event waited on)."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` back-to-back
     calls (CUDA events, after one warm call)."""
     import torch
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+
+    def run():     # each result freed before the next call, as a loop does
+        for _ in range(reps):
+            fn()
+    _, t = events_ms(run)
+    return t / reps
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -471,22 +514,14 @@ class _Clock:
     (after the call returns) on the CPU, where the phase is rehearsed."""
 
     def __init__(self, dev):
-        import torch
         self.cuda = dev.type == "cuda"
-        self.torch = torch
 
     def __call__(self, fn):
         if not self.cuda:
             t = time.perf_counter()
             out = fn()
             return out, (time.perf_counter() - t) * 1e3
-        a = self.torch.cuda.Event(enable_timing=True)
-        b = self.torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        b.synchronize()
-        return out, a.elapsed_time(b)
+        return events_ms(fn)
 
 
 def rel_err(got, ref) -> float:
@@ -1292,26 +1327,20 @@ def gnn_steps(cfg, batch, dev, steps: tuple, n: int, m: int,
     step = gnn_train_step(cfg, opt)
     losses, step_ms = [], []
     for k in range(sum(steps)):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        params, state, met = step(params, state, batch)
-        losses.append(float(met["loss"]))
-        e1.record()
-        e1.synchronize()
+        def one():
+            nonlocal params, state
+            params, state, met = step(params, state, batch)
+            return float(met["loss"])
+        loss, t = events_ms(one)
+        losses.append(loss)
         if k >= steps[0]:
-            step_ms.append(e0.elapsed_time(e1))
+            step_ms.append(t)
     infer = gnn_infer_step(cfg)
     out = infer(params, batch)
     infer_ms = []
     for _ in range(5):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = infer(params, batch)
-        e1.record()
-        e1.synchronize()
-        infer_ms.append(e0.elapsed_time(e1))
+        out, t = events_ms(lambda: infer(params, batch))
+        infer_ms.append(t)
     peak = torch.cuda.max_memory_allocated() / 2**30
     p50 = float(np.percentile(step_ms, 50))
     flops = gnn_model_flops(cfg, n, m, d_feat)
@@ -1520,6 +1549,357 @@ def gnn_phase(g, dev, tmp) -> dict:
     print(f"[gnn] phase {time.perf_counter() - t_phase:.1f}s; card "
           f"{card_line()}")
     return launches
+
+
+def free_bytes() -> int:
+    """Bytes a new allocation can take: the card's free memory plus what
+    the caching allocator holds unused."""
+    import torch
+    free, _ = torch.cuda.mem_get_info()
+    return free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+
+
+def pow2_at_most(x: float, cap: int) -> int:
+    b = 1
+    while b * 2 <= min(x, cap):
+        b *= 2
+    return b
+
+
+def lm_stats(label: str, ms: list, tokens: int, flops: float) -> str:
+    """'p50 .. max ..; tokens/s; TFLOP/s (lm_model_flops); peak' of a
+    timed LM call, its ``tokens`` and ``flops`` a call."""
+    import numpy as np
+    import torch
+    p50 = float(np.percentile(ms, 50))
+    return (f"{label}: ms (CUDA events) {[round(t, 3) for t in ms]}, p50 "
+            f"{p50:.3f} max {max(ms):.3f}; {tokens * 1e3 / p50:,.1f} "
+            f"tokens/s; {flops / 1e12:.3f} TFLOP a call (lm_model_flops), "
+            f"{flops / p50 / 1e9:.3f} TFLOP/s at p50; device peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+def lm_train(cfg, dev) -> None:
+    """train_4k at full width and B = LM_TRAIN_BATCH: one warm-up and
+    the timed ``lm_train_step``s on ``TokenStream`` batches, every loss
+    finite. A batch that does not fit the card raises, naming the
+    memory held before the steps."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.specs import LM_SHAPE_DEFS, lm_model_flops
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.steps import lm_train_step
+
+    d = LM_SHAPE_DEFS["train_4k"]
+    B, S = LM_TRAIN_BATCH, d["seq"]
+    params = lm_params(cfg, dev)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    step = lm_train_step(cfg, opt)
+    stream = TokenStream(cfg.vocab, B, S, seed=0)
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for k in range(sum(LM_TRAIN_STEPS)):
+        batch = stream.batch_at(k)
+
+        def one():
+            nonlocal params, state
+            params, state, m = step(params, state, batch)
+            return float(m["loss"])
+        try:
+            loss, t = events_ms(one)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError(
+                f"{cfg.name} train_4k at B = {B} does not fit the card "
+                f"({held:.3f} GiB held before the steps)") from e
+        losses.append(loss)
+        if k >= LM_TRAIN_STEPS[0]:
+            ms.append(t)
+    on_card = all(p.device.type == dev.type for p in params.parameters())
+    print(f"[lm] {cfg.name} " + lm_stats(
+        f"train_4k B = {B} of the cell's {d['batch']} x {S} ({held:.3f} "
+        f"GiB held before the steps), {LM_TRAIN_STEPS[1]} timed steps "
+        f"after {LM_TRAIN_STEPS[0]}, losses "
+        f"{[round(l, 4) for l in losses]}, step", ms, B * S,
+        lm_model_flops(cfg, "train", B, S))
+          + f"; parameters on the card {on_card}")
+    if not all(math.isfinite(l) for l in losses) or not on_card:
+        raise RuntimeError(f"{cfg.name} train_4k: losses {losses}, on the "
+                           f"card {on_card}")
+    del params, state, step, opt
+    torch.cuda.empty_cache()
+
+
+def lm_prefill(cfg, params, B: int, S: int, label: str):
+    """LM_PREFILL_STEPS of ``lm_prefill_step`` over (B, S) ``TokenStream``
+    tokens; returns the last call's cache (exactly S slots)."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.specs import lm_model_flops
+    from repro_torch.train.steps import lm_prefill_step
+
+    step = lm_prefill_step(cfg)
+    tokens = torch.as_tensor(TokenStream(cfg.vocab, B, S, seed=2).batch_at(
+        0)["tokens"], device=params.embed.device)
+    torch.cuda.reset_peak_memory_stats()
+    ms, out = [], None
+    for k in range(sum(LM_PREFILL_STEPS)):
+        out = None     # one cache at a time
+        out, t = events_ms(lambda: step(params, {"tokens": tokens}))
+        if k >= LM_PREFILL_STEPS[0]:
+            ms.append(t)
+    finite = bool(torch.isfinite(out["logits"]).all())
+    print(f"[lm] {cfg.name} " + lm_stats(
+        f"{label} prefill B = {B} x {S}, call", ms, B * S,
+        lm_model_flops(cfg, "prefill", B, S)) + f"; logits finite {finite}")
+    if not finite:
+        raise RuntimeError(f"{cfg.name} {label}: prefill logits not finite")
+    return out["cache"]
+
+
+def lm_decode(cfg, params, cache, steps: tuple, seq: int, label: str,
+              profile: bool = False):
+    """``steps`` (warm-up, timed) ``lm_decode_step`` calls from ``cache``
+    (written in place), each token the previous logits' argmax; the
+    TFLOP/s by ``lm_model_flops`` at ``seq``; with ``profile``, one more
+    step under ``trace`` (the cache needs a slot for it)."""
+    import torch
+
+    from repro_torch.launch.specs import lm_model_flops
+    from repro_torch.train.steps import lm_decode_step
+
+    step = lm_decode_step(cfg)
+    B = cache["k"].shape[1]
+    token = torch.arange(B, device=params.embed.device) % cfg.vocab
+    start = cache["len"]
+    torch.cuda.reset_peak_memory_stats()
+    ms, finite = [], True
+    for k in range(sum(steps)):
+        out, t = events_ms(lambda: step(params, cache, {"token": token}))
+        cache = out["cache"]
+        token = out["logits"].argmax(-1)
+        finite = finite and bool(torch.isfinite(out["logits"]).all())
+        if k >= steps[0]:
+            ms.append(t)
+    if profile:
+        trace(f"lm {cfg.name} {label} decode step",
+              lambda: step(params, cache, {"token": token}))
+    print(f"[lm] {cfg.name} " + lm_stats(
+        f"{label} decode B = {B}, cache {cache['k'].shape[2]:,} slots "
+        f"from len {start:,}, {steps[1]} timed token steps after "
+        f"{steps[0]}, token step", ms, B,
+        lm_model_flops(cfg, "decode", B, seq)) + f"; logits finite {finite}")
+    if not finite or cache["len"] != start + sum(steps):
+        raise RuntimeError(f"{cfg.name} {label}: decode logits finite "
+                           f"{finite}, len {cache['len']}")
+
+
+def lm_params(cfg, dev):
+    """Seeded ``init_params`` on ``dev`` with wq scaled by sqrt(H /
+    d_model) and wk, wv by sqrt(K / d_model), in place: fan_in d_model
+    where the reference's ``dense_init`` takes the head count, so that
+    the random-init model is well-conditioned and decode can be held to
+    forward (tests/test_torch_lm.py's ``_conditioned``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)):
+            getattr(params.blocks, name).mul_(
+                float(np.float32(np.sqrt(heads / cfg.d_model))))
+    return params
+
+
+def decode_and_forward(cfg, params, toks, nxt=None):
+    """(decode logits of ``nxt`` after a prefill over ``toks`` through the
+    cache padded by 8, the last logits of ``forward`` over ``toks`` plus
+    ``nxt``, ``nxt``), float32 logits; ``nxt`` defaults to the prefill's
+    argmax."""
+    from repro_torch.models import transformer as T
+    logits, cache = T.prefill(cfg, params, toks)
+    if nxt is None:
+        nxt = logits.argmax(-1)
+    dec, _ = T.decode_step(cfg, params,
+                           T.pad_cache(cache, toks.shape[1] + 8), nxt)
+    del cache
+    return dec, forward_logits(cfg, params, toks, nxt), nxt
+
+
+def forward_logits(cfg, params, toks, nxt):
+    import torch
+
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        x, _ = T.forward(cfg, params, torch.cat([toks, nxt[:, None]], 1))
+        return (x[:, -1] @ params.embed.to(cfg.dtype).T).to(torch.float32)
+
+
+def lm_agreement(cfg, params, prompt: int) -> None:
+    """Decoding one token through the padded cache against ``forward``
+    over the prompt plus that token (B = 1, ``TokenStream`` prompt, all
+    the layers, ``lm_params``' conditioned weights).
+
+    float32: within TOL_DECODE of max |logit| (the two paths differ in
+    reduction order only). bf16: within LM_BF16_DECODE bf16 ulps
+    (BF16_ULP of max |logit| each): the two bf16 paths round at
+    different points (decode forms its scores in bf16 over the cache,
+    the forward in float32 through flash attention), each some ulps
+    from the float32 result; both distances from float32 are printed.
+
+    An MoE config is checked at capacity_factor E / k, where no
+    assignment is dropped: at its own factor the forward over the whole
+    prompt drops the assignments past an expert's capacity (the last
+    token's first, as the reference's routing does), while a one-token
+    decode step drops none, so the two differ by design; that difference
+    is printed beside the check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+
+    dev = params.embed.device
+    toks = torch.as_tensor(TokenStream(cfg.vocab, 1, prompt, seed=3)
+                           .batch_at(0)["tokens"], device=dev)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    notes, failed = [], []
+    if cfg.is_moe:
+        dec, fwd, _ = decode_and_forward(c32, params, toks)
+        notes.append(f"at its own capacity_factor {cfg.capacity_factor} "
+                     f"float32 {rel_err(dec, fwd):.3g}")
+        free_cf = cfg.moe_experts / cfg.moe_top_k
+        cfg = dataclasses.replace(cfg, capacity_factor=free_cf)
+        c32 = dataclasses.replace(c32, capacity_factor=free_cf)
+        notes.append(f"checked at capacity_factor {free_cf:g}")
+    d32, f32, nxt = decode_and_forward(c32, params, toks)
+    err = rel_err(d32, f32)
+    notes.append(f"float32 {err:.3g} of max |logit| (limit {TOL_DECODE}), "
+                 f"argmax equal {bool(torch.equal(d32.argmax(-1), f32.argmax(-1)))}")
+    if not err <= TOL_DECODE:
+        failed.append("float32")
+    d16, f16, _ = decode_and_forward(cfg, params, toks, nxt)
+    err = rel_err(d16, f16) / BF16_ULP
+    notes.append(f"{str(cfg.dtype).split('.')[-1]} {err:.3g} bf16 ulps "
+                 f"(limit {LM_BF16_DECODE}); from the float32 forward: "
+                 f"decode {rel_err(d16, f32) / BF16_ULP:.3g}, forward "
+                 f"{rel_err(f16, f32) / BF16_ULP:.3g}")
+    if not err <= LM_BF16_DECODE:
+        failed.append("bf16")
+    print(f"[lm] {cfg.name} decode vs forward over {prompt} + 1 tokens, "
+          f"all {cfg.n_layers} layers: " + "; ".join(notes))
+    if failed:
+        raise RuntimeError(f"{cfg.name}: decode disagrees with forward: "
+                           f"{failed}")
+
+
+def cache_of(cache, B: int, slots: int) -> dict:
+    """A (L, B, slots, K, dh) cache whose rows repeat ``cache``'s rows
+    (B a multiple of its batch), its len leaving room for the
+    LM_DECODE_STEPS and one traced step."""
+    import torch
+    k0 = cache["k"]
+    L, b0, S0 = k0.shape[:3]
+    n = min(S0, slots)
+    out = {"len": slots - sum(LM_DECODE_STEPS) - 1}
+    for name in ("k", "v"):
+        t = torch.empty((L, B, slots) + tuple(k0.shape[3:]), dtype=k0.dtype,
+                        device=k0.device)
+        t.view(L, B // b0, b0, slots, *k0.shape[3:])[:, :, :, :n] = \
+            cache[name][:, None, :, :n]
+        if n < slots:
+            t[:, :, n:] = 0
+        out[name] = t
+    return out
+
+
+def lm_phase(dev, profile: bool = False) -> None:
+    """Phase 3l, the LM stack on the card at the published widths (see
+    the module docstring); seeded weights, ``TokenStream`` data. With
+    ``profile``, one more decode_32k and long_500k step is traced."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.launch.specs import LM_SHAPE_DEFS
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"[lm] {held:.3f} GiB held on the card by earlier phases")
+
+    # ---- smollm-135m, whole: train_4k, prefill_32k, decode_32k, long_500k
+    cfg = cfg_base.get("smollm-135m").full()
+    lm_train(cfg, dev)
+    params = lm_params(cfg, dev)
+    d = LM_SHAPE_DEFS["prefill_32k"]
+    cache = lm_prefill(cfg, params, 2, d["seq"], "prefill_32k")
+    d = LM_SHAPE_DEFS["decode_32k"]
+    per_seq = 2 * cache["k"][:, :1].numel() * cache["k"].element_size() \
+        * d["seq"] / cache["k"].shape[2]
+    B = pow2_at_most(LM_MEM_SHARE * free_bytes() / per_seq, d["batch"])
+    big = cache_of(cache, B, d["seq"])
+    del cache
+    lm_decode(cfg, params, big, LM_DECODE_STEPS, d["seq"], "decode_32k",
+              profile)
+    del big
+    torch.cuda.empty_cache()
+    d = LM_SHAPE_DEFS["long_500k"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shape = (cfg.n_layers, d["batch"], d["seq"], cfg.n_kv_heads, cfg.d_head)
+    long = {n: torch.randn(shape, generator=gen, device=dev,
+                           dtype=cfg.dtype) for n in ("k", "v")}
+    long["len"] = d["seq"] - sum(LM_DECODE_STEPS) - 1
+    lm_decode(cfg, params, long, LM_DECODE_STEPS, d["seq"], "long_500k",
+              profile)
+    del long
+    lm_agreement(cfg, params, 2_047)
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- gemma3-1b, whole: prefill 32k at B = 1, decode at what is free
+    cfg = cfg_base.get("gemma3-1b").full()
+    params = lm_params(cfg, dev)
+    d = LM_SHAPE_DEFS["decode_32k"]
+    cache = lm_prefill(cfg, params, 1, d["seq"], "prefill_32k")
+    per_seq = 2 * cache["k"].numel() * cache["k"].element_size()
+    B = pow2_at_most(LM_MEM_SHARE * free_bytes() / per_seq, d["batch"])
+    big = cache_of(cache, B, d["seq"])
+    del cache
+    lm_decode(cfg, params, big, LM_DECODE_STEPS, d["seq"], "decode_32k")
+    del big
+    lm_agreement(cfg, params, 2_047)
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- qwen3 / mixtral / scout: published widths, two layers --------
+    for arch in ("qwen3-14b", "mixtral-8x22b", "llama4-scout-17b-a16e"):
+        full = cfg_base.get(arch).full()
+        cfg = dataclasses.replace(full, n_layers=LM_CUT_LAYERS)
+        params = lm_params(cfg, dev)
+        n_par = sum(p.numel() for p in params.parameters())
+        print(f"[lm] {arch}: {LM_CUT_LAYERS} of {full.n_layers} layers at "
+              f"the published widths, {n_par:,} parameters "
+              f"({n_par * 4 / 2**30:.2f} GiB float32)")
+        cache = lm_prefill(cfg, params, 1, LM_CUT_PREFILL,
+                           f"prefill {LM_CUT_PREFILL}")
+        cache = T.pad_cache(cache, LM_CUT_PREFILL + sum(LM_CUT_DECODE))
+        lm_decode(cfg, params, cache, LM_CUT_DECODE,
+                  LM_CUT_PREFILL + sum(LM_CUT_DECODE), "short")
+        del cache
+        # a prompt past the window where there is one
+        lm_agreement(cfg, params, max(2_047, cfg.window + 1_023))
+        del params
+        torch.cuda.empty_cache()
+    print(f"[lm] phase {time.perf_counter() - t_phase:.1f}s; card "
+          f"{card_line()}")
 
 
 def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
@@ -4051,8 +4431,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the main path and in phases 3c and 3e, "
                          "trace a few more serve batches, four Enron "
-                         "build blocks, one retrieval and eight batches "
-                         "of the sparse scale build with torch.profiler "
+                         "build blocks, one retrieval, eight batches of "
+                         "the sparse scale build and an LM decode step at "
+                         "decode_32k and long_500k with torch.profiler "
                          "and print the tables by device and by CPU time")
     args = ap.parse_args()
 
@@ -4248,6 +4629,9 @@ def main() -> int:
         for k in gn:
             total[k] += gn[k]
         print(f"[gnn] launches {gn}; all paths {total}")
+
+    # ---- 3l. the LM stack at the published widths -----------------------
+    lm_phase(dev, profile=args.profile)
 
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),

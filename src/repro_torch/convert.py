@@ -109,12 +109,28 @@ def gnn_params_from_jax(cfg, params_np: dict, device=None):
     return model
 
 
+def lm_params_from_jax(cfg, params_np: dict, device=None):
+    """The port's :class:`~repro_torch.models.transformer.LMParams` from
+    the reference's ``init_params`` pytree as NumPy arrays ({"embed",
+    "blocks": {"ln1", "wq", ...}, "ln_f"}), on ``device`` (``cuda``
+    unless ``device="cpu"``). ``cfg`` is the port's LMConfig with the
+    reference's field values."""
+    from repro_torch.models.transformer import LMParams
+    dev = resolve_device(device)
+    model = LMParams(cfg, generator=torch.Generator(device=dev))
+    src = {"embed": params_np["embed"], "ln_f": params_np["ln_f"],
+           **{f"blocks.{k}": v for k, v in params_np["blocks"].items()}}
+    _copy_named(model, src)
+    return model
+
+
 def adamw_state_from_jax(state_np, model):
     """The port's :class:`~repro_torch.optim.adamw.AdamWState` for
-    ``model`` (an ``XDeepFM`` or any tree ``adamw.named_leaves`` takes)
-    from the reference's ``AdamWState`` with NumPy leaves (``step``, and
-    ``m`` and ``v`` shaped like the reference's parameters), on the
-    model's device; m and v in float32."""
+    ``model`` (an ``XDeepFM``, an ``LMParams`` or any tree
+    ``adamw.named_leaves`` takes) from the reference's ``AdamWState``
+    with NumPy leaves (``step``, and ``m`` and ``v`` shaped like the
+    reference's parameters), on the model's device; m and v in
+    float32."""
     from repro_torch.optim.adamw import AdamWState, named_leaves
     leaves = named_leaves(model)
     names = [n for n, _ in leaves]

@@ -1,6 +1,6 @@
 """Deterministic, step-keyed synthetic data (port of
-``repro/data/pipeline.py``: ``RecsysStream`` and ``gnn_batch``; the
-token stream comes with the LM stack).
+``repro/data/pipeline.py``: ``TokenStream``, ``RecsysStream``,
+``gnn_batch`` and ``host_slice``).
 
 Every batch is a pure function of (seed, step), drawn with the same
 NumPy calls in the same order as the reference, so both packages see
@@ -15,6 +15,27 @@ from typing import Iterator, Optional
 import numpy as np
 
 from repro_torch.graph import csr
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Synthetic LM token stream (zipf-ish unigram over the vocab)."""
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        z = rng.zipf(1.3, size=(self.batch, self.seq + 1))
+        toks = (z % self.vocab).astype(np.int32)
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +87,16 @@ def gnn_batch(g: csr.Graph, d_feat: int, n_classes: int, seed: int = 0,
     if sim_feat is not None:
         batch["sim_feat"] = sim_feat.astype(np.float32)
     return batch
+
+
+def host_slice(batch: dict, host_id: int = 0, n_hosts: int = 1) -> dict:
+    """Per-host row slice for multi-host feeding (identity on 1 host)."""
+    if n_hosts == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0]
+        lo = rows * host_id // n_hosts
+        hi = rows * (host_id + 1) // n_hosts
+        out[k] = v[lo:hi]
+    return out

@@ -1,6 +1,13 @@
-"""Shape cells and analytic FLOP counts (port of the GNN and recsys
+"""Shape cells and analytic FLOP counts (port of the LM, GNN and recsys
 parts of ``repro/launch/specs.py``; the dry run comes later)."""
 from __future__ import annotations
+
+LM_SHAPE_DEFS = {
+    "train_4k":    dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k":  dict(kind="decode", seq=32768, batch=128),
+    "long_500k":   dict(kind="decode", seq=524288, batch=1),
+}
 
 GNN_SHAPE_DEFS = {
     # minibatch_lg: sampled subgraph sizes from batch_nodes=1024 with
@@ -18,6 +25,22 @@ RECSYS_SHAPE_DEFS = {
     "serve_bulk":     dict(kind="serve", batch=262144),
     "retrieval_cand": dict(kind="retrieval", n_candidates=1_000_000),
 }
+
+
+def lm_model_flops(cfg, kind: str, batch: int, seq: int) -> float:
+    """Useful FLOPs (no remat recompute): 6ND train / 2ND inference
+    plus causal attention 2*B*S^2*H*dh per layer fwd (x3 for train),
+    the reference's analytic count."""
+    n_act = cfg.active_param_count()
+    tokens = batch * seq
+    attn_fwd = 2.0 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq * tokens / 2
+    if kind == "train":
+        return 6.0 * n_act * tokens + 3.0 * attn_fwd
+    if kind == "prefill":
+        return 2.0 * n_act * tokens + attn_fwd
+    # decode: one token vs full cache
+    return (2.0 * n_act * batch
+            + 4.0 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq * batch)
 
 
 def gnn_model_flops(cfg, n: int, m: int, d_feat: int) -> float:

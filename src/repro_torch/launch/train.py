@@ -1,7 +1,7 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
-[...]`` (port of ``repro/launch/train.py``, its gnn and recsys
-branches).
+[...]`` (port of ``repro/launch/train.py``).
 
+    python -m repro_torch.launch.train --arch smollm-135m --device cpu --steps 3
     python -m repro_torch.launch.train --arch xdeepfm --device cpu --steps 3
     python -m repro_torch.launch.train --arch gcn-cora --device cpu --steps 3
     python -m repro_torch.launch.train --arch xdeepfm --full --batch 65536
@@ -9,12 +9,16 @@ branches).
 The smoke config by default, the full one with ``--full``; on ``cuda``
 unless ``--device cpu``. As the reference: parameters from a generator
 seeded 0, ``AdamW(lr=cosine_schedule(lr, 10, steps))`` and ``fit``,
-which checkpoints to ``--ckpt-dir`` and resumes from it; xDeepFM on
+which checkpoints to ``--ckpt-dir`` and resumes from it; an LM on
+``TokenStream`` batches of ``--batch`` x ``--seq``, xDeepFM on
 ``RecsysStream`` batches, a GNN on one full batch of
 ``barabasi_albert(256, 3)`` (``gnn_batch``; for graphcast half the
 nodes grid, half mesh, with seeded g2m / m2g edges and targets). The
-loss of every step is logged, where the reference logs every tenth. The
-LM family is not ported yet.
+loss of every step is logged, where the reference logs every tenth.
+An LM's ``--seq`` must be a multiple of its ``loss_chunk``: the full
+configs' is 512, so ``--full`` with the default ``--seq 64`` exits
+naming it before any parameter is made (the reference fails
+``lm_loss``'s assertion at its first step).
 """
 from __future__ import annotations
 
@@ -28,8 +32,6 @@ from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.trainer import TrainerConfig, fit
-
-NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item 2)"
 
 
 def gnn_graph_batch(cfg) -> dict:
@@ -61,6 +63,7 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--full", action="store_true",
                     help="full config (default smoke)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -71,21 +74,29 @@ def main(argv=None) -> None:
 
     try:
         spec = cfg_base.get(args.arch)
-    except KeyError:
-        raise SystemExit(f"arch {args.arch} {NOT_PORTED}; the port has "
-                         f"{sorted(cfg_base.all_archs())}")
-    if spec.family == "lm":
-        raise SystemExit(f"family {spec.family} {NOT_PORTED}")
-    if spec.family not in ("gnn", "recsys"):
+    except KeyError as e:
+        raise SystemExit(str(e))
+    if spec.family not in ("lm", "gnn", "recsys"):
         raise SystemExit(f"family {spec.family} has no train entrypoint")
-    dev = resolve_device(args.device)
     cfg = spec.full() if args.full else spec.smoke()
+    if spec.family == "lm":
+        from repro_torch.models import transformer as T
+        try:
+            T.loss_chunk_of(cfg, args.seq)
+        except ValueError as e:
+            raise SystemExit(f"--seq {args.seq}: {e}")
+    dev = resolve_device(args.device)
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=10, total=args.steps))
     # every step's loss, where the reference logs every tenth
     tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                          log_every=1)
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    if spec.family == "lm":
+        stream = pipeline.TokenStream(cfg.vocab, args.batch, args.seq)
+        fit(lambda p, b: T.lm_loss(cfg, p, b["tokens"], b["targets"]),
+            T.init_params(cfg, gen), stream.batch_at, opt, tcfg)
+        return
     if spec.family == "gnn":
         from repro_torch.models import gnn as G
         batch = gnn_graph_batch(cfg)

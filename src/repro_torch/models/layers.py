@@ -1,6 +1,12 @@
 """Shared building blocks (port of ``repro/models/layers.py``:
-``dense_init``, and ``leaky_relu`` and ``segment_softmax`` for the GNN
-stack; the LM stack's layers come with it).
+``dense_init``; ``rms_norm``, ``rope``, ``silu``, ``swiglu`` and
+``softmax_cross_entropy`` for the LM stack; ``leaky_relu`` and
+``segment_softmax`` for the GNN stack).
+
+The LM layers round where the reference rounds: ``rms_norm`` and
+``rope`` compute in float32 and return the input's dtype; RMSNorm
+scales by ``1 + scale`` (its scale starts at zero), and ``rope``
+rotates the two halves of the head dimension, not interleaved pairs.
 
 The segment ops are the port's own counterparts of the reference's
 ``compat.segment_sum`` and ``jax.ops.segment_max``. Ids out of range
@@ -30,6 +36,54 @@ def dense_init(gen: torch.Generator, shape, scale: float | None = None,
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return w.mul_(s).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x) * (1 + scale)`` over the last dim, in float32,
+    returned in ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, H, Dh), positions: (..., S). The
+    first half of Dh rotates against the second."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = silu(x @ w_gate)
+    return (g * (x @ w_up)) @ w_down
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean negative log-likelihood of integer ``labels`` under
+    ``logits`` (..., V), in float32; with ``mask``, the masked mean."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""Step factories (port of the GNN, recsys and SLING steps of
-``repro/train/steps.py``; the LM steps come with their model).
+"""Step factories (port of ``repro/train/steps.py``: the LM, GNN,
+recsys and SLING steps).
 
-``gnn_train_step`` and ``recsys_train_step`` return ``step(params,
-opt_state, batch) -> (params, opt_state, {"loss"})``: one AdamW step in
-place (for xDeepFM the CIN's gradient through its kernels on the
-card). The serving and inference steps return
-``step(params, batch)``, the SLING steps ``step(index, graph, batch)``;
-each runs under ``torch.inference_mode`` (the port runs eagerly:
-nothing is traced or compiled).
+``lm_train_step``, ``gnn_train_step`` and ``recsys_train_step`` return
+``step(params, opt_state, batch) -> (params, opt_state, {"loss"})``:
+one AdamW step in place (for xDeepFM the CIN's gradient through its
+kernels on the card). The serving and inference steps return
+``step(params, batch)``, the LM decode step ``step(params, cache,
+batch)``, the SLING steps ``step(index, graph, batch)``; each runs
+under ``torch.inference_mode``, the LM's prefill and decode under
+``torch.no_grad`` (a decode step writes into the cache it is given,
+which may have been made outside inference mode). The port runs
+eagerly: nothing is traced or compiled.
 """
 from __future__ import annotations
 
@@ -18,8 +21,43 @@ import torch
 from repro_torch.core.topk import stable_topk
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
+from repro_torch.models import transformer as tf_lib
 
 RETRIEVAL_K = 128
+
+
+def lm_train_step(cfg, opt) -> Callable:
+    """One training step of the LM ``params`` (an ``LMParams``, trained
+    in place) on ``batch`` (tokens, targets: (B, S) ids) with the AdamW
+    ``opt``: the chunked loss, its gradient on every leaf, the update."""
+    from repro_torch.train.trainer import value_and_grad
+
+    def step(params, opt_state, batch):
+        loss, grads = value_and_grad(
+            lambda p, b: tf_lib.lm_loss(cfg, p, b["tokens"], b["targets"]),
+            params, batch)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+    return step
+
+
+def lm_prefill_step(cfg) -> Callable:
+    """{"logits": last-token logits (B, V) float32, "cache": a cache of
+    exactly S slots} of ``batch["tokens"]`` (B, S)."""
+    def step(params, batch):
+        logits, cache = tf_lib.prefill(cfg, params, batch["tokens"])
+        return {"logits": logits, "cache": cache}
+    return step
+
+
+def lm_decode_step(cfg) -> Callable:
+    """{"logits" (B, V) float32, "cache"} after one token
+    ``batch["token"]`` (B,); ``cache``'s tensors are written in place."""
+    def step(params, cache, batch):
+        logits, cache = tf_lib.decode_step(cfg, params, cache,
+                                           batch["token"])
+        return {"logits": logits, "cache": cache}
+    return step
 
 
 def gnn_train_step(cfg, opt) -> Callable:

@@ -36,7 +36,8 @@ from repro_torch.kernels.horner_push import (MAX_SLABS, Slab,
 from repro_torch.kernels.hp_join import hp_join, hp_join_plain
 from repro_torch.kernels.spmv_ell import (HEAVY_DEGREE, SpmmLayout,
                                           segment_live, spmm, spmm_plain)
-from torch_cases import JOIN_CASES, join_rows, port_join, table_case
+from torch_cases import (JOIN_CASES, condition_lm, join_rows, port_join,
+                         table_case)
 
 ATOL = 1e-5
 
@@ -1157,3 +1158,104 @@ def test_spmm_entry_matches_reference_on_card(card, f):
     np.testing.assert_allclose(got.cpu().numpy(),
                                spmm_reference(x, g, w).cpu().numpy(),
                                atol=ATOL, rtol=0)
+
+
+# ------------------------------------------------------------ LM stack
+
+LM_ARCHS = ("smollm-135m", "gemma3-1b", "qwen3-14b", "mixtral-8x22b",
+            "llama4-scout-17b-a16e")
+BF16_ULP = 2.0 ** -7   # of max |out|: bf16's spacing at a significand of 1
+LM_TOL = {torch.float32: (ATOL, ATOL),          # (outputs, gradients)
+          torch.bfloat16: (4 * BF16_ULP, 8 * BF16_ULP)}
+
+
+def _lm_model(arch, dtype=torch.float32):
+    """(config, CPU model, its copy, tokens, targets): the smoke LM with
+    wq / wk / wv conditioned (``torch_cases.condition_lm``)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cfg_base.get(arch).smoke(), dtype=dtype)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0))
+    condition_lm(cfg, model)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    targets = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    return cfg, model, copy.deepcopy(model), tokens, targets
+
+
+def _lm_outputs(cfg, model, tokens, targets) -> dict:
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import value_and_grad
+    with torch.no_grad():
+        x, _ = T.forward(cfg, model, tokens)
+    loss, grads = value_and_grad(
+        lambda p, b: T.lm_loss(cfg, p, b["tokens"], b["targets"]), model,
+        {"tokens": tokens, "targets": targets})
+    return {"x": x, "loss": loss, **grads}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_and_loss_grads_on_card_equal_cpu(card, arch, dtype,
+                                                     monkeypatch):
+    """The smoke LM (TF32 off): forward, ``lm_loss`` and every leaf's
+    gradient on the card against the CPU, within LM_TOL of max |out|:
+    float32 ATOL (reduction order), bf16 4 ulps for outputs and 8 for
+    gradients (the yardstick tests/test_torch_lm.py holds the port to
+    against the reference in bf16)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, cpu_model, card_model, tokens, targets = _lm_model(arch, dtype)
+    card_model.to(card)
+    ref = _lm_outputs(cfg, cpu_model, tokens, targets)
+    got = _lm_outputs(cfg, card_model, tokens, targets)
+    assert got["x"].device.type == card.type and got.keys() == ref.keys()
+    assert got["x"].dtype == dtype
+    out_tol, grad_tol = LM_TOL[dtype]
+    for n, r in ref.items():
+        err, tol = _rel(got[n], r), out_tol if n in ("x", "loss") else grad_tol
+        assert err <= tol, (n, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_decode_on_card_equal_cpu(card, arch, dtype,
+                                                 monkeypatch):
+    """``prefill`` over 16 tokens, the cache padded by 4 and three
+    ``decode_step``s (fixed tokens) on the card against the CPU (TF32
+    off): logits and cache contents within LM_TOL's output tolerance,
+    the card's cache written in place."""
+    from repro_torch.models import transformer as T
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, cpu_model, card_model, tokens, _ = _lm_model(arch, dtype)
+    card_model.to(card)
+
+    def run(model):
+        logits, cache = T.prefill(cfg, model, tokens)
+        out = {"prefill": logits}
+        cache = T.pad_cache(cache, 20)
+        k = cache["k"]
+        nxt = torch.as_tensor(np.asarray([1, 2]), device=logits.device)
+        for i in range(3):
+            logits, cache = T.decode_step(cfg, model, cache, nxt)
+            out[f"decode{i}"] = logits
+            nxt = (nxt * 7 + i) % cfg.vocab
+        out["k"], out["v"] = cache["k"], cache["v"]
+        assert cache["len"] == 19 and cache["k"] is k
+        assert k.dtype == dtype
+        return out
+
+    ref, got = run(cpu_model), run(card_model)
+    assert got["k"].device.type == card.type
+    for n, r in ref.items():
+        err = _rel(got[n], r)
+        assert err <= LM_TOL[dtype][0], (n, err)

@@ -1,7 +1,7 @@
-"""The examples of the PyTorch port (the three SLING examples and the
-GCN trained on SimRank anchor features), run in this process on the CPU
-at small sizes, checked by their printed lines; and the rule that they
-import neither jax nor the reference package."""
+"""The examples of the PyTorch port (the three SLING examples, the GCN
+trained on SimRank anchor features and the small LM), run in this
+process on the CPU at small sizes, checked by their printed lines; and
+the rule that they import neither jax nor the reference package."""
 import ast
 import importlib.util
 import re
@@ -13,7 +13,7 @@ from repro_torch.graph import generators
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 NAMES = ("torch_quickstart", "torch_dynamic_graph", "torch_sling_serve",
-         "torch_train_gnn_simrank")
+         "torch_train_gnn_simrank", "torch_train_lm_small")
 
 
 def _run(name, argv, capsys):
@@ -86,3 +86,13 @@ def test_train_gnn_simrank_loss_falls(capsys):
     got = re.fullmatch(r"final train accuracy: ([0-9.]+) \(loss ([0-9.]+) "
                        r"-> ([0-9.]+)\)", out[-1])
     assert got and float(got.group(3)) < float(got.group(2))
+
+
+def test_train_lm_small_loss_falls(capsys):
+    out = _run("torch_train_lm_small", ["--device", "cpu", "--steps", "40"],
+               capsys)
+    assert re.fullmatch(r"model: smollm-smoke, \d+K params", out[0])
+    assert [line.split()[2] for line in out if line.startswith(
+        "[trainer]")] == ["0", "39"]
+    got = re.fullmatch(r"loss ([0-9.]+) -> ([0-9.]+)", out[-1])
+    assert got and float(got.group(2)) < float(got.group(1))

@@ -654,9 +654,9 @@ def test_train_cli_logs_three_losses_and_checkpoints(tmp_path):
     assert tckpt.latest_step(str(tmp_path)) == 2
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "gemma3-1b", "--device", "cpu"], capture_output=True, text=True,
+         "sling-serve", "--device", "cpu"], capture_output=True, text=True,
         env=env, timeout=120, cwd=tmp_path)
-    assert bad.returncode != 0 and "queue 1, item 2" in bad.stderr
+    assert bad.returncode != 0 and "has no train entrypoint" in bad.stderr
 
 
 def test_port_training_modules_import_no_jax():

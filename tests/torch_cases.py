@@ -1,5 +1,6 @@
-"""Input makers shared by the port's kernel tests (no JAX here: the
-card-only tests in tests/test_torch_cuda.py run where JAX is absent)."""
+"""Input makers shared by the port's kernel and model tests (no JAX
+here: the card-only tests in tests/test_torch_cuda.py run where JAX is
+absent)."""
 import numpy as np
 import torch
 
@@ -91,3 +92,15 @@ def table_case(rng, *, n, rows, W, l_max, m, hubs=(), tau=1e-4,
     indeg = np.bincount(case["dst"], minlength=n)
     case["w"] = (np.sqrt(0.6) / indeg[case["dst"]]).astype(np.float32)
     return case
+
+
+def condition_lm(cfg, model) -> None:
+    """Scale an LM's wq by sqrt(H / d_model) and wk, wv by sqrt(K /
+    d_model) in place: fan_in d_model where the reference's
+    ``dense_init`` takes the head count, so that the random-init model
+    is well-conditioned (tests/test_torch_lm.py's ``_conditioned``)."""
+    with torch.no_grad():
+        for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)):
+            getattr(model.blocks, name).mul_(
+                float(np.float32(np.sqrt(heads / cfg.d_model))))
