@@ -223,6 +223,34 @@ Phases (any failure raises and the script exits non-zero):
      For every config one decoded token against ``forward`` over the
      prompt plus that token, all layers (``lm_agreement``: float32
      within TOL_DECODE, bf16 within LM_BF16_DECODE bf16 ulps);
+  3m. the sharded models (``launch/sharding.py``, ``models/gnn_sharded.py``,
+     ``moe_ffn``'s mesh branch, ``restore`` under shardings; no kernel of
+     the port: the reference's are XLA ops) on meshes that repeat the
+     card: (a) the node-sharded GCN at the ogb_products shape
+     (gcn-cora's ``full()`` with d_in = 100) on ``erdos_renyi(2,449,029,
+     61,859,140)`` seeded with ``--seed`` (``powerlaw_fast`` cannot give
+     that shape, ``ogb_graph``), the data from ``gnn_batch`` with
+     ``--seed``, over ("data",) = 4: m and
+     the edges a shard, the host time of ``build_sharded_gcn_batch``, the
+     sharded loss and every leaf's gradient against the unsharded
+     ``gnn.loss_fn`` on the card within TOL_SHARDED, then 1 + 5 sharded
+     steps (the value and gradient of ``gcn_loss_sharded``, then AdamW)
+     with the step p50 / max by CUDA events, TFLOP/s by
+     ``gnn_model_flops`` and the device peak; (b) the elastic resume:
+     the run saved after step 3, restored under the tree_shardings of
+     the two-shard mesh ``elastic.remesh`` plans (every gathered leaf
+     equal bits to the saved one), two more steps within TOL_SHARDED of
+     the uninterrupted run's losses; full_graph_sm's GCN on four shards
+     beside the unsharded step in the same run; (c) mixtral-8x22b and
+     llama4-scout cut to 2 layers, every expert held, under ("data",) =
+     4: prefill 4,096 tokens (B = 1), then 1 + 4 decode steps at B = 64
+     from that cache repeated; the first MoE layer's call of each
+     through the mesh branch equal bit for bit to ``_moe_local`` over
+     the four quarters, with each quarter's dropped assignments and the
+     one-group path's; one ``lm_train_step`` under the mesh for mixtral
+     cut to 1 layer at B = 4 x S = 4,096; (d) that trained model saved
+     and restored under a (2, 2) mesh's ``tree_shardings``: pieces
+     cover the slices their placements report, gathered equal bits;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -338,6 +366,15 @@ LM_CUT_PREFILL = 4_096
 LM_TRAIN_BATCH = 32        # train_4k's batch, cut from the cell's 256
 LM_MEM_SHARE = 0.85        # of the memory free when a decode batch is sized
 TOL_DECODE = 1e-4          # decode vs forward, float32: of max |logit|
+# phase 3m: the sharded models (launch/specs.py GNN_SHAPE_DEFS)
+OGB_SHARDS = 4             # node shards of the card ("data",)
+OGB_STEPS = (1, 5)         # warm-up steps, timed steps
+RESUME_AT = 3              # the elastic resume: saved after this step
+TOL_SHARDED = 1e-5         # sharded vs unsharded: of the loss, of max |g|
+MOE_GROUPS = 4             # the MoE mesh: ("data",) = 4 on the card
+MOE_DECODE_B = 64
+MOE_TRAIN_LAYERS = 1       # the mesh train step: mixtral cut to one layer
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH = 4_096, 4
 BF16_ULP = 2.0 ** -7       # of max |logit|: bf16's spacing at a significand of 1
 LM_BF16_DECODE = 8         # decode vs forward, bf16: in BF16_ULPs
 # a kernel row's keys beyond the contract's, printed beside it
@@ -1900,6 +1937,436 @@ def lm_phase(dev, profile: bool = False) -> None:
         torch.cuda.empty_cache()
     print(f"[lm] phase {time.perf_counter() - t_phase:.1f}s; card "
           f"{card_line()}")
+
+
+# ----------------------------------------------------------------------
+# phase 3m: the sharded models on meshes that repeat the one card
+# ----------------------------------------------------------------------
+def sharded_gcn_step(cfg, opt):
+    """The reference's inline sharded step (``launch/specs.py``'s
+    shardmap cell), composed from the port's public pieces: the value
+    and gradient of ``gcn_loss_sharded``, then AdamW's update."""
+    from repro_torch.models.gnn_sharded import gcn_loss_sharded
+    from repro_torch.train.trainer import value_and_grad
+
+    def step(params, state, batch):
+        loss, grads = value_and_grad(
+            lambda p, b: gcn_loss_sharded(cfg, p, b), params, batch)
+        params, state = opt.update(grads, state, params)
+        return params, state, loss
+    return step
+
+
+def card_mesh(shape, axes, dev):
+    from repro_torch.launch.mesh import make_debug_mesh
+    return make_debug_mesh(shape, axes, devices=[dev] * math.prod(shape))
+
+
+def timed_steps(step, params, state, batch, mesh, steps: tuple,
+                save=None) -> tuple:
+    """``steps`` (warm-up, timed) calls of a sharded ``step`` under
+    ``mesh``, each timed by CUDA events from its call to its loss's
+    read; ``save(k, params, state)`` after each. Returns (params, state,
+    losses, timed ms)."""
+    from repro_torch.launch.sharding import use_mesh_rules
+    losses, ms = [], []
+    with use_mesh_rules(mesh):
+        for k in range(sum(steps)):
+            def one():
+                nonlocal params, state
+                params, state, loss = step(params, state, batch)
+                return float(loss)
+            loss, t = events_ms(one)
+            losses.append(loss)
+            if k >= steps[0]:
+                ms.append(t)
+            if save is not None:
+                save(k, params, state)
+    return params, state, losses, ms
+
+
+def step_stats(ms: list, flops: float) -> str:
+    import numpy as np
+    p50 = float(np.percentile(ms, 50))
+    return (f"step ms (CUDA events, call to loss read) "
+            f"{[round(t, 3) for t in ms]}, p50 {p50:.3f} max {max(ms):.3f}; "
+            f"{flops / 1e12:.4f} TFLOP a step (gnn_model_flops), "
+            f"{flops / p50 / 1e9:.3f} TFLOP/s at p50")
+
+
+def leaf_errors(got: dict, ref: dict) -> dict:
+    """{name: max |got - ref| / max |ref|} over a gradient tree."""
+    return {n: float((got[n] - r).abs().max() / r.abs().max().clamp(
+        min=1e-30)) for n, r in ref.items()}
+
+
+def ogb_graph(seed: int):
+    """``erdos_renyi`` at the ogb_products cell's n and m, seeded with
+    ``seed``. ``powerlaw_fast`` cannot give this shape: its bounded
+    Pareto sends over half of the draws to the first id, so at k = 25
+    deduplication leaves 16.3 M of 61.2 M edges and a node of in-degree
+    2,449,027, whose rows no contiguous split balances (PERF.md §4)."""
+    from repro_torch.graph import generators
+    from repro_torch.launch.specs import GNN_SHAPE_DEFS
+    d = GNN_SHAPE_DEFS["ogb_products"]
+    return generators.erdos_renyi(d["n"], d["m"], seed=seed)
+
+
+def sharded_gcn_phase(dev, tmp, seed: int) -> None:
+    """Phase 3m (a, b): the node-sharded GCN at the ogb_products shape on
+    OGB_SHARDS shards of the card, held against the unsharded port;
+    full_graph_sm at four shards; the elastic resume onto the two-shard
+    mesh that ``remesh`` plans."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.data.pipeline import gnn_batch
+    from repro_torch.graph import generators
+    from repro_torch.launch.sharding import (NamedSharding, tree_paths,
+                                             tree_shardings, use_mesh_rules)
+    from repro_torch.launch.specs import GNN_SHAPE_DEFS, gnn_model_flops
+    from repro_torch.models import gnn as G
+    from repro_torch.models.gnn_sharded import (build_sharded_gcn_batch,
+                                                gcn_loss_sharded)
+    from repro_torch.optim.adamw import AdamW, AdamWState, named_leaves
+    from repro_torch.train import checkpoint, elastic
+    from repro_torch.train.trainer import value_and_grad
+
+    d = GNN_SHAPE_DEFS["ogb_products"]
+    cfg = dataclasses.replace(cfg_base.get("gcn-cora").full(),
+                              d_in=d["d_feat"])
+    t0 = time.perf_counter()
+    g = ogb_graph(seed)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = build_sharded_gcn_batch(g, d["d_feat"], cfg.n_classes,
+                                   OGB_SHARDS, seed=seed)
+    t_build = time.perf_counter() - t0
+    bn = host["feats"].shape[0] // OGB_SHARDS
+    per_shard = np.bincount(g.edge_dst // bn, minlength=OGB_SHARDS)
+    print(f"[sharded-models] ogb_products: erdos_renyi({g.n:,}, {d['m']:,}, "
+          f"seed={seed}) ({t_graph:.2f} s on the host): m={g.m:,} "
+          f"({100 * (g.m / d['m'] - 1):+.4f}% of the "
+          f"cell's {d['m']:,}), max in-degree {int(g.in_deg.max()):,}; "
+          f"edges a shard {per_shard.tolist()}; build_sharded_gcn_batch "
+          f"(ns={OGB_SHARDS}, e_max {host['blk_src'].shape[1]:,}) "
+          f"{t_build:.3f} s on the host")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    del host
+    mesh4 = card_mesh((OGB_SHARDS,), ("data",), dev)
+    params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+
+    # ---- sharded vs unsharded loss and gradients, the same params ------
+    with use_mesh_rules(mesh4):
+        ls, gs = value_and_grad(
+            lambda p, b: gcn_loss_sharded(cfg, p, b), params, batch)
+    n = g.n
+    full = {"feats": batch["feats"][:n], "labels": batch["labels"][:n],
+            "node_mask": batch["node_mask"][:n],
+            "edge_src": torch.as_tensor(g.edge_src, device=dev),
+            "edge_dst": torch.as_tensor(g.edge_dst, device=dev),
+            "edge_mask": torch.ones(g.m, device=dev)}
+    lu, gu = value_and_grad(lambda p, b: G.loss_fn(cfg, p, b), params, full)
+    del full
+    err = {"loss": abs(float(ls) - float(lu)) / abs(float(lu)),
+           **leaf_errors(gs, gu)}
+    print(f"[sharded-models] ogb_products sharded ({OGB_SHARDS} shards of "
+          f"the card) vs unsharded gnn.loss_fn on the card: loss "
+          f"{float(ls):.7f} vs {float(lu):.7f}; relative errors (of the "
+          f"loss, of each leaf's max |g|) {err} (limit {TOL_SHARDED})")
+    if not max(err.values()) <= TOL_SHARDED:
+        raise RuntimeError(f"the sharded GCN disagrees with the unsharded "
+                           f"one: {err}")
+    del gs, gu
+
+    # ---- 1 + 5 sharded steps, saved after step RESUME_AT ----------------
+    opt = AdamW(lr=1e-3)
+    step = sharded_gcn_step(cfg, opt)
+    state = opt.init(params)
+    ckpt = str(Path(tmp) / "gcn_sharded")
+    saved = {}
+
+    def save(k, p, s):
+        if k + 1 == RESUME_AT:
+            checkpoint.save(ckpt, RESUME_AT, p, s, extra={"mesh": [4, 1]})
+            saved.update({nm: t.detach().clone() for nm, t in
+                          tree_paths(p) + tree_paths(s)})
+    params, state, losses, ms = timed_steps(step, params, state, batch,
+                                            mesh4, OGB_STEPS, save)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = gnn_model_flops(cfg, g.n, g.m, d["d_feat"])
+    print(f"[sharded-models] ogb_products {cfg.name} d_in={cfg.d_in} on "
+          f"{OGB_SHARDS} shards: losses {losses}; "
+          + step_stats(ms, flops) + f"; device peak {peak:.3f} GiB "
+          f"({base:.3f} GiB allocated before the batch)")
+    if not all(math.isfinite(l) for l in losses):
+        raise RuntimeError(f"ogb_products sharded losses: {losses}")
+    del batch, params, state
+    torch.cuda.empty_cache()
+
+    # ---- the elastic resume on the two shards remesh plans --------------
+    plan = elastic.remesh(2, 1, OGB_SHARDS, OGB_SHARDS)
+    mesh2 = elastic.make_mesh_from_plan(plan, devices=[dev] * 2)
+    t0 = time.perf_counter()
+    host = build_sharded_gcn_batch(g, d["d_feat"], cfg.n_classes, 2,
+                                   seed=seed)
+    t_build2 = time.perf_counter() - t0
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    del host
+    like = G.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    like_state = opt.init(like)
+    ps = tree_shardings(like, mesh2)
+    os_ = AdamWState(step=NamedSharding(mesh2, ()), m=ps, v=ps)
+    t0 = time.perf_counter()
+    rp, ro, mf = checkpoint.restore(ckpt, RESUME_AT, like, like_state,
+                                    mesh2, ps, os_)
+    t_restore = time.perf_counter() - t0
+    got = {**{nm: t.gather() for nm, t in rp.items()},
+           **{nm: t.gather() for nm, t in tree_paths(ro)}}
+    same = got.keys() == saved.keys() and all(
+        torch.equal(got[nm], t) for nm, t in saved.items())
+    with torch.no_grad():
+        for nm, p in named_leaves(like):
+            p.copy_(got[nm])
+    state = AdamWState(step=got[".step"],
+                       m={nm: got[f".m/{nm}"] for nm in like_state.m},
+                       v={nm: got[f".v/{nm}"] for nm in like_state.v})
+    _, _, resumed, ms2 = timed_steps(step, like, state, batch, mesh2,
+                                     (0, 2))
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(resumed, losses[RESUME_AT:RESUME_AT + 2])]
+    print(f"[sharded-models] elastic resume: step {mf['step']} saved on "
+          f"{OGB_SHARDS} shards, remesh(2, ...) -> mesh {plan.mesh_shape} "
+          f"grad_accum {plan.grad_accum}; build_sharded_gcn_batch(ns=2) "
+          f"{t_build2:.3f} s on the host; restore under the new mesh's "
+          f"tree_shardings {t_restore:.3f} s; every gathered leaf equal "
+          f"bits to the saved one: {same}; two more steps {resumed} vs "
+          f"the uninterrupted run's {losses[RESUME_AT:RESUME_AT + 2]} "
+          f"(relative {rel}, limit {TOL_SHARDED}); 2-shard step ms "
+          f"{[round(t, 3) for t in ms2]}")
+    if not same or not max(rel) <= TOL_SHARDED:
+        raise RuntimeError(f"elastic resume: equal bits {same}, loss "
+                           f"errors {rel}")
+    del batch, like, state, got, rp, ro, saved
+    torch.cuda.empty_cache()
+
+    # ---- full_graph_sm on four shards, beside the unsharded step --------
+    d = GNN_SHAPE_DEFS["full_graph_sm"]
+    cfg = dataclasses.replace(cfg_base.get("gcn-cora").full(),
+                              d_in=d["d_feat"])
+    gs_ = generators.barabasi_albert(d["n"], 2, seed=0, directed=False)
+    flops = gnn_model_flops(cfg, gs_.n, gs_.m, d["d_feat"])
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             build_sharded_gcn_batch(gs_, d["d_feat"], cfg.n_classes, 4,
+                                     seed=seed).items()}
+    params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    _, _, l4, ms4 = timed_steps(step, params, opt.init(params), batch,
+                                card_mesh((4,), ("data",), dev), GNN_STEPS)
+    from repro_torch.train.steps import gnn_train_step
+    params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    plain = gnn_batch(gs_, d["d_feat"], cfg.n_classes, seed=seed)
+    plain = {k: torch.as_tensor(v, device=dev) for k, v in plain.items()}
+    ustep = gnn_train_step(cfg, opt)
+
+    def unsharded(p, s, b):
+        p, s, m = ustep(p, s, b)
+        return p, s, m["loss"]
+    _, _, l1, ms1 = timed_steps(unsharded, params, opt.init(params), plain,
+                                None, GNN_STEPS)
+    print(f"[sharded-models] full_graph_sm {cfg.name} on 4 shards: losses "
+          f"{l4}; " + step_stats(ms4, flops) + f"; unsharded in the same "
+          f"run: losses {l1}; " + step_stats(ms1, flops))
+    if not all(math.isfinite(l) for l in l4 + l1):
+        raise RuntimeError(f"full_graph_sm sharded losses {l4}, {l1}")
+    if not max(abs(a - b) / abs(b) for a, b in zip(l4, l1)) <= TOL_SHARDED:
+        raise RuntimeError(f"full_graph_sm: sharded losses {l4} vs "
+                           f"unsharded {l1}")
+
+
+def moe_drops(x, router_w, k: int, cf: float, groups: int) -> list:
+    """Assignments past their expert's capacity in each of ``groups``
+    contiguous token groups of ``x`` (T, d): ``_moe_local``'s routing,
+    counted."""
+    import torch
+
+    from repro_torch.models.moe import _top_k
+    out = []
+    E = router_w.shape[-1]
+    for xl in x.split(x.shape[0] // groups):
+        probs = torch.softmax(xl.to(torch.float32)
+                              @ router_w.to(torch.float32), -1)
+        _, ids = _top_k(probs, k)
+        C = max(1, int(math.ceil(xl.shape[0] * k / E * cf)))
+        counts = torch.bincount(ids.reshape(-1), minlength=E)
+        out.append(int((counts - C).clamp(min=0).sum()))
+    return out
+
+
+def moe_branch_check(cfg, call, groups: int, mesh, label: str) -> None:
+    """One recorded ``moe_ffn`` call (the first MoE layer's tokens and
+    weights) through the mesh branch against the port's own
+    composition of ``_moe_local`` over the ``groups`` contiguous
+    groups, bit for bit; prints each group's dropped assignments and
+    the one-group path's."""
+    import torch
+
+    from repro_torch.launch.sharding import use_mesh_rules
+    from repro_torch.models import moe as M
+    x, w = call
+    with torch.no_grad():
+        with use_mesh_rules(mesh):
+            y, aux = M.moe_ffn(x, *w, cfg.moe_top_k, cfg.capacity_factor)
+        parts = [M._moe_local(xl, *w, cfg.moe_top_k, cfg.capacity_factor)
+                 for xl in x.split(x.shape[0] // groups)]
+    same = torch.equal(y, torch.cat([p[0] for p in parts])) and \
+        torch.equal(aux, torch.stack([p[1] for p in parts]).mean())
+    per = moe_drops(x, w[0], cfg.moe_top_k, cfg.capacity_factor, groups)
+    one = moe_drops(x, w[0], cfg.moe_top_k, cfg.capacity_factor, 1)
+    print(f"[sharded-models] {cfg.name} {label}: the mesh branch at T = "
+          f"{x.shape[0]:,} ({groups} groups of {x.shape[0] // groups:,}) "
+          f"equals the composition of _moe_local bit for bit: {same}; "
+          f"assignments dropped a group {per} (capacity "
+          f"{max(1, math.ceil(x.shape[0] // groups * cfg.moe_top_k / cfg.moe_experts * cfg.capacity_factor))}"
+          f" each), by the one-group path {one[0]} (capacity "
+          f"{max(1, math.ceil(x.shape[0] * cfg.moe_top_k / cfg.moe_experts * cfg.capacity_factor))})")
+    if not same:
+        raise RuntimeError(f"{cfg.name} {label}: the MoE mesh branch "
+                           "differs from its per-group composition")
+
+
+def moe_mesh_phase(dev, tmp) -> None:
+    """Phase 3m (c, d): the MoE layer's mesh branch in mixtral-8x22b and
+    llama4-scout cut to LM_CUT_LAYERS layers, a train step under the
+    mesh at mixtral cut to one layer, and that model's checkpoint
+    restored under a (2, 2) mesh."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.sharding import tree_shardings, use_mesh_rules
+    from repro_torch.launch.specs import lm_model_flops
+    from repro_torch.models import moe as M
+    from repro_torch.optim.adamw import AdamW, named_leaves
+    from repro_torch.train import checkpoint
+    from repro_torch.train.steps import lm_train_step
+
+    mesh = card_mesh((MOE_GROUPS,), ("data",), dev)
+    real = M.moe_ffn
+    for arch in ("mixtral-8x22b", "llama4-scout-17b-a16e"):
+        full = cfg_base.get(arch).full()
+        cfg = dataclasses.replace(full, n_layers=LM_CUT_LAYERS)
+        params = lm_params(cfg, dev)
+        calls = []
+
+        def spy(x, *w):
+            if len(calls) < 2 and (not calls or x.shape != calls[0][0].shape):
+                calls.append((x.detach(), [t.detach() for t in w[:4]]))
+            return real(x, *w)
+        M.moe_ffn = spy
+        try:
+            with use_mesh_rules(mesh):
+                cache = lm_prefill(cfg, params, 1, LM_CUT_PREFILL,
+                                   f"prefill {LM_CUT_PREFILL} on a "
+                                   f"{MOE_GROUPS}-group mesh")
+                slots = LM_CUT_PREFILL + sum(LM_DECODE_STEPS) + 1
+                big = cache_of(cache, MOE_DECODE_B, slots)
+                del cache
+                lm_decode(cfg, params, big, LM_CUT_DECODE, slots,
+                          f"on a {MOE_GROUPS}-group mesh")
+                del big
+        finally:
+            M.moe_ffn = real
+        for k, label in enumerate(("prefill, layer 0", "decode, layer 0")):
+            moe_branch_check(cfg, calls[k], MOE_GROUPS, mesh, label)
+        calls.clear()          # the recorded weights are views of params
+        del params, spy
+        torch.cuda.empty_cache()
+
+    # ---- one train step under the mesh: mixtral cut to MOE_TRAIN_LAYERS
+    cfg = dataclasses.replace(cfg_base.get("mixtral-8x22b").full(),
+                              n_layers=MOE_TRAIN_LAYERS)
+    params = lm_params(cfg, dev)
+    opt = AdamW(lr=1e-4)
+    state = opt.init(params)
+    S, B = MOE_TRAIN_SEQ, MOE_TRAIN_BATCH
+    batch = TokenStream(cfg.vocab, B, S, seed=5).batch_at(0)
+    n_par = sum(p.numel() for p in params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    step = lm_train_step(cfg, opt)
+    with use_mesh_rules(mesh):
+        (params, state, m), t = events_ms(lambda: step(params, state, batch))
+    loss = float(m["loss"])
+    flops = lm_model_flops(cfg, "train", B, S)
+    print(f"[sharded-models] {cfg.name} {MOE_TRAIN_LAYERS} layer(s) at the "
+          f"published widths ({n_par:,} parameters, {held:.3f} GiB held "
+          f"with the AdamW state): one lm_train_step on the "
+          f"{MOE_GROUPS}-group mesh at B = {B} x S = {S:,} ({B * S // MOE_GROUPS:,} "
+          f"tokens a group): loss {loss:.6f}, {t:.3f} ms (CUDA events), "
+          f"{flops / 1e12:.3f} TFLOP (lm_model_flops), "
+          f"{flops / t / 1e9:.3f} TFLOP/s; device peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"{cfg.name}: the mesh train step's loss {loss}")
+    del state, step, opt
+    torch.cuda.empty_cache()
+
+    # ---- that model saved, restored under a (2, 2) mesh ----------------
+    ckpt = str(Path(tmp) / "lm_mesh")
+    t0 = time.perf_counter()
+    checkpoint.save(ckpt, 1, params)
+    t_save = time.perf_counter() - t0
+    m22 = card_mesh((2, 2), ("data", "model"), dev)
+    ps = tree_shardings(params, m22)
+    t0 = time.perf_counter()
+    rp, _, _ = checkpoint.restore(ckpt, 1, params, None, m22, ps)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    covered, equal, cut = True, True, 0
+    for nm, t in named_leaves(params):
+        st = rp[nm]
+        idx = st.sharding.devices_indices_map(st.shape)
+        distinct = {tuple((s.start, s.stop) for s in sl): pos
+                    for pos, sl in idx.items()}
+        covered &= all(tuple(st.pieces[pos].shape) == tuple(
+            s.stop - s.start for s in sl) for pos, sl in idx.items())
+        covered &= sum(st.pieces[pos].numel() for pos in
+                       distinct.values()) == t.numel()
+        cut += len(distinct) == 4
+        equal &= torch.equal(st.gather(), t.detach())
+    print(f"[sharded-models] {cfg.name} checkpoint ({n_par * 4 / 2**30:.2f} "
+          f"GiB float32) saved in {t_save:.2f} s, restored under a (2, 2) "
+          f"mesh's tree_shardings in {t_restore:.2f} s: "
+          f"{cut} of {len(rp)} leaves cut four ways; pieces cover the "
+          f"slices their placement reports: {covered}; gathered equal "
+          f"bits: {equal}")
+    if not covered or not equal or cut == 0:
+        raise RuntimeError(f"LM restore under (2, 2): covered {covered}, "
+                           f"equal {equal}, cut {cut}")
+    del rp, params
+    torch.cuda.empty_cache()
+
+
+def sharded_models_phase(dev, tmp, seed: int = 0) -> None:
+    """Phase 3m, the sharded models on meshes that repeat the card (see
+    the module docstring)."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[sharded-models] {torch.cuda.memory_allocated() / 2**30:.3f} "
+          f"GiB held on the card by earlier phases")
+    sharded_gcn_phase(dev, tmp, seed)
+    moe_mesh_phase(dev, tmp)
+    print(f"[sharded-models] phase {time.perf_counter() - t_phase:.1f}s; "
+          f"card {card_line()}")
 
 
 def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
@@ -4435,6 +4902,8 @@ def main() -> int:
                          "the sparse scale build and an LM decode step at "
                          "decode_32k and long_500k with torch.profiler "
                          "and print the tables by device and by CPU time")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="phase 3m's graph relabelling and gnn_batch data")
     args = ap.parse_args()
 
     import torch
@@ -4632,6 +5101,10 @@ def main() -> int:
 
     # ---- 3l. the LM stack at the published widths -----------------------
     lm_phase(dev, profile=args.profile)
+
+    # ---- 3m. the sharded models on meshes that repeat the card ----------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        sharded_models_phase(dev, tmp, args.seed)
 
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),

@@ -1,13 +1,13 @@
 """Device meshes for the single-controller sharded paths.
 
-Port of ``repro/launch/mesh.py`` (the debug mesh; the TPU pod meshes
-are the model stack's, not SimRank's). The reference drives a
-``jax.sharding.Mesh`` from one process through ``shard_map``; the port
-keeps that contract with no process per shard: a :class:`Mesh` names
-its axes, maps each to a size (``mesh.shape[axis]``, as JAX's does) and
-holds one ``torch.device`` per position. A shard is a slab of tensors
-on its position's device, and the sharded paths run the shards in
-order from the calling thread (``core/shard_query.py``).
+Port of ``repro/launch/mesh.py``: the production meshes and the debug
+mesh. The reference drives a ``jax.sharding.Mesh`` from one process
+through ``shard_map``; the port keeps that contract with no process per
+shard: a :class:`Mesh` names its axes, maps each to a size
+(``mesh.shape[axis]``, as JAX's does) and holds one ``torch.device``
+per position. A shard is a slab of tensors on its position's device,
+and the sharded paths run the shards in order from the calling thread
+(``core/shard_query.py``, ``models/gnn_sharded.py``, ``models/moe.py``).
 
 A mesh may repeat a device: ``make_debug_mesh((4,), ("data",),
 devices=["cpu"] * 4)`` is the port's counterpart of the reference's
@@ -61,15 +61,31 @@ class Mesh:
         """The devices along ``axis``, the other axes at ``coords``
         (0 where not given): where a tensor split over ``axis`` puts its
         pieces."""
-        if axis not in self.axis_names:
-            raise ValueError(f"mesh has no axis {axis!r}: "
-                             f"{self.axis_names}")
+        return self.axes_devices((axis,), **coords)
+
+    def axes_positions(self, axes, **coords: int) -> list[tuple[int, ...]]:
+        """The positions over the product of ``axes``, row-major in the
+        order given (the first axis varies slowest), the other axes at
+        ``coords`` (0 where not given): shard s of a dimension split
+        over ``axes`` (a ``shard_map`` spec ``P(axes)``) is item s."""
+        for a in axes:
+            if a not in self.axis_names:
+                raise ValueError(f"mesh has no axis {a!r}: "
+                                 f"{self.axis_names}")
         at = [coords.get(a, 0) for a in self.axis_names]
         out = []
-        for i in range(self.shape[axis]):
-            at[self.axis_names.index(axis)] = i
-            out.append(self.devices[tuple(at)])
-        return tuple(out)
+        for idx in np.ndindex(*(self.shape[a] for a in axes)):
+            for a, i in zip(axes, idx):
+                at[self.axis_names.index(a)] = i
+            out.append(tuple(at))
+        return out
+
+    def axes_devices(self, axes, **coords: int) -> tuple[torch.device, ...]:
+        """The devices at :meth:`axes_positions`: where the shards of a
+        dimension split over several axes run (``()`` gives the one
+        device at ``coords``)."""
+        grid = self.devices
+        return tuple(grid[p] for p in self.axes_positions(axes, **coords))
 
 
 def mesh_device(mesh, axis: str, device=None) -> torch.device:
@@ -95,6 +111,16 @@ def _devices(count: int, devices) -> tuple[torch.device, ...]:
     if len(devs) != count:
         raise ValueError(f"mesh needs {count} devices, got {len(devs)}")
     return devs
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The reference's production mesh: (16, 16) over ("data", "model"),
+    or (2, 16, 16) over ("pod", "data", "model") with ``multi_pod``; over
+    the first 256 or 512 CUDA devices (raises if there are fewer), or
+    over ``devices``, which may repeat a device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_debug_mesh(shape, axes, devices=devices)
 
 
 def make_debug_mesh(shape=(2, 2), axes=("data", "model"),

@@ -1,5 +1,9 @@
 """Shape cells and analytic FLOP counts (port of the LM, GNN and recsys
-parts of ``repro/launch/specs.py``; the dry run comes later)."""
+parts of ``repro/launch/specs.py``). The reference's ``Cell`` /
+``make_cell`` and the per-family cells that wrap the train steps, the
+dry run and the HLO tools are not ported yet (ROADMAP.md, queue 1,
+item 4); the sharded GCN's step is composed from ``gcn_loss_sharded``
+and AdamW where it is used."""
 from __future__ import annotations
 
 LM_SHAPE_DEFS = {

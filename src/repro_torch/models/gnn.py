@@ -23,8 +23,10 @@ names (``gnn.w.0``, ``gnn.a_src.0``, ``gnn.w_pre.1``, ``gnn.enc_grid``,
 ...; ``optim.adamw.named_leaves`` gives "gnn/w/0"), drawn from a
 ``torch.Generator`` in the reference's order, without
 ``requires_grad``: the training entry points turn it on for the model
-they train. The reference's ``logical(...)`` sharding hints have no
-counterpart: the port's sharding is single-controller.
+they train. The reference's ``logical(...)`` sharding hints are left
+out: the port's sharding is single-controller and
+``launch.sharding.logical`` changes no value; the node-sharded GCN is
+``models/gnn_sharded.py``.
 
 One departure: PNA's std aggregator is ``sqrt(max(var, 0))``, whose
 gradient the reference takes at var <= 0 as well, where sqrt's slope is

@@ -1,12 +1,18 @@
 """Mixture-of-Experts layer with a capacity-limited router (port of
-``repro/models/moe.py``, its local path).
+``repro/models/moe.py``).
 
-The reference runs ``_moe_local`` under ``shard_map`` over the mesh's
-data axes when a mesh is active, so that each data shard dispatches its
-own tokens with a per-device capacity; without a mesh it calls
-``_moe_local`` directly. The port has no such mesh yet (ROADMAP.md,
-queue 1, item 3): its ``moe_ffn`` always takes the local path, which is
-the reference's semantics for one group of tokens.
+Under an active mesh (``launch.sharding.use_mesh_rules``) whose "pod"
+and "data" axes hold more than one position, the tokens split into G
+contiguous groups, one a data shard in row-major (pod, data) order, and
+each group runs ``_moe_local`` on its own shard's device with its own
+capacity ``C_l = ceil(T_l * k / E * cf)``: the reference's
+``shard_map`` branch, single-controller. The expert weights are read
+whole (the reference leaves the "model" axis to GSPMD, which does not
+change values), cast to the tokens' dtype once a device (``_Shared``);
+the outputs come back in order on the caller's device and the aux loss
+is the mean of the G groups'. Without a mesh, without such an axis, or
+where G does not divide T, ``_moe_local`` runs on all the tokens at
+once: the reference's semantics for one group.
 
 Dispatch is bit-compatible with the reference on the same router
 output: the top k by a stable descending sort (``jax.lax.top_k`` gives
@@ -24,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.launch.sharding import active_mesh
 from repro_torch.models.layers import silu
 
 
@@ -82,11 +89,49 @@ def _moe_local(x, router_w, w_gate, w_up, w_down, top_k: int,
     return y, aux
 
 
+class _Shared(torch.autograd.Function):
+    """An expert weight as ``cast`` (its copy in the tokens' dtype on a
+    group's device, made once for every group there), its gradient sent
+    back to the weight in the weight's dtype and device, group by group:
+    the bits of each group's own ``w.to(dtype)``, whose forward and
+    backward these are. The groups that share a card share one cast,
+    which the backward holds once instead of once a group."""
+
+    @staticmethod
+    def forward(ctx, w, cast):
+        ctx.dtype, ctx.device = w.dtype, w.device
+        return cast.view_as(cast)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.device, ctx.dtype), None
+
+
 def moe_ffn(x, router_w, w_gate, w_up, w_down, top_k: int,
             capacity_factor: float = 1.25):
-    """x: (T, d) tokens; returns (T, d) and the aux load-balance loss.
-
-    Always the local path: the reference's ``shard_map`` branch needs an
-    active mesh, which the port does not have yet."""
-    return _moe_local(x, router_w, w_gate, w_up, w_down, top_k,
-                      capacity_factor)
+    """x: (T, d) tokens; returns (T, d) and the aux load-balance loss
+    (see the module docstring for the mesh branch)."""
+    mesh = active_mesh()
+    manual = tuple(a for a in ("pod", "data") if mesh is not None
+                   and a in mesh.shape and mesh.shape[a] > 1)
+    T = x.shape[0]
+    G = math.prod(mesh.shape[a] for a in manual) if manual else 1
+    if not manual or T % G != 0:
+        return _moe_local(x, router_w, w_gate, w_up, w_down, top_k,
+                          capacity_factor)
+    devs = mesh.axes_devices(manual)
+    casts = {}
+    with torch.no_grad():                  # one cast a device, see _Shared
+        for dev in devs:
+            if dev not in casts:
+                casts[dev] = [w.detach().to(dev, x.dtype)
+                              for w in (w_gate, w_up, w_down)]
+    ys, auxes = [], []
+    for xl, dev in zip(x.split(T // G), devs):
+        wg, wu, wd = (_Shared.apply(w, c) for w, c in
+                      zip((w_gate, w_up, w_down), casts[dev]))
+        y, aux = _moe_local(xl.to(dev), router_w.to(dev), wg, wu, wd,
+                            top_k, capacity_factor)
+        ys.append(y.to(x.device))
+        auxes.append(aux.to(x.device))
+    return torch.cat(ys), torch.stack(auxes).mean()

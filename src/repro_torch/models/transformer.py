@@ -18,8 +18,10 @@ names (``embed``, ``blocks.wq``, ``blocks.moe_w_gate``, ``ln_f``, ...;
 ``optim.adamw.named_leaves`` gives "blocks/wq"), float32, without
 ``requires_grad``: the training entry points turn it on. They are cast
 to ``cfg.dtype`` at every use, as the reference casts them. The
-reference's ``logical(...)`` sharding hints have no counterpart: the
-port's sharding is single-controller.
+reference's ``logical(...)`` sharding hints are left out: the port's
+sharding is single-controller and ``launch.sharding.logical`` changes
+no value. Under ``launch.sharding.use_mesh_rules`` the MoE layers take
+``moe_ffn``'s mesh branch.
 
 Remat: ``forward`` checkpoints each block and ``lm_loss`` each (B, C,
 V) logits chunk with ``torch.utils.checkpoint`` (non-reentrant), saving

@@ -63,6 +63,16 @@ def named_leaves(params: Any) -> list[tuple[str, torch.Tensor]]:
     return sorted(flat, key=lambda kv: _sort_key(kv[0]))
 
 
+def state_leaves(state: AdamWState) -> list[tuple[str, Any]]:
+    """[(name, leaf)] of an ``AdamWState`` under the reference
+    checkpoint's names: ".step", then ".m/<name>" and ".v/<name>" in
+    ``named_leaves`` order (the fields of ``jax.tree``'s NamedTuple
+    path, whose keys print with a leading dot)."""
+    return ([(".step", state.step)]
+            + [(f".m/{n}", t) for n, t in named_leaves(state.m)]
+            + [(f".v/{n}", t) for n, t in named_leaves(state.v)])
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: float | Callable[[torch.Tensor], torch.Tensor] = 3e-4

@@ -22,8 +22,15 @@ from repro.core.index import SlingIndex as RIndex
 from repro.kernels.cin import ops as rcin_ops
 from repro.kernels.hp_join.hp_join import hp_join as rhp_join
 from repro.kernels.hp_join import ops as rhp_ops
+from repro.kernels.hp_join.ref import join_ref as rjoin_ref
+from repro.kernels.spmv_ell.ref import spmm_ref as rspmm_ref
+from repro.launch import mesh as rmesh
+from repro.launch import sharding as rsharding
+from repro.models import gnn_sharded as rgnn_sharded
+from repro.models import moe as rmoe
 from repro.models import recsys as rrecsys
 from repro.serve import EngineConfig as REngineConfig
+from repro.train import checkpoint as rcheckpoint
 from repro_torch import convert
 from repro_torch.core import build as tbuild
 from repro_torch.core import diagonal as tdiagonal
@@ -36,6 +43,13 @@ from repro_torch.graph import generators as tgen
 from repro_torch.kernels.cin import ops as tcin_ops
 from repro_torch.kernels.hp_join import hp_join as thp_join
 from repro_torch.kernels.hp_join import ops as thp_ops
+from repro_torch.kernels.hp_join.ref import join_ref as tjoin_ref
+from repro_torch.kernels.spmv_ell.ref import spmm_ref as tspmm_ref
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import sharding as tsharding
+from repro_torch.models import gnn_sharded as tgnn_sharded
+from repro_torch.models import moe as tmoe
+from repro_torch.train import checkpoint as tcheckpoint
 from repro_torch.models import recsys as trecsys
 
 ZOO = tuple(oracle.cases())
@@ -190,7 +204,8 @@ def test_build_index_takes_nothing_positional_after_block():
 PORT_KEYWORDS = {"device", "verbose", "build_seconds", "read_only"}
 # and those of one function only
 OWN_KEYWORDS = {"cin": {"backend"}, "cin_forward": {"backend"},
-                "paired_meet": {"mesh", "mesh_axis"}}
+                "paired_meet": {"mesh", "mesh_axis"},
+                "make_production_mesh": {"multi_pod", "devices"}}
 # a positional the port renames by design: a torch.Generator for a key
 RENAMED = {"paired_meet": {"key": "gen"}}
 # trailing reference parameters the port has no use for: an XLA compile
@@ -232,6 +247,18 @@ SIGNATURES = {
     "paired_meet": (rwalks.paired_meet, twalks.paired_meet),
     "fold_sqrt_d": (rhp_ops.fold_sqrt_d, thp_ops.fold_sqrt_d),
     "hp_join": (rhp_join, thp_join),
+    "restore": (rcheckpoint.restore, tcheckpoint.restore),
+    "moe_ffn": (rmoe.moe_ffn, tmoe.moe_ffn),
+    "gcn_loss_sharded": (rgnn_sharded.gcn_loss_sharded,
+                         tgnn_sharded.gcn_loss_sharded),
+    "build_sharded_gcn_batch": (rgnn_sharded.build_sharded_gcn_batch,
+                                tgnn_sharded.build_sharded_gcn_batch),
+    "spec_for": (rsharding.spec_for, tsharding.spec_for),
+    "param_spec": (rsharding.param_spec, tsharding.param_spec),
+    "make_production_mesh": (rmesh.make_production_mesh,
+                             tmesh.make_production_mesh),
+    "join_ref": (rjoin_ref, tjoin_ref),
+    "spmm_ref": (rspmm_ref, tspmm_ref),
 }
 # refused by design, with TypeError: the gathered-row join (the port's
 # kernel gathers the rows itself; ROADMAP.md, "Not ported, by design")

@@ -1259,3 +1259,106 @@ def test_lm_prefill_and_decode_on_card_equal_cpu(card, arch, dtype,
     for n, r in ref.items():
         err = _rel(got[n], r)
         assert err <= LM_TOL[dtype][0], (n, err)
+
+
+# ------------------------------------------------------ sharded models
+
+
+def _mesh_of(device, shape, axes=("data",)):
+    from repro_torch.launch.mesh import make_debug_mesh
+    return make_debug_mesh(shape, axes,
+                           devices=[device] * int(np.prod(shape)))
+
+
+def _gcn_case(device):
+    """(config, model on ``device``, the 4-shard batch) of the smoke GCN
+    on BA(400)."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.models import gnn as G
+    from repro_torch.models.gnn_sharded import build_sharded_gcn_batch
+    cfg = cfg_base.get("gcn-cora").smoke()
+    g = generators.barabasi_albert(400, 3, seed=1, directed=False)
+    model = G.init_params(cfg, torch.Generator().manual_seed(2)).to(device)
+    return cfg, model, build_sharded_gcn_batch(g, cfg.d_in, cfg.n_classes,
+                                               4, seed=1)
+
+
+@pytest.mark.cuda
+def test_sharded_gcn_on_four_card_shards_equals_cpu(card, monkeypatch):
+    """``gcn_loss_sharded`` on four shards of ``cuda:0`` against four
+    CPU shards (TF32 off): the loss and every leaf's gradient within
+    ATOL of max |ref|, the loss on the card."""
+    from repro_torch.launch.sharding import use_mesh_rules
+    from repro_torch.models.gnn_sharded import gcn_loss_sharded
+    from repro_torch.train.trainer import value_and_grad
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    out = {}
+    for dev in ("cpu", card):
+        cfg, model, batch = _gcn_case(dev)
+        with use_mesh_rules(_mesh_of(dev, (4,))):
+            loss, grads = value_and_grad(
+                lambda p, b: gcn_loss_sharded(cfg, p, b), model, batch)
+        out[str(dev)] = {"loss": loss, **grads}
+    ref, got = out["cpu"], out[str(card)]
+    assert got["loss"].device.type == card.type
+    for n, r in ref.items():
+        assert _rel(got[n], r) <= ATOL, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_mesh_branch_on_card_equals_cpu(card, arch, dtype, monkeypatch):
+    """The smoke MoE LM's ``lm_loss`` under a ("data",) = 4 mesh of
+    ``cuda:0`` against the same mesh of the CPU (TF32 off): the loss and
+    every leaf's gradient within LM_TOL, as the ``lm`` cases."""
+    from repro_torch.launch.sharding import use_mesh_rules
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, cpu_model, card_model, tokens, targets = _lm_model(arch, dtype)
+    card_model.to(card)
+    out = {}
+    for dev, model in (("cpu", cpu_model), (card, card_model)):
+        with use_mesh_rules(_mesh_of(dev, (4,))):
+            out[str(dev)] = _lm_outputs(cfg, model, tokens, targets)
+    ref, got = out["cpu"], out[str(card)]
+    out_tol, grad_tol = LM_TOL[dtype]
+    for n, r in ref.items():
+        err, tol = _rel(got[n], r), out_tol if n in ("x", "loss") else grad_tol
+        assert err <= tol, (n, err, tol)
+
+
+@pytest.mark.cuda
+def test_elastic_restore_on_card_gathers_equal_bits(card, tmp_path):
+    """A GCN trained two sharded steps on four ``cuda:0`` shards, saved,
+    and restored under the two-shard mesh ``remesh`` plans: every
+    parameter and AdamW leaf lies on the card in its pieces and gathers
+    back to the saved bits."""
+    from repro_torch.launch.sharding import (NamedSharding, tree_paths,
+                                             tree_shardings, use_mesh_rules)
+    from repro_torch.models import gnn as G
+    from repro_torch.models.gnn_sharded import gcn_loss_sharded
+    from repro_torch.optim.adamw import AdamW, AdamWState
+    from repro_torch.train import checkpoint, elastic
+    from repro_torch.train.trainer import value_and_grad
+    cfg, model, batch = _gcn_case(card)
+    opt = AdamW(lr=1e-2)
+    state = opt.init(model)
+    with use_mesh_rules(_mesh_of(card, (4,))):
+        for _ in range(2):
+            _, grads = value_and_grad(
+                lambda p, b: gcn_loss_sharded(cfg, p, b), model, batch)
+            model, state = opt.update(grads, state, model)
+    checkpoint.save(str(tmp_path), 2, model, state)
+    mesh = elastic.make_mesh_from_plan(elastic.remesh(2, 1, 4, 4),
+                                       devices=[card] * 2)
+    like = G.init_params(cfg, torch.Generator().manual_seed(7)).to(card)
+    ps = tree_shardings(like, mesh)
+    rp, ro, _ = checkpoint.restore(
+        str(tmp_path), 2, like, opt.init(like), mesh, ps,
+        AdamWState(step=NamedSharding(mesh, ()), m=ps, v=ps))
+    got = {**rp, **dict(tree_paths(ro))}
+    want = dict(tree_paths(model) + tree_paths(state))
+    assert got.keys() == want.keys()
+    for n, st in got.items():
+        assert all(p.device.type == card.type for p in st.pieces.values())
+        assert torch.equal(st.gather(), want[n].detach()), n
