@@ -234,8 +234,9 @@ Phases (any failure raises and the script exits non-zero):
      the edges a shard, the host time of ``build_sharded_gcn_batch``, the
      sharded loss and every leaf's gradient against the unsharded
      ``gnn.loss_fn`` on the card within TOL_SHARDED, then 1 + 5 sharded
-     steps (the value and gradient of ``gcn_loss_sharded``, then AdamW)
-     with the step p50 / max by CUDA events, TFLOP/s by
+     steps of the shardmap cell's step (``make_cell(..., variant=
+     "shardmap")``: the value and gradient of ``gcn_loss_sharded``, then
+     AdamW) with the step p50 / max by CUDA events, TFLOP/s by
      ``gnn_model_flops`` and the device peak; (b) the elastic resume:
      the run saved after step 3, restored under the tree_shardings of
      the two-shard mesh ``elastic.remesh`` plans (every gathered leaf
@@ -251,6 +252,26 @@ Phases (any failure raises and the script exits non-zero):
      cut to 1 layer at B = 4 x S = 4,096; (d) that trained model saved
      and restored under a (2, 2) mesh's ``tree_shardings``: pieces
      cover the slices their placements report, gathered equal bits;
+  3n. four cells (``launch/specs.make_cell``) on a (1, 1) ("data",
+     "model") mesh of the card: xdeepfm serve_p99 (the ``cin`` kernel),
+     xdeepfm train_batch (its three gradient kernels), gcn-cora
+     full_graph_sm (no kernel) and sling-serve serve_batch, the pod path
+     (the sharded push) on phase 3i's graph and index, padded to the
+     cell's n (its keys re-encoded for it). For each, the dry run's
+     record first (``launch/dryrun.run_cell`` on the card's mesh: fake
+     tensors, nothing allocated), then ``cell.jitted()`` on real
+     tensors of the cell's shapes made from ``--seed``, each predicted
+     value beside the measured one: argument bytes (distinct storages of
+     the placed arguments), the device peak (the arguments plus
+     ``max_memory_allocated`` above what was allocated before the step),
+     the roofline step time against the p50 by CUDA events, the
+     bottleneck (measured: the profiler's device busy share, "host"
+     under 50 %), the port kernels' calls against their launch counters
+     over one step, and the walk's ops beside the profiler's kernels and
+     copies a step. It fails on argument bytes or launch counts that
+     differ, and on the sling cell's first 8 rows more than TOL_KERNEL
+     from the plain push on its inputs. The first steps' launches join
+     the kernel rows' counts;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -321,11 +342,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# The H100 SXM's published peaks (NVIDIA data sheet, 700 W): memory
-# bandwidth, non-tensor-core float32 rate and dense TF32 tensor-core rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-TF32_OPS_PER_S = 494.7e12
 TOL_KERNEL = 1e-5      # kernel vs plain version, float32 reduction order
 EPS = 0.025            # the paper's Section-7.1 eps (c = 0.6)
 BLOCK = 256            # target columns per Alg-2 frontier block
@@ -377,6 +393,12 @@ MOE_TRAIN_LAYERS = 1       # the mesh train step: mixtral cut to one layer
 MOE_TRAIN_SEQ, MOE_TRAIN_BATCH = 4_096, 4
 BF16_ULP = 2.0 ** -7       # of max |logit|: bf16's spacing at a significand of 1
 LM_BF16_DECODE = 8         # decode vs forward, bf16: in BF16_ULPs
+# phase 3n: the cells on the card's (1, 1) mesh, and their steps
+# (warm-up, timed)
+CELLS_3N = (("xdeepfm", "serve_p99", (1, 5)),
+            ("xdeepfm", "train_batch", (1, 2)),
+            ("gcn-cora", "full_graph_sm", (1, 5)),
+            ("sling-serve", "serve_batch", (1, 1)))
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -420,13 +442,6 @@ def time_ms(fn, reps: int) -> float:
             fn()
     _, t = events_ms(run)
     return t / reps
-
-
-def bound_ms(nbytes: float, ops: float,
-             rate: float = FP32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def pct(lat_s: list[float]) -> str:
@@ -809,8 +824,9 @@ def cin_row(model, batch, dev, launches: int) -> dict:
     import torch
 
     from repro_torch.kernels.cin import cin_layer, cin_layer_ref
-    from repro_torch.kernels.cin.cin import (split_weights,
+    from repro_torch.kernels.cin.cin import (cin_layer_cost, split_weights,
                                              split_weights_on_card)
+    from repro_torch.kernels.cost import KernelCost, total
     from repro_torch.models import recsys
 
     cfg = model.cfg
@@ -848,13 +864,13 @@ def cin_row(model, batch, dev, launches: int) -> dict:
                                      split_weights(W)) for W in Ws)
         split_ms = time_ms(lambda: [split_weights_on_card(W) for W in Ws], 50)
         split_plain_ms = time_ms(lambda: [split_weights(W) for W in Ws], 50)
+        # the layers' cost (kernels/cin/cin.py): three TF32 products per
+        # multiply-add on the tensor cores; beside it float32 FMA
         B, m, D = x0.shape
-        ops = sum(2.0 * B * D * W.shape[1] * m * W.shape[0] for W in Ws)
-        nbytes = sum(4.0 * (x0.numel() + xk.numel() + W.numel()
-                            + B * W.shape[0] * D) for xk, W in zip(xs, Ws))
-        # three TF32 products per multiply-add on the tensor cores
-        b_ms, b_by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
-        fma_ms, _ = bound_ms(nbytes, ops)
+        cost = total(cin_layer_cost(x0, xk, W) for xk, W in zip(xs, Ws))
+        ops = cost.flops
+        b_ms, b_by = cost.bound_ms()
+        fma_ms, _ = KernelCost(cost.bytes, cost.flops).bound_ms()
 
         def run(backend):
             return lambda: [cin_layer(x0, xk, W, backend=backend)
@@ -1942,18 +1958,16 @@ def lm_phase(dev, profile: bool = False) -> None:
 # ----------------------------------------------------------------------
 # phase 3m: the sharded models on meshes that repeat the one card
 # ----------------------------------------------------------------------
-def sharded_gcn_step(cfg, opt):
-    """The reference's inline sharded step (``launch/specs.py``'s
-    shardmap cell), composed from the port's public pieces: the value
-    and gradient of ``gcn_loss_sharded``, then AdamW's update."""
-    from repro_torch.models.gnn_sharded import gcn_loss_sharded
-    from repro_torch.train.trainer import value_and_grad
+def shardmap_gcn_step(shape: str, mesh):
+    """The step of ``make_cell("gcn-cora", shape, mesh,
+    variant="shardmap")``: the value and gradient of ``gcn_loss_sharded``,
+    then AdamW's update (lr 1e-3), its loss returned as a tensor."""
+    from repro_torch.launch.specs import make_cell
+    fn = make_cell("gcn-cora", shape, mesh, variant="shardmap").fn
 
     def step(params, state, batch):
-        loss, grads = value_and_grad(
-            lambda p, b: gcn_loss_sharded(cfg, p, b), params, batch)
-        params, state = opt.update(grads, state, params)
-        return params, state, loss
+        params, state, metrics = fn(params, state, batch)
+        return params, state, metrics["loss"]
     return step
 
 
@@ -2087,7 +2101,7 @@ def sharded_gcn_phase(dev, tmp, seed: int) -> None:
 
     # ---- 1 + 5 sharded steps, saved after step RESUME_AT ----------------
     opt = AdamW(lr=1e-3)
-    step = sharded_gcn_step(cfg, opt)
+    step = shardmap_gcn_step("ogb_products", mesh4)
     state = opt.init(params)
     ckpt = str(Path(tmp) / "gcn_sharded")
     saved = {}
@@ -2166,8 +2180,10 @@ def sharded_gcn_phase(dev, tmp, seed: int) -> None:
              build_sharded_gcn_batch(gs_, d["d_feat"], cfg.n_classes, 4,
                                      seed=seed).items()}
     params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    _, _, l4, ms4 = timed_steps(step, params, opt.init(params), batch,
-                                card_mesh((4,), ("data",), dev), GNN_STEPS)
+    mesh4 = card_mesh((4,), ("data",), dev)
+    _, _, l4, ms4 = timed_steps(shardmap_gcn_step("full_graph_sm", mesh4),
+                                params, opt.init(params), batch, mesh4,
+                                GNN_STEPS)
     from repro_torch.train.steps import gnn_train_step
     params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     plain = gnn_batch(gs_, d["d_feat"], cfg.n_classes, seed=seed)
@@ -2369,6 +2385,230 @@ def sharded_models_phase(dev, tmp, seed: int = 0) -> None:
           f"card {card_line()}")
 
 
+# ----------------------------------------------------------------------
+# phase 3n: cells on the card's (1, 1) mesh, predicted and measured
+# ----------------------------------------------------------------------
+def _cell_cfg(arch: str, shape: str):
+    """The config a cell of ``arch`` x ``shape`` is made from (as
+    ``launch/specs.py`` makes it)."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.launch.specs import GNN_SHAPE_DEFS
+    cfg = cfg_base.get(arch).full()
+    if cfg_base.get(arch).family == "gnn":
+        cfg = dataclasses.replace(cfg, d_in=GNN_SHAPE_DEFS[shape]["d_feat"])
+    return cfg
+
+
+def sling_cell_inputs(cell, host, dev, seed: int):
+    """The sling-serve cell's (index, graph, batch) from phase 3i's graph
+    and index (``host``), padded to the cell's n: each key l*n0 + k
+    re-encoded as l*n + k, rows and the row width padded with PAD
+    (values 0), d with zeros, the edges (Â's pull weights) in the one
+    "model" block with weight-0 slots after them; ``cell.args[2]``'s B
+    distinct sources drawn from ``seed``. Also Â over the padded nodes,
+    for the plain push."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hp_index import INT32_PAD_KEY
+    from repro_torch.graph import csr
+    from repro_torch.kernels.spmv_ell import SpmmLayout
+    index, graph, batch = cell.args
+    g = host["g"]
+    n, W = index["keys"].shape
+    e_max = graph["blk_src"].shape[1]
+    n0, w0 = host["keys"].shape
+    if w0 > W or g.m > e_max:
+        raise RuntimeError(f"phase 3i's index (width {w0}, {g.m} edges) "
+                           f"does not fit the cell's ({W}, {e_max})")
+    k = host["keys"].long()
+    pad = k == INT32_PAD_KEY
+    keys = torch.full((n, W), INT32_PAD_KEY, dtype=torch.int32)
+    keys[:n0, :w0] = torch.where(pad, INT32_PAD_KEY,
+                                 (k // n0) * n + k % n0).int()
+    vals = torch.zeros((n, W), dtype=torch.float32)
+    vals[:n0, :w0] = host["vals"]
+    d = torch.zeros(n, dtype=torch.float32)
+    d[:n0] = host["d"]
+    cfg = _cell_cfg("sling-serve", "serve_batch")
+    w = csr.normalized_pull_weights(g, cfg.c ** 0.5).astype(np.float32)
+    blk = {"blk_src": np.zeros((1, e_max), np.int32),
+           "blk_dstl": np.zeros((1, e_max), np.int32),
+           "blk_w": np.zeros((1, e_max), np.float32)}
+    blk["blk_src"][0, :g.m] = g.edge_src
+    blk["blk_dstl"][0, :g.m] = g.edge_dst
+    blk["blk_w"][0, :g.m] = w
+    us = np.random.default_rng(seed).choice(n0, batch["us"].shape[0],
+                                            replace=False).astype(np.int32)
+    lay = SpmmLayout.from_edges(g.edge_src, g.edge_dst, w, n, dev)
+    return ({"d": d.to(dev), "keys": keys.to(dev), "vals": vals.to(dev)},
+            {k_: torch.as_tensor(v, device=dev) for k_, v in blk.items()},
+            {"us": torch.as_tensor(us, device=dev)}), lay
+
+
+def cell_inputs(cell, arch: str, shape: str, dev, seed: int) -> tuple:
+    """Real tensors on ``dev`` of ``cell``'s argument tree, from
+    ``seed``: the family's ``init_params``, AdamW's state where the step
+    trains, and a batch (``RecsysStream``'s ids; for a GNN uniform
+    edges over the cell's own n and m, masked past them, normal
+    features and uniform labels)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.launch.specs import GNN_SHAPE_DEFS
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys
+    from repro_torch.optim.adamw import AdamW
+    cfg = _cell_cfg(arch, shape)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = cell.args[-1]
+    if arch == "xdeepfm":
+        params = recsys.init_params(cfg, gen, device=dev)
+        b = RecsysStream(cfg.n_fields, cfg.vocab_per_field,
+                         spec["ids"].shape[0],
+                         multi_hot_fields=cfg.multi_hot_fields,
+                         bag_size=cfg.bag_size, seed=seed).batch_at(0)
+    else:
+        params = G.init_params(cfg, gen, device=dev)
+        d = GNN_SHAPE_DEFS[shape]
+        rng = np.random.default_rng(seed)
+        n, m = spec["feats"].shape[0], spec["edge_src"].shape[0]
+        b = {"feats": rng.normal(size=(n, d["d_feat"])).astype(np.float32),
+             "edge_src": rng.integers(0, d["n"], m).astype(np.int32),
+             "edge_dst": rng.integers(0, d["n"], m).astype(np.int32),
+             "edge_mask": (np.arange(m) < d["m"]).astype(np.float32),
+             "node_mask": (np.arange(n) < d["n"]).astype(np.float32),
+             "labels": rng.integers(0, cfg.n_classes, n).astype(np.int32)}
+    batch = {k: torch.as_tensor(b[k], device=dev) for k in spec}
+    if len(cell.args) == 3:
+        return params, AdamW(lr=1e-3).init(params), batch
+    return params, batch
+
+
+def placed_bytes(placed) -> int:
+    """Bytes of the distinct storages of placed arguments (each leaf's
+    pieces), as the dry run's walk counts its argument bytes."""
+    seen, total = set(), 0
+    for p in placed:
+        for leaf in p.leaves.values():
+            for t in leaf.pieces.values():
+                st = t.untyped_storage()
+                if st.data_ptr() not in seen:
+                    seen.add(st.data_ptr())
+                    total += st.nbytes()
+    return total
+
+
+def cells_phase(dev, sling_host, seed: int) -> dict:
+    """Phase 3n (see the module docstring). Returns the launches of the
+    cells' first steps, by the names of the kernel rows' counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cin as kcin
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 horner_push_rows_plain,
+                                                 horner_push_slabs)
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import spmm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import make_cell
+    from repro_torch.train.steps import _sling_tau
+
+    counters = {"horner_push_rows": horner_push_rows,
+                "horner_push_slabs": horner_push_slabs,
+                "cin_layer": kcin.cin_layer, "cin_grad_xk": kcin.cin_grad_xk,
+                "cin_grad_x0": kcin.cin_grad_x0,
+                "cin_grad_w": kcin.cin_grad_w, "hp_join": hp_join,
+                "spmm": spmm}
+    t_phase = time.perf_counter()
+    mesh = card_mesh((1, 1), ("data", "model"), dev)
+    bad = []
+    first = {}
+    for arch, shape, steps in CELLS_3N:
+        torch.cuda.empty_cache()
+        rec = dryrun.run_cell(arch, shape, verbose=False, mesh=mesh)
+        cell = make_cell(arch, shape, mesh)
+        lay = None
+        if arch == "sling-serve":
+            args, lay = sling_cell_inputs(cell, sling_host, dev, seed)
+        else:
+            args = cell_inputs(cell, arch, shape, dev, seed)
+        placed = cell.place(args)
+        arg_bytes = placed_bytes(placed)
+        step = cell.jitted()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, first_ms = events_ms(lambda: step(*placed))
+        launches = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        for k, v in launches.items():
+            k = {"horner_push_rows": "horner_push",
+                 "cin_layer": "cin"}.get(k, k)
+            first[k] = first.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+        err = None
+        if lay is not None:
+            index, _, batch = args
+            plain = horner_push_rows_plain(
+                index["keys"], index["vals"], index["d"], batch["us"][:8],
+                lay, _sling_tau(_cell_cfg(arch, shape)), l_max=_cell_cfg(
+                    arch, shape).l_max)
+            err = float((out[:8] - plain).abs().max())
+            if not err <= TOL_KERNEL:
+                bad.append(f"{arch} first 8 rows vs the plain push {err}")
+            del plain
+        del out
+        ms = []
+        for k in range(sum(steps)):
+            o, t = events_ms(lambda: step(*placed))
+            del o
+            if k >= steps[0]:
+                ms.append(t)
+        p50 = float(np.percentile(ms, 50))
+        census = launch_census(lambda: step(*placed), 1)
+        bpd, r = rec["bytes_per_device"], rec["roofline"]
+        t_roof = max(r["t_compute_s"], r["t_memory_s"],
+                     r["t_collective_s"]) * 1e3
+        copies = sum(census["by_name"].get(k, 0) for k in
+                     ("cudaMemcpyAsync", "cudaMemsetAsync"))
+        print(f"[cells] {arch} x {rec['shape']} on (1, 1) of the card: "
+              f"dry run {rec['t_lower_s']} s, {rec['n_ops']} ops, worst "
+              f"cases {rec['worst_cases']}; argument bytes predicted "
+              f"{bpd['argument']:,} measured {arg_bytes:,}; device peak "
+              f"predicted {bpd['peak_est'] / 2**30:.3f} GiB measured "
+              f"{peak / 2**30:.3f} GiB; roofline step {t_roof:.4f} ms "
+              f"({r['bottleneck']}) vs p50 {p50:.3f} ms (first call "
+              f"{first_ms:.3f} ms, timed {[round(t, 3) for t in ms]}): "
+              f"{100 * t_roof / p50:.2f} % of it; bottleneck predicted "
+              f"{r['bottleneck']} measured "
+              f"{'host' if census['busy_pct'] < 50 else 'device'} (device "
+              f"busy {census['busy_pct']:.1f} %); port kernels predicted "
+              f"{rec['kernels']} launched {launches}; walk ops "
+              f"{rec['n_ops']} vs profiler kernels {census['kernels']:.0f} "
+              f"+ copies and memsets {copies:.0f} a step"
+              + ("" if err is None else f"; first 8 rows vs the plain push "
+                 f"{err:.3g} (TOL_KERNEL {TOL_KERNEL})"))
+        if bpd["argument"] != arg_bytes:
+            bad.append(f"{arch} x {shape}: argument bytes predicted "
+                       f"{bpd['argument']} measured {arg_bytes}")
+        if rec["kernels"] != launches:
+            bad.append(f"{arch} x {shape}: launches predicted "
+                       f"{rec['kernels']} counted {launches}")
+        del placed, args, step, lay
+    print(f"[cells] phase {time.perf_counter() - t_phase:.1f}s; card "
+          f"{card_line()}")
+    if bad:
+        raise RuntimeError("phase 3n: " + "; ".join(bad))
+    return first
+
+
 def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
                   errors: dict) -> list[dict]:
     """The three CIN gradient kernels at the serve_p99 shapes (the three
@@ -2385,6 +2625,7 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
     from repro_torch.kernels import cin as kcin
     from repro_torch.kernels.cin import cin as kc
     from repro_torch.kernels.cin import ref
+    from repro_torch.kernels.cost import total
 
     plain = {"cin_grad_x0": lambda x0, xk, W, g: ref.cin_grad_x0_plain(
                  xk, W, g),
@@ -2395,8 +2636,6 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
     layers = grad_cases(model, batch, dev, 4)["model"]
     B, m, D = layers[0][0].shape
     slot = {"cin_grad_x0": 0, "cin_grad_xk": 1, "cin_grad_w": 2}
-    ops = 3 * sum(2.0 * B * D * W.shape[1] * m * W.shape[0]
-                  for _, _, W, _ in layers)
     # one einsum a layer, its graph kept: the library call is the grad
     leaves = [[t.clone().requires_grad_(True) for t in (x0, xk, W)]
               for x0, xk, W, _ in layers]
@@ -2429,9 +2668,9 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
         err, rel = errors[k]
         with torch.no_grad():
             outs = [fn(*a) for a in layers]
-            nbytes = sum(4.0 * (sum(t.numel() for t in a) + o.numel())
-                         for o, a in zip(outs, layers))
-            b_ms, b_by = bound_ms(nbytes, ops, TF32_OPS_PER_S)
+            cost = total(kc.cin_grad_cost(*a, o) for o, a in
+                         zip(outs, layers))
+            b_ms, b_by = cost.bound_ms()
             ms = time_ms(lambda: [fn(*a) for a in layers], 20)
             p_ms = time_ms(lambda: [plain[k](*a) for a in layers], 5)
         wrt = [lv[slot[k]] for lv in leaves]
@@ -2454,8 +2693,9 @@ def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,
                         + f"-{layers[-1][2].shape[0]}"}
         print(f"[kernel] {k}: vs plain {rel:.3g} of max |grad| (phase 3j, "
               f"bound {TOL_CIN}), the einsum autograd library call vs the "
-              f"kernel {e_lib:.3g}; {ops / 3 / 1e9:.2f} GFLOP (x3 on the "
-              f"tensor cores), kernel at {ops / 3 / ms / 1e9:.2f} TFLOP/s"
+              f"kernel {e_lib:.3g}; {cost.flops / 1e9:.2f} GFLOP (x3 on "
+              f"the tensor cores), kernel at {cost.flops / ms / 1e9:.2f} "
+              f"TFLOP/s"
               + (f"; its pre-pass (in ms) {pre[k][0]:.4f} ms, plain "
                  f"{pre[k][1]:.4f} ms, equal bits" if k in pre else ""))
         rows.append(row)
@@ -3784,6 +4024,7 @@ def slab_row(g, idx, eng, nodes, launches: int, dev) -> dict:
                                                  horner_push_slabs_plain,
                                                  slabs_grid, top_level,
                                                  workspace_numel)
+    from repro_torch.kernels.horner_push.horner_push import horner_push_cost
     S, B = 4, 8
     si = shard_query.shard_index(idx, g, shard_query.serving_mesh(
         S, devices=[dev] * S))
@@ -3860,11 +4101,13 @@ def slab_row(g, idx, eng, nodes, launches: int, dev) -> dict:
     levels_run = max(top, 0) + 1
     cnt = idx.hp.counts.to(dev).long()
     live = int(cnt[us].sum())
-    csr = sum(8 * sl.layout.in_idx.numel() + 4 * (sl.layout.n + 1)
-              for sl in si.slabs)
     m_all = sum(sl.layout.in_idx.numel() for sl in si.slabs)
-    b_ms, b_by = bound_ms(8 * B + 12 * live + csr + 4 * n_rows * B,
-                          2 * levels_run * m_all * B)
+    cost = horner_push_cost(B, live, m_all,
+                            sum(sl.layout.n + 1 for sl in si.slabs), n_rows,
+                            levels_run, us.element_size())
+    b_ms, b_by = cost.bound_ms()
+    print(f"[kernel] horner_push_slabs cost inputs: B={B} live={live} "
+          f"edges={m_all} levels_run={levels_run} n_rows={n_rows}")
     mats = []
     for sl in si.slabs:
         lay = sl.layout
@@ -4120,8 +4363,9 @@ def sling_serve_phase(dev, tmp) -> tuple[dict, dict]:
     cfg.n)``, a float32 ``build_index_scale`` at phase 3e's eps, then
     ``sling_serve_step(cfg)`` on ``cfg.batch`` seeded sources, one push
     launch, its result left on the card. Returns the launches of the
-    part and the push's row (time, bound, error on its first 8 rows
-    against the plain push)."""
+    part, the push's row (time, bound, error on its first 8 rows against
+    the plain push) and, for phase 3n, the graph and the index's keys,
+    values and d on the host."""
     import os
 
     import numpy as np
@@ -4136,6 +4380,7 @@ def sling_serve_phase(dev, tmp) -> tuple[dict, dict]:
                                                  level_runs_plain,
                                                  persistent_grid,
                                                  workspace_numel)
+    from repro_torch.kernels.horner_push.horner_push import horner_push_cost
     from repro_torch.kernels.hp_join import hp_join
     from repro_torch.kernels.spmv_ell import SpmmLayout, spmm
     from repro_torch.train import steps
@@ -4198,9 +4443,10 @@ def sling_serve_phase(dev, tmp) -> tuple[dict, dict]:
     live = int(idx.hp.counts.to(dev).long()[us].sum())
     levels_run = max(int(level_runs_plain(index["keys"][us], cfg.n,
                                           cfg.l_max)[1].max()), 0) + 1
-    in_out = 8 * cfg.batch + 12 * live + 8 * g.m + 4 * (cfg.n + 1) \
-        + 4 * cfg.n * cfg.batch
-    b_ms, b_by = bound_ms(in_out, 2 * levels_run * g.m * cfg.batch)
+    b_ms, b_by = horner_push_cost(cfg.batch, live, g.m, cfg.n + 1, cfg.n,
+                                  levels_run, us.element_size()).bound_ms()
+    print(f"[sling-serve] horner_push_rows cost inputs: B={cfg.batch} "
+          f"live={live} edges={g.m} levels_run={levels_run} n={cfg.n}")
     # the plain push over all B rows, in 8 column batches of 128 (one
     # batch of 1,024 would gather a (m, B) message array of 21.6 GB),
     # and the library call: l_max + 1 levels of torch.sparse.mm on a
@@ -4256,7 +4502,9 @@ def sling_serve_phase(dev, tmp) -> tuple[dict, dict]:
     if not ok or not err <= TOL_KERNEL:
         raise RuntimeError(f"sling_serve_step at full size: finite {ok}, "
                            f"error {err}")
-    return launches, row
+    host = {"g": g, "keys": index["keys"].cpu(), "vals": index["vals"].cpu(),
+            "d": index["d"].cpu()}
+    return launches, row, host
 
 
 def update_phase(g, dev) -> dict:
@@ -4404,21 +4652,21 @@ def spmm_chain(lay, h, tau: float, steps: int, stop: bool) -> list:
     return out
 
 
-def spmm_bytes(lay, x, live) -> tuple[float, float, int]:
-    """What one masked step needs: (bytes, operations, live segments) --
+def spmm_need(lay, x, live):
+    """What one masked step needs (``spmm_cost`` of its live segments:
     128 bytes per live segment of x read once, out written whole, the
     CSR, the mask words read and written; an FMA per column of each
-    edge's live source segments."""
+    edge's live source segments), and the live segments."""
     import torch
+
+    from repro_torch.kernels.spmv_ell.spmv_ell import spmm_cost
     n, F = x.shape
     bits = (live.unsqueeze(-1) >> torch.arange(32, device=x.device)) & 1
     per_row = bits.sum(dim=(1, 2))
     segs = int(per_row.sum())
-    m = lay.in_idx.numel()
-    nbytes = (128 * segs + 4 * n * F + 8 * m + 4 * (n + 1)
-              + 2 * 4 * live.numel())
-    ops = 2 * 32 * int(per_row[lay.in_idx.long()].sum())
-    return nbytes, ops, segs
+    edge_segs = int(per_row[lay.in_idx.long()].sum())
+    return spmm_cost(n, F, lay.in_idx.numel(), segs, edge_segs,
+                     live.numel()), segs
 
 
 def spmm_row(g, p, dev, nodes, launches: int) -> dict:
@@ -4433,13 +4681,14 @@ def spmm_row(g, p, dev, nodes, launches: int) -> dict:
     step-3 frontiers masked, dense and through ``torch.sparse.mm``, and
     each block's mean per launch beside ``torch.sparse.mm`` on the same
     pruned frontiers. The row's bound is the step-3 pull frontier's data
-    bound (:func:`spmm_bytes`); the dense bound is printed beside it."""
+    bound (:func:`spmm_need`); the dense bound is printed beside it."""
     import numpy as np
     import torch
 
     from repro_torch.core import theory
     from repro_torch.kernels.spmv_ell import (SpmmLayout, segment_live,
                                               spmm, spmm_plain)
+    from repro_torch.kernels.spmv_ell.spmv_ell import spmm_cost
 
     pull_lay = SpmmLayout.pull(g, p.sqrt_c, dev)
     push_lay = SpmmLayout.push(g, p.sqrt_c, dev)
@@ -4488,7 +4737,11 @@ def spmm_row(g, p, dev, nodes, launches: int) -> dict:
     for name, lay, tau, steps in blocks:
         x, live = steps[3]
         xp = torch.where(x > tau, x, 0.0)
-        nb, ops, segs = spmm_bytes(lay, x, live)
+        need, segs = spmm_need(lay, x, live)
+        print(f"[kernel] spmm {name} step-3 cost inputs: n={g.n} F={BLOCK} "
+              f"edges={lay.in_idx.numel()} live_segments={segs} "
+              f"edge_segments={need.flops / 64:.0f} mask_words="
+              f"{live.numel()}")
         t3[name] = {
             "masked": time_ms(lambda: masked(x, live, lay, tau), 200),
             "dense": time_ms(lambda: spmm(xp, lay, out), 200),
@@ -4496,7 +4749,7 @@ def spmm_row(g, p, dev, nodes, launches: int) -> dict:
                                200),
             "plain": time_ms(lambda: spmm_plain(
                 x, lay, tau=tau, live_out=live_out), 20),
-            "bound": bound_ms(nb, ops), "segs": segs,
+            "bound": need.bound_ms(), "segs": segs,
             "nnz": int((xp > 0).sum())}
     # the path's mean per launch, one block of each kind
     means = {}
@@ -4506,9 +4759,9 @@ def spmm_row(g, p, dev, nodes, launches: int) -> dict:
                                 for x, live in steps], 20) / len(steps)
         l_ms = time_ms(lambda: [torch.sparse.mm(csr[id(lay)], xp)
                                 for xp in pruned], 20) / len(steps)
-        need = [spmm_bytes(lay, x, live) for x, live in steps]
-        b_mean = sum(bound_ms(nb, ops)[0] for nb, ops, _ in need) / len(need)
-        segs = [sg for _, _, sg in need]
+        need = [spmm_need(lay, x, live) for x, live in steps]
+        b_mean = sum(c.bound_ms()[0] for c, _ in need) / len(need)
+        segs = [sg for _, sg in need]
         means[name] = (k_ms, l_ms)
         print(f"[kernel] spmm {name} block ({len(steps)} launches, theta "
               f"{tau:.6g}): mean per launch masked {k_ms:.4f} ms, "
@@ -4516,8 +4769,7 @@ def spmm_row(g, p, dev, nodes, launches: int) -> dict:
               f"{b_mean:.5f} ms; live segments per step {segs} of "
               f"{g.n * BLOCK // 32}")
         del pruned
-    s_bytes = 4 * 2 * g.n * BLOCK + 8 * g.m + 4 * (g.n + 1) + 4 * g.n
-    dense_ms, _ = bound_ms(s_bytes, 2 * g.m * BLOCK)
+    dense_ms, _ = spmm_cost(g.n, BLOCK, g.m).bound_ms()
     for name, t in t3.items():
         print(f"[kernel] spmm {name} step-3 frontier: masked {t['masked']:.4f}"
               f" ms, dense {t['dense']:.4f} ms, torch.sparse.mm "
@@ -4602,6 +4854,7 @@ def hp_join_row(eng, idx, pair_u, pair_v, launches: int) -> dict:
     import torch
 
     from repro_torch.kernels.hp_join import hp_join, hp_join_plain
+    from repro_torch.kernels.hp_join.hp_join import hp_join_cost
     dev = eng.device
     K = eng._width_cap
     us = torch.as_tensor(pair_u, device=dev)
@@ -4612,10 +4865,10 @@ def hp_join_row(eng, idx, pair_u, pair_v, launches: int) -> dict:
     if not torch.equal(got, hp_join(fk, fv, us, vs)):
         raise RuntimeError("two hp_join calls on the same inputs differ")
     cnt = idx.hp.counts.long()
-    live = int(cnt[us.long()].sum() + cnt[vs.long()].sum())
-    j_bytes = 8 * live + 4 * 3 * len(us)
-    j_ops = 2 * int(cnt[us.long()].sum()) * (math.log2(K) + 1)
-    b_ms, b_by = bound_ms(j_bytes, j_ops)
+    live_u, live_v = int(cnt[us.long()].sum()), int(cnt[vs.long()].sum())
+    b_ms, b_by = hp_join_cost(len(us), live_u, live_v, K).bound_ms()
+    print(f"[kernel] hp_join cost inputs: pairs={len(us)} live_u={live_u} "
+          f"live_v={live_v} width={K}")
     floor_ms, floor_dev_ms = launch_floor(dev)
     row = {"name": "hp_join", "route": "cuda",
            "source": "src/repro_torch/csrc/hp_join.cu",
@@ -4656,10 +4909,12 @@ def horner_push_case(g, p, eng, sources) -> dict:
     stream: the CSR and a frontier read and written a level."""
     import torch
 
+    from repro_torch.kernels.cost import KernelCost
     from repro_torch.kernels.horner_push import (horner_push_rows,
                                                  horner_push_rows_plain,
                                                  level_runs_plain,
                                                  workspace_numel)
+    from repro_torch.kernels.horner_push.horner_push import horner_push_cost
     keys, vals, d, lay, tau = push_inputs(eng)
     dev = keys.device
     n, L = g.n, p.l_max
@@ -4690,14 +4945,18 @@ def horner_push_case(g, p, eng, sources) -> dict:
         allocations()
     alloc_ms = (time.perf_counter() - t0) / reps * 1e3
     live = int(eng.index.hp.counts.to(dev).long()[us].sum())
-    csr_bytes = 8 * g.m + 4 * (n + 1)
     # inputs once: the ids, the live entries of the B rows (key, value
     # and d_k), the CSR; the (B, n) result once
-    in_out = 8 * B + 12 * live + csr_bytes + 4 * n * B
-    ops = 2 * levels_run * g.m * B
-    b_ms, b_by = bound_ms(in_out, ops)
-    streamed, _ = bound_ms(levels_run * (csr_bytes + 2 * 4 * n * B)
-                           + 12 * live, ops)
+    cost = horner_push_cost(B, live, g.m, n + 1, n, levels_run,
+                            us.element_size())
+    b_ms, b_by = cost.bound_ms()
+    print(f"[kernel] horner_push_rows cost inputs: B={B} live={live} "
+          f"edges={g.m} levels_run={levels_run} n={n}")
+    # what the levels that run stream: the CSR and a frontier read and
+    # written a level
+    streamed, _ = KernelCost(
+        levels_run * (8 * g.m + 4 * (n + 1) + 2 * 4 * n * B) + 12 * live,
+        cost.flops).bound_ms()
     with warnings.catch_warnings():   # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
         a_csr = torch.sparse_csr_tensor(lay.in_ptr.long(),
@@ -5076,7 +5335,7 @@ def main() -> int:
 
         # ---- 3i. baselines, oracles, entry points, sling-serve at size --
         base = baselines_phase(dev)
-        serve, serve_row = sling_serve_phase(dev, tmp)
+        serve, serve_row, sling_host = sling_serve_phase(dev, tmp)
         paper = {k: base[k] + serve[k] for k in base}
         for k in paper:
             total[k] += paper[k]
@@ -5105,6 +5364,13 @@ def main() -> int:
     # ---- 3m. the sharded models on meshes that repeat the card ----------
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         sharded_models_phase(dev, tmp, args.seed)
+
+    # ---- 3n. four cells on the card's (1, 1) mesh, predicted, measured --
+    cells = cells_phase(dev, sling_host, args.seed)
+    del sling_host
+    for k, v in cells.items():
+        total[k] = total.get(k, 0) + v
+    print(f"[cells] launches {cells}; all paths {total}")
 
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),

@@ -32,8 +32,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graph import csr
 from repro_torch.kernels import horner_push as hpk
+from repro_torch.kernels.cost import (collective, faking, is_fake,
+                                     worst_case)
 from repro_torch.kernels.horner_push import Slab, top_level
 from repro_torch.kernels.spmv_ell import SpmmLayout
+from repro_torch.launch.sharding import ShardedTensor
 
 
 def prune_tau(plan) -> float:
@@ -119,9 +122,13 @@ def _workspace(dev, batch: int, n_rows: int, l_max: int) -> torch.Tensor:
     needs more, so a push allocates nothing after the first. A thread
     owns its buffers: the serving frontend's replica workers push from
     several threads, and a push on a mesh keeps its frontier there
-    between launches."""
-    cache = _workspaces.__dict__.setdefault("bufs", {})
+    between launches. Under a fake-tensor mode (the dry run) the buffer
+    is a new fake one, and the cache is neither read nor written: a
+    fake buffer kept there would reach a real launch."""
     need = hpk.workspace_numel(n_rows, batch, l_max)
+    if faking():
+        return torch.empty(need, dtype=torch.float32, device=dev)
+    cache = _workspaces.__dict__.setdefault("bufs", {})
     buf = cache.get((dev, batch))
     if buf is None or buf.numel() < need:
         buf = cache[(dev, batch)] = torch.empty(need, dtype=torch.float32,
@@ -265,7 +272,8 @@ def slab_horner_push(ku, xu, slabs: list, tau: float, *, n: int,
                 lo=level, bf16_frontier=bf16_frontier, n_rows=n_rows,
                 workspace=ws[dev])
         if level > 0:
-            _exchange(fronts, spans, level & 1, bf16_frontier)
+            with collective("all-gather"):
+                _exchange(fronts, spans, level & 1, bf16_frontier)
     return outs
 
 
@@ -346,10 +354,28 @@ def pod_slabs(d, blk_src, blk_dstl, blk_w, n: int, mesh) -> list:
     position of ``mesh`` (in mesh order), a list of S_model
     :class:`Slab` on that position's row of "model" devices -- slab j the edges of
     ``blk_*[j]`` (``shard_query.partition_edges``; zero-weight pad slots
-    dropped) and ``d`` (n,) whole (d_offset 0)."""
+    dropped) and ``d`` (n,) whole (d_offset 0). A ``blk_*`` placed over
+    "model" (a ``ShardedTensor``, as the cell places it) gives each
+    slab the block that lies on its device. Fake blocks (the dry run's)
+    hold no edges: each slab is taken with every slot of its block live,
+    its layout's arrays empty on its device."""
     groups, n_l = _pod_axes(mesh, n)
-    edges = [tuple(np.asarray(torch.as_tensor(a[j]).cpu())
-                   for a in (blk_src, blk_dstl, blk_w))
+    arrays = (blk_src, blk_dstl, blk_w)
+
+    def block(a, j, coords):
+        if isinstance(a, ShardedTensor):
+            pos = mesh.axes_positions(("model",), **coords)[j]
+            return a.pieces[pos][0]
+        return torch.as_tensor(a)[j]
+
+    if is_fake(*(block(a, 0, groups[0]) for a in arrays)):
+        worst_case("pod_slabs: every slot of a slab's edge block live")
+        e_max = block(blk_src, 0, groups[0]).shape[0]
+        return [[_fake_slab(n_l, e_max, d, j, dev) for j, dev in
+                 enumerate(mesh.axis_devices("model", **coords))]
+                for coords in groups]
+    edges = [tuple(np.asarray(block(a, j, groups[0]).cpu())
+                   for a in arrays)
              for j in range(mesh.shape["model"])]
     out = []
     for coords in groups:
@@ -363,6 +389,17 @@ def pod_slabs(d, blk_src, blk_dstl, blk_w, n: int, mesh) -> list:
                 d=d.to(dev), start=j * n_l, d_offset=0))
         out.append(slabs)
     return out
+
+
+def _fake_slab(n_l: int, e: int, d, j: int, dev) -> Slab:
+    """Slab j of ``n_l`` rows under a fake-tensor mode: its layout's
+    arrays empty on ``dev``, every one of its ``e`` edge slots live."""
+    def empty(numel, dtype=torch.int32):
+        return torch.empty((numel,), dtype=dtype, device=dev)
+    return Slab(layout=SpmmLayout(n=n_l, in_ptr=empty(n_l + 1),
+                                  in_idx=empty(e), w=empty(e, torch.float32),
+                                  heavy=empty(0), light=empty(n_l)),
+                d=d.to(dev), start=j * n_l, d_offset=0)
 
 
 def batched_single_source_sharded(keys, vals, d, blk_src, blk_dstl, blk_w,
@@ -390,7 +427,9 @@ def batched_single_source_sharded(keys, vals, d, blk_src, blk_dstl, blk_w,
     groups, _ = _pod_axes(mesh, n)
     if slabs is None:
         slabs = pod_slabs(d, blk_src, blk_dstl, blk_w, n, mesh)
-    us = np.asarray(us)
+    fake = is_fake(us)
+    if not fake:
+        us = np.asarray(us)
     if len(us) % len(groups):
         raise ValueError(f"{len(us)} queries do not divide over "
                          f"{len(groups)} data positions")
@@ -400,7 +439,8 @@ def batched_single_source_sharded(keys, vals, d, blk_src, blk_dstl, blk_w,
                         slabs):
         if len(q) == 0:
             continue
-        ids = torch.as_tensor(us[q].astype(np.int64), device=keys.device)
+        ids = us[q[0]:q[-1] + 1].to(keys.device, torch.int64) if fake \
+            else torch.as_tensor(us[q].astype(np.int64), device=keys.device)
         if slab_device(group) == keys.device:
             full = slab_push([(keys, vals, 0)], ids, group, tau, n=n,
                              l_max=l_max, bf16_frontier=bf16_frontier)

@@ -64,14 +64,21 @@ product, split). Shared memory: dx0 the two 82 KB stages alone
 raise; on a CPU tensor they run the plain formulas of ``ref.py``.
 Under ``no_grad`` / ``inference_mode`` :func:`cin_layer` launches the
 layer kernel directly, as serving always has.
+
+:func:`cin_layer_cost` and :func:`cin_grad_cost` count a call's work
+(the pre-passes and the W split are inside it, as in the times). On
+``FakeTensor`` inputs (the dry run) each wrapper makes its output empty
+and records that cost (``kernels/cost.py``) instead of launching.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.cin.ref import (cin_grad_w_plain, cin_grad_x0_plain,
                                          cin_grad_xk_plain, cin_layer_ref)
 
@@ -198,9 +205,10 @@ def split_grad_rows(g: torch.Tensor) -> torch.Tensor:
 def _on_card(name: str, shape, src: torch.Tensor, *args) -> torch.Tensor:
     """A new float32 ``shape`` tensor written from ``src`` by the split
     kernel ``name`` of :func:`_launcher` (called as fn(src, out, *args,
-    stream))."""
+    stream)); for a fake ``src`` (the dry run) left empty, with nothing
+    recorded: a pre-pass's work is inside its wrapper's cost."""
     out = torch.empty(shape, dtype=torch.float32, device=src.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or _cost.is_fake(src):
         return out
     src = src.contiguous()
     stream = torch.cuda.current_stream(src.device).cuda_stream
@@ -265,6 +273,25 @@ def _layer_on_card(x0: torch.Tensor, xk: torch.Tensor,
     return out
 
 
+def cin_layer_cost(x0, xk, W) -> _cost.KernelCost:
+    """One layer's work: x0, xk and W read once and the (B, h', D) output
+    written once, float32; 2*B*D*h*m*h' flops done three times on the
+    TF32 tensor cores (3xTF32)."""
+    B, m, D = x0.shape
+    h, hp = xk.shape[1], W.shape[0]
+    return _cost.KernelCost(
+        bytes=4.0 * (x0.numel() + xk.numel() + W.numel() + B * hp * D),
+        flops=2.0 * B * D * h * m * hp, rate=_cost.TF32_OPS_PER_S,
+        passes=3)
+
+
+def cin_grad_cost(x0, xk, W, g, out) -> _cost.KernelCost:
+    """One gradient kernel's work: x0, xk, W and g read once and the
+    gradient ``out`` written once; the layer's flops, 3xTF32."""
+    return dataclasses.replace(cin_layer_cost(x0, xk, W), bytes=4.0 * (
+        x0.numel() + xk.numel() + W.numel() + g.numel() + out.numel()))
+
+
 def _count(fn) -> None:
     with _build.counter_lock:
         fn.launches += 1
@@ -291,6 +318,10 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
 
 
 def _forward(x0, xk, W) -> torch.Tensor:
+    if _cost.is_fake(x0, xk, W):
+        out = x0.new_empty((x0.shape[0], W.shape[0], x0.shape[2]))
+        _cost.record("cin_layer", cin_layer_cost(x0, xk, W), x0.device)
+        return out
     if x0.device.type == "cpu":
         return cin_layer_ref(x0, xk, W)
     out = _layer_on_card(x0, xk, W)
@@ -317,6 +348,8 @@ def cin_grad_xk(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
     CPU tensor :func:`~repro_torch.kernels.cin.ref.cin_grad_xk_plain`.
     ``cin_grad_xk.launches`` counts its launches."""
     _check_grad(x0, xk, W, g)
+    if _cost.is_fake(x0, xk, W, g):
+        return _fake_grad("cin_grad_xk", x0, xk, W, g, xk.shape)
     if x0.device.type == "cpu":
         return cin_grad_xk_plain(x0, W, g)
     out = _layer_on_card(x0, g, W.permute(1, 0, 2).contiguous())
@@ -333,6 +366,8 @@ def cin_grad_x0(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
     :func:`~repro_torch.kernels.cin.ref.cin_grad_x0_plain`.
     ``cin_grad_x0.launches`` counts its launches."""
     _check_grad(x0, xk, W, g)
+    if _cost.is_fake(x0, xk, W, g):
+        return _fake_grad("cin_grad_x0", x0, xk, W, g, x0.shape)
     if x0.device.type == "cpu":
         return cin_grad_x0_plain(xk, W, g)
     B, m, D = x0.shape
@@ -362,6 +397,8 @@ def cin_grad_w(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
     tensor :func:`~repro_torch.kernels.cin.ref.cin_grad_w_plain`.
     ``cin_grad_w.launches`` counts its launches."""
     _check_grad(x0, xk, W, g)
+    if _cost.is_fake(x0, xk, W, g):
+        return _fake_grad("cin_grad_w", x0, xk, W, g, W.shape)
     if x0.device.type == "cpu":
         return cin_grad_w_plain(x0, xk, g)
     B, m, D = x0.shape
@@ -386,6 +423,14 @@ def cin_grad_w(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
 
 
 cin_grad_xk.launches = cin_grad_x0.launches = cin_grad_w.launches = 0
+
+
+def _fake_grad(name: str, x0, xk, W, g, shape) -> torch.Tensor:
+    """A gradient wrapper on fake tensors: its empty output and one
+    recorded launch."""
+    out = x0.new_empty(shape)
+    _cost.record(name, cin_grad_cost(x0, xk, W, g, out), x0.device)
+    return out
 
 
 class CinLayer(torch.autograd.Function):

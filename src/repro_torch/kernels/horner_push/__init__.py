@@ -9,8 +9,9 @@ Backends for the single-source and top-k paths:
   * ``"plain"``  -- ``horner_push_rows_plain`` (``horner_push_slabs_
     plain``) on any device (the CPU path, and the comparisons on the
     card);
-  * ``"auto"``   -- resolves by device: ``"kernel"`` on ``cuda``,
-    ``"plain"`` on ``cpu``.
+  * ``"auto"``   -- resolves by device: ``"plain"`` on ``cpu``,
+    ``"kernel"`` elsewhere (``cuda``, and the dry run's fake ``meta``
+    devices, where the kernel's wrapper records its cost).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ def resolve_push_backend(name: str | None, device) -> str:
     if name not in PUSH_BACKENDS:
         raise ValueError(f"push backend {name!r} not in {PUSH_BACKENDS}")
     if name == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "plain"
+        return "plain" if torch.device(device).type == "cpu" else "kernel"
     return name
 
 

@@ -29,6 +29,11 @@ pushes give the same bits. Two wrappers launch it:
     (``core/single_source.py`` drives it: every level in one launch
     where every slab lies on one device, one level a launch a device on
     a mesh of several).
+
+:func:`horner_push_cost` counts either call's work. On ``FakeTensor``
+inputs (the dry run) a wrapper makes its outputs empty and records that
+cost (``kernels/cost.py``), every row slot taken as live and every
+level of its range as run.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.horner_push.ops import (MAX_SEGMENTS, MAX_SLABS,
                                                  horner_push,
                                                  horner_push_slabs_plain)
@@ -97,6 +103,22 @@ def frontier_view(workspace: torch.Tensor, n_rows: int,
     return workspace[:2 * n_rows * batch].view(2, n_rows, batch)
 
 
+def horner_push_cost(batch: int, live: int, edges: int, csr_rows: int,
+                     out_rows: int, levels: int,
+                     id_bytes: int = 8) -> _cost.KernelCost:
+    """The work of one push of ``batch`` query rows holding ``live``
+    entries, over a CSR of ``edges`` edges in ``csr_rows`` row pointers,
+    into ``out_rows`` result rows, for the ``levels`` that run. Bytes,
+    each read or written once: the ids, every live entry's key, value
+    and d at its target (12 bytes), the CSR (index and weight an edge, a
+    pointer a row) and the (out_rows, batch) float32 result; operations:
+    a multiply-add an edge and a column in each level that runs."""
+    return _cost.KernelCost(
+        bytes=id_bytes * batch + 12.0 * live + 8.0 * edges + 4.0 * csr_rows
+        + 4.0 * out_rows * batch,
+        flops=2.0 * levels * edges * batch)
+
+
 def horner_push_rows_plain(keys, vals, d, us, layout, tau: float, *,
                            l_max: int) -> torch.Tensor:
     """The plain version of :func:`horner_push_rows`: gather the rows,
@@ -143,11 +165,14 @@ def horner_push_rows(keys, vals, d, us, layout, tau: float, *, l_max: int,
     launched, or the card refuses the launch); nothing runs before it
     but the allocation of the result and of the workspace, which the
     caller may pass instead (``workspace_numel`` words, any contents).
-    For CPU tensors the plain version runs.
+    For CPU tensors the plain version runs; for fake tensors nothing
+    runs (the module docstring).
     ``horner_push_rows.launches`` counts kernel launches (one a push),
     ``horner_push_rows.steps`` the levels they cover (l_max + 1 a
     push)."""
     _check(keys, vals, d, us, layout, l_max, workspace)
+    if _cost.is_fake(keys, vals, us):
+        return _fake_rows(keys, us, layout, l_max, workspace)
     if keys.device.type == "cpu":
         return horner_push_rows_plain(keys, vals, d, us, layout, tau,
                                       l_max=l_max)
@@ -175,6 +200,23 @@ def horner_push_rows(keys, vals, d, us, layout, tau: float, *, l_max: int,
 
 horner_push_rows.launches = 0
 horner_push_rows.steps = 0
+
+
+def _fake_rows(keys, us, layout, l_max, workspace) -> torch.Tensor:
+    """:func:`horner_push_rows` on fake tensors: the result and the
+    workspace the kernel allocates, and one recorded launch, every slot
+    of the B rows live and all l_max + 1 levels run."""
+    n, B = layout.n, us.shape[0]
+    out = torch.empty((B, n), dtype=torch.float32, device=keys.device)
+    if workspace is None:
+        torch.empty(workspace_numel(n, B, l_max), dtype=torch.float32,
+                    device=keys.device)
+    _cost.worst_case("horner_push_rows: every slot of the B query rows "
+                     "live, all l_max + 1 levels run")
+    _cost.record("horner_push_rows", horner_push_cost(
+        B, B * keys.shape[1], layout.in_idx.numel(), n + 1, n, l_max + 1,
+        us.element_size()), keys.device)
+    return out
 
 
 def _check_caps(slabs, rows) -> None:
@@ -262,8 +304,9 @@ def horner_push_slabs(rows, us, slabs, outs, tau: float, *, n: int,
     rounds every frontier value through bfloat16 (level 0's result
     stays float32). On a CUDA device the Hopper kernel runs (it raises
     if it cannot be built or launched, or above the slab cap; it never
-    falls back); for CPU tensors the plain version runs.
-    ``horner_push_slabs.launches`` counts kernel launches."""
+    falls back); for CPU tensors the plain version runs, for fake ones
+    nothing (the module docstring). ``horner_push_slabs.launches``
+    counts kernel launches."""
     tau = ctypes.c_float(tau).value      # the kernel compares in float32
     hi = l_max if hi is None else hi
     if n_rows is None:
@@ -272,11 +315,24 @@ def horner_push_slabs(rows, us, slabs, outs, tau: float, *, n: int,
     dev = slabs[0].layout.device
     kw = dict(n=n, l_max=l_max, hi=hi, lo=lo, bf16_frontier=bf16_frontier,
               n_rows=n_rows, workspace=workspace)
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not _cost.is_fake(us, *outs):
         horner_push_slabs_plain(rows, us, slabs, outs, tau, **kw)
         return
     _check_caps(slabs, rows)
     B = us.shape[0]
+    if _cost.is_fake(us, *outs):
+        if workspace is None:
+            torch.empty(workspace_numel(n_rows, B, l_max),
+                        dtype=torch.float32, device=dev)
+        _cost.worst_case("horner_push_slabs: every slot of the B query "
+                         "rows live, every level of the launch's range run")
+        _cost.record("horner_push_slabs", horner_push_cost(
+            B, B * (rows[0][0].shape[1] if rows else 0),
+            sum(sl.layout.in_idx.numel() for sl in slabs),
+            sum(sl.layout.n + 1 for sl in slabs),
+            sum(sl.layout.n for sl in slabs), hi - lo + 1,
+            us.element_size()), dev)
+        return
     if B == 0:
         return
     if workspace is None:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hp_index import INT32_PAD_KEY
+from repro_torch.kernels.cost import is_fake, worst_case
 from repro_torch.kernels.spmv_ell import spmm_plain
 from repro_torch.kernels.spmv_ell.ops import SpmmLayout
 
@@ -191,7 +192,11 @@ def rows_by_owner(rows, us: torch.Tensor):
 def top_level(keys: torch.Tensor, n: int, l_max: int) -> int:
     """The highest level (key // n, at most l_max) that holds a key in
     the rows ``keys``, -1 for none: above it a push from a zero frontier
-    stays exactly zero (one host sync)."""
+    stays exactly zero (one host sync). Fake rows (the dry run's) hold
+    no keys: l_max, the worst case."""
+    if is_fake(keys):
+        worst_case("top_level: the rows' highest level taken as l_max")
+        return l_max
     lv = keys.long() // n
     lv = torch.where((keys == INT32_PAD_KEY) | (lv > l_max), -1, lv)
     return int(lv.max()) if lv.numel() else -1

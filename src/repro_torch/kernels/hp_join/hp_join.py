@@ -13,16 +13,19 @@ sqrt(d_k) (``ops.fold_sqrt_d``). The kernel (``csrc/hp_join.cu``) reads
 the rows through ``us``/``vs`` itself: one block a pair, row v copied
 into shared memory with 16-byte loads, a binary search of it per entry
 of row u, and a fixed-order reduction (warp shuffles, then the warps in
-order), so two calls give the same bits.
+order), so two calls give the same bits. :func:`hp_join_cost` counts a
+call's work; no dry-run cell reaches this kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.core.hp_index import INT32_PAD_KEY
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 
 _launch = []   # the bound C function, filled on first launch
 
@@ -72,6 +75,19 @@ def _check(keys, vals, us, vs) -> None:
         raise ValueError("hp_join arguments must share one device")
     if not all(t.is_contiguous() for t in (keys, vals, us, vs)):
         raise ValueError("hp_join arguments must be contiguous")
+
+
+def hp_join_cost(pairs: int, live_u: int, live_v: int,
+                 width: int) -> _cost.KernelCost:
+    """The work of one call over ``pairs`` pairs whose u rows hold
+    ``live_u`` live entries and v rows ``live_v``, in rows of ``width``
+    slots: each live entry's key and value read once (8 bytes), the two
+    ids and the score of each pair (12 bytes); a binary search of row v
+    (log2 width + 1 compares) and a multiply-add for each entry of row
+    u, two operations a step."""
+    return _cost.KernelCost(
+        bytes=8.0 * (live_u + live_v) + 12.0 * pairs,
+        flops=2.0 * live_u * (math.log2(width) + 1))
 
 
 def hp_join(keys: torch.Tensor, vals: torch.Tensor, us: torch.Tensor,

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graph import csr
+from repro_torch.kernels.cost import is_fake
 from repro_torch.kernels.spmv_ell.spmv_ell import spmm as spmm_kernel
 from repro_torch.kernels.spmv_ell.spmv_ell import spmm_plain
 
@@ -75,8 +76,14 @@ class SpmmLayout:
         tier = sum((deg > bound).int() for bound in PUSH_TIERS)
         order = torch.sort(tier, stable=True).indices
         object.__setattr__(self, "push_order", order.int().contiguous())
-        object.__setattr__(self, "push_tiers", tuple(
-            torch.bincount(tier, minlength=len(PUSH_TIERS) + 1).tolist()))
+        if is_fake(self.in_ptr):
+            # a fake layout (the dry run's) holds no degrees: every row
+            # counted in the lowest tier, which the cost does not read
+            counts = [self.n] + [0] * len(PUSH_TIERS)
+        else:
+            counts = torch.bincount(
+                tier, minlength=len(PUSH_TIERS) + 1).tolist()
+        object.__setattr__(self, "push_tiers", tuple(counts))
 
     @property
     def device(self) -> torch.device:

@@ -18,7 +18,8 @@ The kernel (``csrc/spmm.cu``) sums each output in a fixed order that
 depends only on the row (no atomics): a group of lanes per light row, a
 block per heavy row with its slot sums added in shared memory. A
 skipped segment would only have added w * 0, so the masked result
-equals the dense one bit for bit.
+equals the dense one bit for bit. :func:`spmm_cost` counts a call's
+work; no dry-run cell reaches this kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost as _cost
 
 SEGMENT = 32        # columns a bit of the live mask covers
 WORD = 32 * SEGMENT  # columns a mask word covers
@@ -118,6 +120,25 @@ def _check(x, layout, out, tau, live, live_out) -> None:
             (len(masks) == 2 and live.data_ptr() == live_out.data_ptr()):
         raise ValueError("spmm writes out and live_out apart from x and "
                          "live")
+
+
+def spmm_cost(n: int, F: int, edges: int, live_segments: int | None = None,
+              edge_segments: int | None = None,
+              mask_words: int = 0) -> _cost.KernelCost:
+    """The work of one call on an (n, F) frontier over ``edges`` edges.
+    Dense (``live_segments`` None): x read whole, a multiply-add an edge
+    and a column. Masked: 128 bytes for each of the ``live_segments``
+    segments of x read, ``mask_words`` words of the live mask read and
+    of live_out written, and a multiply-add for each column of each
+    edge's live source segments (``edge_segments`` of 32 columns). Both:
+    the (n, F) result written whole and the CSR (8 bytes an edge, 4 a
+    row pointer)."""
+    x_bytes = 4.0 * n * F if live_segments is None else 128.0 * live_segments
+    flops = 2.0 * edges * F if edge_segments is None else \
+        2.0 * 32 * edge_segments
+    return _cost.KernelCost(
+        bytes=x_bytes + 4.0 * n * F + 8.0 * edges + 4.0 * (n + 1)
+        + 2 * 4.0 * mask_words, flops=flops)
 
 
 def spmm(x: torch.Tensor, layout, out: torch.Tensor | None = None, *,

@@ -37,6 +37,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.cost import is_fake
 from repro_torch.optim.adamw import AdamWState, named_leaves, state_leaves
 
 _CTX: dict[str, Any] = {"mesh": None, "rules": None}
@@ -238,17 +239,23 @@ class ShardedTensor:
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (the first position's device
-        by default), each distinct piece copied into its slices once."""
+        by default), each distinct piece copied there once: concatenated
+        in order where the pieces cut one dimension, else each copied
+        into its slices."""
         first = next(iter(self.pieces.values()))
-        out = torch.empty(self.shape, dtype=first.dtype,
-                          device=device if device is not None
-                          else first.device)
-        done = set()
+        device = device if device is not None else first.device
+        distinct = {}
         for pos, sl in self.sharding.devices_indices_map(self.shape).items():
-            key = tuple((s.start, s.stop) for s in sl)
-            if key not in done:
-                done.add(key)
-                out[sl] = self.pieces[pos].to(out.device)
+            distinct.setdefault(tuple((s.start, s.stop) for s in sl), pos)
+        cut = [d for d, n in enumerate(self.shape)
+               if len({k[d] for k in distinct}) > 1]
+        if len(cut) == 1:
+            return torch.cat([self.pieces[distinct[k]].to(device)
+                              for k in sorted(distinct)], dim=cut[0])
+        out = torch.empty(self.shape, dtype=first.dtype, device=device)
+        for key, pos in distinct.items():
+            out[tuple(slice(a, b) for a, b in key)] = \
+                self.pieces[pos].to(device)
         return out
 
 
@@ -273,9 +280,16 @@ def place(x: torch.Tensor, spec, mesh, axis: str | None = None):
 
 
 def _pieces(x: torch.Tensor, spec: tuple, mesh, positions=None) -> dict:
+    """{position: x's piece there}; a fake ``x`` (the dry run's, no data
+    to copy) gets new fake pieces of the pieces' shapes."""
     grid = mesh.devices
-    return {pos: x[sl].to(grid[pos], non_blocking=True) for pos, sl in
-            _indices(tuple(x.shape), spec, mesh, positions).items()}
+    idx = _indices(tuple(x.shape), spec, mesh, positions)
+    if is_fake(x):
+        return {pos: torch.empty([s.stop - s.start for s in sl],
+                                 dtype=x.dtype, device=grid[pos])
+                for pos, sl in idx.items()}
+    return {pos: x[sl].to(grid[pos], non_blocking=True)
+            for pos, sl in idx.items()}
 
 
 # ----------------------------------------------------------------------

@@ -1,10 +1,34 @@
-"""Shape cells and analytic FLOP counts (port of the LM, GNN and recsys
-parts of ``repro/launch/specs.py``). The reference's ``Cell`` /
-``make_cell`` and the per-family cells that wrap the train steps, the
-dry run and the HLO tools are not ported yet (ROADMAP.md, queue 1,
-item 4); the sharded GCN's step is composed from ``gcn_loss_sharded``
-and AdamW where it is used."""
+"""Cell builder: (architecture x input shape) -> a step and its
+arguments on a mesh (port of ``repro/launch/specs.py``).
+
+Every cell yields a :class:`Cell`: the step function, its arguments as
+``FakeTensor``s (shapes, dtypes and devices, no memory) made under one
+``FakeTensorMode`` that :func:`make_cell` owns, their placements
+(``launch/sharding.py``'s :class:`NamedSharding`, one for each leaf
+under the reference's tree path), the donated arguments and the
+analytic MODEL_FLOPS for the roofline's "useful compute" ratio.
+
+The reference's ``Cell.jitted()`` hands the step to GSPMD, which
+partitions it. The port has no partitioner: the LM, the base GNN and
+the recsys steps take whole tensors, so :meth:`Cell.jitted` gathers
+each of their arguments to the mesh's first device (a copy the op walk
+counts as collective "gather"; a replicated leaf is read from the first
+device's own copy). The steps with a mesh branch of their own read
+their placed pieces: the shardmap GCN (``gcn_loss_sharded``) its batch,
+the SLING pod path (``sling_serve_step_sharded``) its graph blocks.
+"""
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs import base as cfg_base
+from repro_torch.kernels import cost as _cost
+from repro_torch.launch import sharding as sh
+from repro_torch.optim.adamw import AdamW, AdamWState
 
 LM_SHAPE_DEFS = {
     "train_4k":    dict(kind="train", seq=4096, batch=256),
@@ -76,3 +100,508 @@ def recsys_model_flops(cfg, batch: int, train: bool) -> float:
         prev = m_
     fwd = cin + mlp
     return 3.0 * fwd if train else fwd
+
+
+# ----------------------------------------------------------------------
+# the cell and its placed arguments
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """One argument placed on a mesh: the caller's object (``template``:
+    a module, an AdamW state or a dict) and {tree path: its leaf placed
+    as a :class:`~repro_torch.launch.sharding.ShardedTensor`, or as is
+    where the placement is None}."""
+    template: Any
+    leaves: dict
+
+
+@dataclasses.dataclass
+class Cell:
+    """A step on a mesh. ``args`` are fake tensors; ``in_shardings`` /
+    ``out_shardings`` hold, for each argument or output, {tree path:
+    NamedSharding or None} (None: the reference lets GSPMD choose, and
+    the port returns whatever its step returns). ``donate_argnums``:
+    the arguments the step updates in place. ``piecewise``: the
+    arguments whose placed pieces the step reads itself; every other
+    argument is gathered to the mesh's first device."""
+    arch_id: str
+    shape_name: str
+    fn: Callable
+    args: tuple
+    in_shardings: tuple
+    out_shardings: Any
+    donate_argnums: tuple
+    model_flops: float            # analytic useful FLOPs per step
+    rules: Optional[dict] = None  # logical-rule overrides used
+    mesh: Any = None
+    piecewise: tuple = ()
+
+    def place(self, args=None) -> tuple:
+        """``args`` (the cell's own fake arguments when None, or real
+        tensors of the same tree) placed as ``in_shardings`` say: one
+        :class:`Placed` an argument."""
+        args = self.args if args is None else args
+        out = []
+        for arg, shard in zip(args, self.in_shardings):
+            leaves = dict(sh.tree_paths(arg))
+            if set(leaves) != set(shard):
+                raise ValueError(f"{self.arch_id} x {self.shape_name}: "
+                                 f"argument leaves {list(leaves)} do not "
+                                 f"match the cell's {list(shard)}")
+            out.append(Placed(arg, {
+                p: leaf if shard[p] is None else shard[p].shard(leaf)
+                for p, leaf in leaves.items()}))
+        return tuple(out)
+
+    def jitted(self) -> Callable:
+        """The step over placed arguments (:meth:`place`): each leaf is
+        checked against ``in_shardings``; an argument in ``piecewise``
+        reaches the step with its placed leaves, every other one whole
+        on the mesh's first device; then ``fn`` runs under the cell's
+        mesh and rules."""
+        home = self.mesh.flat[0]
+
+        def call(*placed):
+            if len(placed) != len(self.args):
+                raise TypeError(f"the step takes {len(self.args)} placed "
+                                f"arguments, got {len(placed)}")
+            args = []
+            for i, (p, shard) in enumerate(zip(placed, self.in_shardings)):
+                if set(p.leaves) != set(shard):
+                    raise ValueError(f"argument {i}: leaves "
+                                     f"{list(p.leaves)}, the cell's "
+                                     f"{list(shard)}")
+                vals = {}
+                for path, leaf in p.leaves.items():
+                    ns = shard[path]
+                    got = getattr(leaf, "sharding", None)
+                    if ns is not None and got != ns:
+                        raise ValueError(f"argument {i} leaf {path}: placed "
+                                         f"as {got}, the cell's {ns}")
+                    vals[path] = leaf if ns is None or i in self.piecewise \
+                        else whole(leaf, home)
+                args.append(rebuild(p.template, vals))
+            with sh.use_mesh_rules(self.mesh, self.rules):
+                return self.fn(*args)
+        return call
+
+
+def whole(st: "sh.ShardedTensor", device) -> torch.Tensor:
+    """A placed tensor whole on ``device``: the first position's piece
+    itself where it is the whole tensor on that device (a replicated
+    leaf), else gathered there (collective kind "gather")."""
+    first = next(iter(st.pieces.values()))
+    if tuple(first.shape) == st.shape and first.device == device:
+        return first
+    with _cost.collective("gather"):
+        return st.gather(device)
+
+
+def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when real tensors ``a`` and ``b`` view the same elements."""
+    from repro_torch.kernels.cost import is_fake
+    return a is b or (not is_fake(a, b) and a.device == b.device
+                      and a.data_ptr() == b.data_ptr()
+                      and a.shape == b.shape and a.stride() == b.stride())
+
+
+def _set_param(module: nn.Module, path: str, v: torch.Tensor) -> None:
+    """Replace the parameter at tree path ``path`` of ``module`` by one
+    over ``v`` (the same ``requires_grad``)."""
+    *parts, last = path.split("/")
+    owner = module
+    for part in parts:
+        owner = owner[int(part)] if isinstance(
+            owner, (nn.ModuleList, nn.ParameterList)) else getattr(owner, part)
+    old = owner[int(last)] if isinstance(owner, nn.ParameterList) \
+        else getattr(owner, last)
+    new = nn.Parameter(v, requires_grad=old.requires_grad)
+    if isinstance(owner, nn.ParameterList):
+        owner[int(last)] = new
+    else:
+        setattr(owner, last, new)
+
+
+def rebuild(template, vals: dict):
+    """``template`` with its leaves (by tree path) taken from ``vals``: a
+    module's parameters replaced by parameters over them in place (a
+    module argument is donated; a leaf that already is the parameter's
+    own tensor stays), an AdamW state or a dict rebuilt."""
+    if isinstance(template, nn.Module):
+        named = dict(sh.tree_paths(template))
+        for path, v in vals.items():
+            if not _same_view(named[path], v):
+                _set_param(template, path, v)
+        return template
+    if isinstance(template, AdamWState):
+        m = rebuild(template.m, {k[3:]: v for k, v in vals.items()
+                                 if k.startswith(".m/")})
+        v_ = rebuild(template.v, {k[3:]: v for k, v in vals.items()
+                                  if k.startswith(".v/")})
+        return AdamWState(step=vals[".step"], m=m, v=v_)
+    if isinstance(template, dict):
+        out = {}
+        for k, sub in template.items():
+            if isinstance(sub, (dict, list)):
+                pre = f"{k}/"
+                out[k] = rebuild(sub, {p[len(pre):]: v for p, v in vals.items()
+                                       if p.startswith(pre)})
+            else:
+                out[k] = vals[k]
+        return out
+    if isinstance(template, list):
+        return [rebuild(sub, {p[len(f"{i}/"):]: v for p, v in vals.items()
+                              if p.startswith(f"{i}/")})
+                if isinstance(sub, (dict, list)) else vals[str(i)]
+                for i, sub in enumerate(template)]
+    raise TypeError(f"cannot rebuild a {type(template).__name__}")
+
+
+def _ns(mesh, *parts):
+    return sh.NamedSharding(mesh, tuple(parts))
+
+
+def _pad512(x: int) -> int:
+    """The reference's padding of graph and candidate arrays to a
+    multiple of 512, the lcm of both production mesh sizes (its
+    in_shardings need exact division); the port pads the same."""
+    return -(-x // 512) * 512
+
+
+def _batch_shardings(mesh, tree_of_names: dict, shapes: dict):
+    return {k: sh.NamedSharding(mesh, sh.spec_for(tuple(shapes[k].shape),
+                                                  names, mesh))
+            for k, names in tree_of_names.items()}
+
+
+def _opt_ns(opt_state, pshard: dict, mesh) -> dict:
+    """The AdamW state's placements: the step replicated, m and v as the
+    parameters (the reference's ``AdamWState(step=_ns(mesh), m=pshard,
+    v=pshard)``)."""
+    return {p: _ns(mesh) if p == ".step" else pshard[p[3:]]
+            for p, _ in sh.tree_paths(opt_state)}
+
+
+def _empty(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype)
+
+
+# ----------------------------------------------------------------------
+# cell constructors
+# ----------------------------------------------------------------------
+def make_cell(arch_id: str, shape_name: str, mesh,
+              rules: Optional[dict] = None,
+              variant: str = "base") -> Cell:
+    """The cell of ``arch_id`` x ``shape_name`` on ``mesh``; its
+    arguments are fake tensors made under a ``FakeTensorMode`` of its
+    own. ``variant="shardmap"`` takes the GCN's node-sharded step. The
+    SLING cell is the pod path's, as in the reference."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    spec = cfg_base.get(arch_id)
+    with FakeTensorMode():
+        if spec.family == "lm":
+            return _lm_cell(spec, shape_name, mesh, rules)
+        if spec.family == "gnn":
+            if variant == "shardmap":
+                return _gnn_cell_shardmap(spec, shape_name, mesh, rules)
+            return _gnn_cell(spec, shape_name, mesh, rules)
+        if spec.family == "recsys":
+            return _recsys_cell(spec, shape_name, mesh, rules)
+        if spec.family == "sling":
+            return _sling_cell(spec, shape_name, mesh, rules)
+    raise ValueError(spec.family)
+
+
+def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps
+    d = LM_SHAPE_DEFS[shape_name]
+    cfg = spec.full()
+    opt = AdamW(lr=1e-4)
+    if d["kind"] == "prefill":
+        # output KV cache shards its sequence axis over "model"
+        rules = dict(rules or {}, **{"kv_seq": [("model",)]})
+    elif d["kind"] == "decode":
+        # split-KV ("flash decoding"): the cache's sequence axis carries
+        # the model axis (data too when batch=1); heads/head_dim stay
+        # unsharded so score contractions are local
+        decode_rules = {"kv_seq": [("model",)], "heads": [None],
+                        "kv_heads": [None], "head_dim": [None],
+                        "q_seq": [None]}
+        if d["batch"] == 1:
+            decode_rules["kv_seq"] = [("pod", "data", "model"),
+                                      ("data", "model")]
+        rules = dict(rules or {}, **decode_rules)
+    with sh.use_mesh_rules(mesh, rules):
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        pshard = sh.tree_shardings(params, mesh)
+        if d["kind"] == "train":
+            opt_state = opt.init(params)
+            oshard = _opt_ns(opt_state, pshard, mesh)
+            batch = {"targets": _empty((d["batch"], d["seq"]), torch.int32),
+                     "tokens": _empty((d["batch"], d["seq"]), torch.int32)}
+            bshard = _batch_shardings(mesh, {k: ("batch", "seq")
+                                             for k in batch}, batch)
+            fn = steps.lm_train_step(cfg, opt)
+            return Cell(spec.arch_id, shape_name, fn,
+                        (params, opt_state, batch),
+                        (pshard, oshard, bshard),
+                        (pshard, oshard, {"loss": _ns(mesh)}),
+                        donate_argnums=(0, 1),
+                        model_flops=lm_model_flops(cfg, "train", d["batch"],
+                                                   d["seq"]),
+                        rules=rules, mesh=mesh)
+        if d["kind"] == "prefill":
+            batch = {"tokens": _empty((d["batch"], d["seq"]), torch.int32)}
+            bshard = _batch_shardings(mesh, {"tokens": ("batch", "seq")},
+                                      batch)
+            fn = steps.lm_prefill_step(cfg)
+            return Cell(spec.arch_id, shape_name, fn, (params, batch),
+                        (pshard, bshard), None, (),
+                        lm_model_flops(cfg, "prefill", d["batch"], d["seq"]),
+                        rules, mesh)
+        # decode
+        B, Sq = d["batch"], d["seq"]
+        cshape = (cfg.n_layers, B, Sq, cfg.n_kv_heads, cfg.d_head)
+        cnames = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        cache = {"k": _empty(cshape, cfg.dtype),
+                 "len": _empty((), torch.int32),
+                 "v": _empty(cshape, cfg.dtype)}
+        cspec = sh.spec_for(cshape, cnames, mesh)
+        cshard = {"k": sh.NamedSharding(mesh, cspec), "len": _ns(mesh),
+                  "v": sh.NamedSharding(mesh, cspec)}
+        batch = {"token": _empty((B,), torch.int32)}
+        bshard = _batch_shardings(mesh, {"token": ("batch",)}, batch)
+        fn = steps.lm_decode_step(cfg)
+        logits_shard = sh.NamedSharding(
+            mesh, sh.spec_for((B, cfg.vocab), ("batch", "vocab"), mesh))
+        out = {"cache/k": cshard["k"], "cache/len": cshard["len"],
+               "cache/v": cshard["v"], "logits": logits_shard}
+        return Cell(spec.arch_id, shape_name, fn, (params, cache, batch),
+                    (pshard, cshard, bshard), out, (1,),
+                    lm_model_flops(cfg, "decode", B, Sq), rules, mesh)
+
+
+def _gnn_cell(spec, shape_name, mesh, rules) -> Cell:
+    from repro_torch.models import gnn as G
+    from repro_torch.train import steps
+    d = GNN_SHAPE_DEFS[shape_name]
+    cfg = dataclasses.replace(spec.full(), d_in=d["d_feat"])
+    opt = AdamW(lr=1e-3)
+    flops = gnn_model_flops(cfg, d["n"], d["m"], d["d_feat"])
+    n, m = _pad512(d["n"]), _pad512(d["m"])
+    f32, i32 = torch.float32, torch.int32
+    with sh.use_mesh_rules(mesh, rules):
+        params = G.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        pshard = sh.tree_shardings(params, mesh)
+        opt_state = opt.init(params)
+        oshard = _opt_ns(opt_state, pshard, mesh)
+        if cfg.kind == "graphcast":
+            n_tot = 2 * n
+            batch = {
+                "feats": _empty((n_tot, d["d_feat"]), f32),
+                "edge_src": _empty((m,), i32),
+                "edge_dst": _empty((m,), i32),
+                "edge_mask": _empty((m,), f32),
+                "node_mask": _empty((n_tot,), f32),
+                "n_grid": _empty((), i32),
+                "g2m_src": _empty((2 * n,), i32),
+                "g2m_dst": _empty((2 * n,), i32),
+                "g2m_mask": _empty((2 * n,), f32),
+                "m2g_src": _empty((2 * n,), i32),
+                "m2g_dst": _empty((2 * n,), i32),
+                "m2g_mask": _empty((2 * n,), f32),
+                "targets": _empty((n_tot, cfg.n_vars), f32),
+            }
+            names = {
+                "feats": ("nodes", "feat"), "edge_src": ("edges",),
+                "edge_dst": ("edges",), "edge_mask": ("edges",),
+                "node_mask": ("nodes",), "n_grid": (),
+                "g2m_src": ("edges",), "g2m_dst": ("edges",),
+                "g2m_mask": ("edges",), "m2g_src": ("edges",),
+                "m2g_dst": ("edges",), "m2g_mask": ("edges",),
+                "targets": ("nodes", "feat"),
+            }
+        else:
+            batch = {
+                "feats": _empty((n, d["d_feat"]), f32),
+                "edge_src": _empty((m,), i32),
+                "edge_dst": _empty((m,), i32),
+                "edge_mask": _empty((m,), f32),
+                "node_mask": _empty((n,), f32),
+                "labels": _empty((n,), i32),
+            }
+            names = {
+                "feats": ("nodes", "feat"), "edge_src": ("edges",),
+                "edge_dst": ("edges",), "edge_mask": ("edges",),
+                "node_mask": ("nodes",), "labels": ("nodes",),
+            }
+        batch = dict(sorted(batch.items()))
+        bshard = _batch_shardings(mesh, {k: names[k] for k in batch}, batch)
+        fn = steps.gnn_train_step(cfg, opt)
+        return Cell(spec.arch_id, shape_name, fn,
+                    (params, opt_state, batch),
+                    (pshard, oshard, bshard),
+                    (pshard, oshard, {"loss": _ns(mesh)}), (0, 1),
+                    flops, rules, mesh)
+
+
+def _gnn_cell_shardmap(spec, shape_name, mesh, rules) -> Cell:
+    """Optimized GCN cell: dst-partitioned edges and node-sharded
+    message passing (``models/gnn_sharded.gcn_loss_sharded``), which
+    reads each shard's rows and edge block from the placed batch."""
+    from repro_torch.models import gnn as G
+    from repro_torch.models.gnn_sharded import gcn_loss_sharded
+    from repro_torch.train.trainer import value_and_grad
+    d = GNN_SHAPE_DEFS[shape_name]
+    cfg = dataclasses.replace(spec.full(), d_in=d["d_feat"])
+    assert cfg.kind == "gcn", "shardmap variant implemented for GCN"
+    opt = AdamW(lr=1e-3)
+    flops = gnn_model_flops(cfg, d["n"], d["m"], d["d_feat"])
+    n = _pad512(d["n"])
+    ns = _mesh_size(mesh)
+    e_max = int(-(-int(d["m"] * 1.3 / ns) // 8) * 8)
+    f32, i32 = torch.float32, torch.int32
+    with sh.use_mesh_rules(mesh, rules):
+        params = G.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        pshard = sh.tree_shardings(params, mesh)
+        opt_state = opt.init(params)
+        oshard = _opt_ns(opt_state, pshard, mesh)
+        axes = tuple(a for a in ("pod", "data", "model")
+                     if a in mesh.shape and mesh.shape[a] > 1)
+        batch = {
+            "blk_dstl": _empty((ns, e_max), i32),
+            "blk_src": _empty((ns, e_max), i32),
+            "blk_w": _empty((ns, e_max), f32),
+            "feats": _empty((n, d["d_feat"]), f32),
+            "labels": _empty((n,), i32),
+            "node_mask": _empty((n,), f32),
+            "w_self": _empty((n,), f32),
+        }
+        bshard = {k: _ns(mesh, axes, *([None] * (v.dim() - 1)))
+                  for k, v in batch.items()}
+
+        def step(params, opt_state, batch):
+            loss, grads = value_and_grad(
+                lambda p, b: gcn_loss_sharded(cfg, p, b), params, batch)
+            params, opt_state = opt.update(grads, opt_state, params)
+            return params, opt_state, {"loss": loss}
+
+        return Cell(spec.arch_id, shape_name + "+shardmap", step,
+                    (params, opt_state, batch),
+                    (pshard, oshard, bshard),
+                    (pshard, oshard, {"loss": _ns(mesh)}), (0, 1), flops,
+                    rules, mesh, piecewise=(2,))
+
+
+def _mesh_size(mesh) -> int:
+    n = 1
+    for s in mesh.shape.values():
+        n *= s
+    return n
+
+
+def _recsys_cell(spec, shape_name, mesh, rules) -> Cell:
+    from repro_torch.models import recsys as R
+    from repro_torch.train import steps
+    d = RECSYS_SHAPE_DEFS[shape_name]
+    cfg = spec.full()
+    i32 = torch.int32
+    with sh.use_mesh_rules(mesh, rules):
+        params = R.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        pshard = sh.tree_shardings(params, mesh)
+        if d["kind"] == "retrieval":
+            C = _pad512(d["n_candidates"])
+            n_item = cfg.n_fields - cfg.n_user_fields
+            batch = {"cand_ids": _empty((C, n_item), i32),
+                     "user_ids": _empty((cfg.n_user_fields,), i32)}
+            bshard = {"cand_ids": sh.NamedSharding(
+                          mesh, sh.spec_for((C, n_item),
+                                            ("candidates", "fields"), mesh)),
+                      "user_ids": _ns(mesh)}
+            fn = steps.recsys_retrieval_step(cfg)
+            return Cell(spec.arch_id, shape_name, fn, (params, batch),
+                        (pshard, bshard), None, (),
+                        recsys_model_flops(cfg, C, train=False), rules, mesh)
+        B = d["batch"]
+        batch = {"ids": _empty((B, cfg.n_fields), i32),
+                 "mh_ids": _empty((B, cfg.multi_hot_fields, cfg.bag_size),
+                                  i32)}
+        bnames = {"ids": ("batch", "fields"),
+                  "mh_ids": ("batch", "fields", None)}
+        if d["kind"] == "train":
+            batch["labels"] = _empty((B,), i32)
+            bnames["labels"] = ("batch",)
+            batch = dict(sorted(batch.items()))
+            opt = AdamW(lr=1e-3)
+            opt_state = opt.init(params)
+            oshard = _opt_ns(opt_state, pshard, mesh)
+            bshard = _batch_shardings(mesh, {k: bnames[k] for k in batch},
+                                      batch)
+            fn = steps.recsys_train_step(cfg, opt)
+            return Cell(spec.arch_id, shape_name, fn,
+                        (params, opt_state, batch),
+                        (pshard, oshard, bshard),
+                        (pshard, oshard, {"loss": _ns(mesh)}), (0, 1),
+                        recsys_model_flops(cfg, B, train=True), rules, mesh)
+        bshard = _batch_shardings(mesh, bnames, batch)
+        fn = steps.recsys_serve_step(cfg)
+        return Cell(spec.arch_id, shape_name, fn, (params, batch),
+                    (pshard, bshard), None, (),
+                    recsys_model_flops(cfg, B, train=False), rules, mesh)
+
+
+def _sling_cell(spec, shape_name, mesh, rules,
+                variant: str = "shardmap") -> Cell:
+    """The SLING serving cell. ``"shardmap"``: the pod path over the
+    reference's destination-partitioned edge blocks, which it reads
+    piece by piece. ``"base"``: ``sling_serve_step``, whose graph is Â's
+    ``SpmmLayout`` (built on the mesh's first device, a form that holds
+    no placement) where the reference passes edge_src / edge_dst / w."""
+    from repro_torch.kernels.spmv_ell import SpmmLayout
+    from repro_torch.train import steps
+    cfg = spec.full()
+    cfg = dataclasses.replace(cfg, n=_pad512(cfg.n), m=_pad512(cfg.m))
+    n, m, W, B = cfg.n, cfg.m, cfg.hp_width, cfg.batch
+    f32, i32 = torch.float32, torch.int32
+    with sh.use_mesh_rules(mesh, rules):
+        index = {"d": _empty((n,), f32), "keys": _empty((n, W), i32),
+                 "vals": _empty((n, W), f32)}
+        batch = {"us": _empty((B,), i32)}
+        # useful flops: L pushes of 2m MACs per query + seed scatter
+        flops = 2.0 * B * cfg.l_max * m
+        row = sh.NamedSharding(mesh, sh.spec_for((n, W), ("nodes", None),
+                                                 mesh))
+        ishard = {"d": sh.NamedSharding(mesh, sh.spec_for((n,), ("nodes",),
+                                                          mesh)),
+                  "keys": row, "vals": row}
+        bshard = _batch_shardings(mesh, {"us": ("batch",)}, batch)
+        if variant == "shardmap":
+            ns_m = mesh.shape["model"]
+            e_max = int(-(-int(m * 1.3 / ns_m) // 8) * 8)
+            graph = {"blk_dstl": _empty((ns_m, e_max), i32),
+                     "blk_src": _empty((ns_m, e_max), i32),
+                     "blk_w": _empty((ns_m, e_max), f32)}
+            gshard = {k: _ns(mesh, ("model",), None) for k in graph}
+            # index rows are gathered per query batch: replicate d,
+            # shard keys/vals over nodes as before
+            fn = steps.sling_serve_step_sharded(cfg, mesh)
+            ishard["d"] = _ns(mesh)
+            return Cell(spec.arch_id, shape_name + "+shardmap", fn,
+                        (index, graph, batch), (ishard, gshard, bshard),
+                        None, (), flops, rules, mesh, piecewise=(1,))
+        home = mesh.flat[0]
+        layout = SpmmLayout(
+            n=n, in_ptr=torch.empty((n + 1,), dtype=i32, device=home),
+            in_idx=torch.empty((m,), dtype=i32, device=home),
+            w=torch.empty((m,), dtype=f32, device=home),
+            heavy=torch.empty((0,), dtype=i32, device=home),
+            light=torch.empty((n,), dtype=i32, device=home))
+        fn = steps.sling_serve_step(cfg)
+        return Cell(spec.arch_id, shape_name, fn,
+                    (index, {"layout": layout}, batch),
+                    (ishard, {"layout": None}, bshard), None, (),
+                    flops, rules, mesh)

@@ -29,7 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.launch.sharding import active_mesh
+from repro_torch.kernels.cost import collective
+from repro_torch.launch.sharding import ShardedTensor, active_mesh
 from repro_torch.models.layers import segment_sum
 
 
@@ -45,42 +46,66 @@ def gcn_loss_sharded(cfg, params, batch):
     tensors): feats (n, F) with n a multiple of NS, blk_src / blk_dstl
     / blk_w (NS, E_max) dst-partitioned edges, w_self (n,) self-loop
     weights, labels / node_mask (n,), as ``build_sharded_gcn_batch``
-    makes them. Needs an active mesh (``launch.sharding.
-    use_mesh_rules``); the loss lands on the first shard's device."""
+    makes them; a leaf may come placed (a ``ShardedTensor`` split over
+    the node axes, as ``launch/specs.py``'s shardmap cell places it),
+    and each shard then reads its own piece. The all-gather's copies
+    are named "all-gather" for the op walk. Needs an active mesh
+    (``launch.sharding.use_mesh_rules``); the loss lands on the first
+    shard's device."""
     mesh = active_mesh()
     if mesh is None:
         raise ValueError("the sharded GCN needs an active mesh "
                          "(launch.sharding.use_mesh_rules)")
-    devs = mesh.axes_devices(_node_axes(mesh))
+    axes = _node_axes(mesh)
+    devs = mesh.axes_devices(axes)
+    positions = mesh.axes_positions(axes)
     ns = len(devs)
-    b = {k: torch.as_tensor(batch[k]) for k in
-         ("feats", "blk_src", "blk_dstl", "blk_w", "w_self", "labels",
-          "node_mask")}
+    b = {}
+    for k in ("feats", "blk_src", "blk_dstl", "blk_w", "w_self", "labels",
+              "node_mask"):
+        x = batch[k]
+        if isinstance(x, ShardedTensor) and \
+                tuple(x.sharding.spec[0] or ()) != axes:
+            raise ValueError(f"batch[{k!r}] is placed as "
+                             f"{x.sharding.spec}; the sharded GCN reads "
+                             f"pieces split over {axes}")
+        b[k] = x if isinstance(x, ShardedTensor) else torch.as_tensor(x)
     n = b["feats"].shape[0]
     if b["blk_src"].shape[0] != ns or n % ns:
         raise ValueError(f"{b['blk_src'].shape[0]} edge blocks and {n} "
                          f"nodes for {ns} node shards")
     n_l = n // ns
+
+    def part(k, s, dev):
+        """Shard s's rows of batch[k] (its edge block for blk_*) on
+        ``dev``: a placed leaf's own piece there, else cut and copied."""
+        x = b[k]
+        blk = k.startswith("blk_")
+        if isinstance(x, ShardedTensor):
+            piece = x.pieces[positions[s]]
+            return piece[0] if blk else piece
+        return (x[s] if blk else x[s * n_l:(s + 1) * n_l]).to(dev)
+
     shards = []
     for s, dev in enumerate(devs):
-        rows = slice(s * n_l, (s + 1) * n_l)
         shards.append({
-            "h": b["feats"][rows].to(dev),
-            "src": b["blk_src"][s].to(dev).long(),
-            "dstl": b["blk_dstl"][s].to(dev).long(),
-            "w": b["blk_w"][s].to(dev),
-            "w_self": b["w_self"][rows].to(dev),
-            "labels": b["labels"][rows].to(dev).long(),
-            "mask": b["node_mask"][rows].to(dev).to(torch.float32)})
+            "h": part("feats", s, dev),
+            "src": part("blk_src", s, dev).long(),
+            "dstl": part("blk_dstl", s, dev).long(),
+            "w": part("blk_w", s, dev),
+            "w_self": part("w_self", s, dev),
+            "labels": part("labels", s, dev).long(),
+            "mask": part("node_mask", s, dev).to(torch.float32)})
     g = params.gnn
     hs = [sh["h"] for sh in shards]
     for i in range(cfg.n_layers):
         hs = [h @ g.w[i].to(dev) + g.b[i].to(dev)
               for h, dev in zip(hs, devs)]
         full = {}
-        for dev in devs:
-            if dev not in full:
-                full[dev] = torch.cat([h.to(dev) for h in hs])
+        with collective("all-gather"):
+            for dev in devs:
+                if dev not in full:
+                    full[dev] = torch.cat([h.to(dev) for h in hs])
         nxt = []
         for h, sh, dev in zip(hs, shards, devs):
             msgs = full[dev].index_select(0, sh["src"]) * sh["w"][:, None]

@@ -153,17 +153,21 @@ def sling_serve_step_sharded(cfg, mesh,
     partition_edges``) and optionally "slabs", the
     ``single_source.pod_slabs`` of them built once, which the push then
     reads instead. Returns (B, cfg.n) float32 on the mesh's first
-    device."""
+    device. The query ids are read on the host; fake ids (the dry run's)
+    stay where they are."""
     from repro_torch.core.single_source import batched_single_source_sharded
+    from repro_torch.kernels.cost import is_fake
 
     tau = _sling_tau(cfg)
 
     def step(index, graph, batch):
+        us = batch["us"]
         with torch.inference_mode():
             return batched_single_source_sharded(
                 index["keys"], index["vals"], index["d"],
                 graph.get("blk_src"), graph.get("blk_dstl"),
-                graph.get("blk_w"), torch.as_tensor(batch["us"]).cpu(),
+                graph.get("blk_w"),
+                us if is_fake(us) else torch.as_tensor(us).cpu(),
                 tau, cfg.n, cfg.l_max,
                 mesh, bf16_frontier=bf16_frontier,
                 slabs=graph.get("slabs"))

@@ -5,8 +5,10 @@ the pair queries on the result, and the Alg-4 walk diagonal held to
 its certificate |d~ - d| <= eps_d. ``build_index``, the diagonal and
 HP-table builders, ``SlingIndex`` and ``EngineConfig`` take the
 reference's positional order."""
+import ast
 import dataclasses
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from repro.kernels.hp_join.ref import join_ref as rjoin_ref
 from repro.kernels.spmv_ell.ref import spmm_ref as rspmm_ref
 from repro.launch import mesh as rmesh
 from repro.launch import sharding as rsharding
+from repro.launch import specs as rspecs
 from repro.models import gnn_sharded as rgnn_sharded
 from repro.models import moe as rmoe
 from repro.models import recsys as rrecsys
@@ -45,8 +48,11 @@ from repro_torch.kernels.hp_join import hp_join as thp_join
 from repro_torch.kernels.hp_join import ops as thp_ops
 from repro_torch.kernels.hp_join.ref import join_ref as tjoin_ref
 from repro_torch.kernels.spmv_ell.ref import spmm_ref as tspmm_ref
+from repro_torch.launch import dryrun as tdryrun
+from repro_torch.launch import inspect_cell as tinspect_cell
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding as tsharding
+from repro_torch.launch import specs as tspecs
 from repro_torch.models import gnn_sharded as tgnn_sharded
 from repro_torch.models import moe as tmoe
 from repro_torch.train import checkpoint as tcheckpoint
@@ -205,7 +211,8 @@ PORT_KEYWORDS = {"device", "verbose", "build_seconds", "read_only"}
 # and those of one function only
 OWN_KEYWORDS = {"cin": {"backend"}, "cin_forward": {"backend"},
                 "paired_meet": {"mesh", "mesh_axis"},
-                "make_production_mesh": {"multi_pod", "devices"}}
+                "make_production_mesh": {"multi_pod", "devices"},
+                "run_cell": {"mesh"}}
 # a positional the port renames by design: a torch.Generator for a key
 RENAMED = {"paired_meet": {"key": "gen"}}
 # trailing reference parameters the port has no use for: an XLA compile
@@ -219,6 +226,20 @@ def _positional(fn):
     ps = inspect.signature(fn).parameters.values()
     return ([p.name for p in ps if p.kind == p.POSITIONAL_OR_KEYWORD],
             {p.name for p in ps if p.kind == p.KEYWORD_ONLY})
+
+
+def _from_source(rel: str, name: str):
+    """A stub with the signature of the reference's function ``name`` in
+    ``src/repro/<rel>``, read without importing the module (the dry run
+    and the inspector set XLA_FLAGS when they are imported, which would
+    change the device count of JAX in this process)."""
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "src" / "repro"
+                      / rel).read_text())
+    node = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    ns = {}
+    exec(f"def {name}({ast.unparse(node.args)}): pass", ns)
+    return ns[name]
 
 
 def _gathered_rows_call(port):
@@ -259,6 +280,11 @@ SIGNATURES = {
                              tmesh.make_production_mesh),
     "join_ref": (rjoin_ref, tjoin_ref),
     "spmm_ref": (rspmm_ref, tspmm_ref),
+    "make_cell": (rspecs.make_cell, tspecs.make_cell),
+    "run_cell": (_from_source("launch/dryrun.py", "run_cell"),
+                 tdryrun.run_cell),
+    "inspect": (_from_source("launch/inspect_cell.py", "inspect"),
+                tinspect_cell.inspect),
 }
 # refused by design, with TypeError: the gathered-row join (the port's
 # kernel gathers the rows itself; ROADMAP.md, "Not ported, by design")

@@ -590,13 +590,18 @@ def test_cin_layer_streams_a_wide_x0_on_card(card):
 def _cin_kernel_modes(fn, *args):
     """The modes of csrc/cin.cu's GEMM kernels that one call of ``fn``
     launched, from a profiler trace: cin_kernel's 0 layer (slab), 1 layer
-    (x0 streamed), 2 dW, and 3 for cin_x0grad_kernel (dx0)."""
+    (x0 streamed), 2 dW, and 3 for cin_x0grad_kernel (dx0). A trace with
+    no cin kernel in it fails with what the trace did hold."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()]
+    raw = prof.profiler.kineto_results.events()
+    assert any("cin_" in n for n in names), (
+        f"{fn.__name__}'s trace holds no cin kernel: {len(names)} events "
+        f"({len(raw)} kineto records): {sorted(set(names))[:12]}")
     return {mode for n in names if "cin_kernel" in n for mode in range(3)
             if f"<{mode}>" in n or f"ILi{mode}E" in n} | \
         {3 for n in names if "cin_x0grad_kernel" in n}
@@ -1362,3 +1367,70 @@ def test_elastic_restore_on_card_gathers_equal_bits(card, tmp_path):
     for n, st in got.items():
         assert all(p.device.type == card.type for p in st.pieces.values())
         assert torch.equal(st.gather(), want[n].detach()), n
+
+
+# the cells of chip_smoke.py's phase 3n: the CIN kernel, its gradient
+# kernels, a GNN with no kernel, and the sharded push
+CELLS_3N = [("xdeepfm", "serve_p99"), ("xdeepfm", "train_batch"),
+            ("gcn-cora", "full_graph_sm"), ("sling-serve", "serve_batch")]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its helpers build a cell's real
+    inputs)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sling_host(seed: int = 0) -> dict:
+    """A small SLING "index" for the sling-serve cell's inputs: a
+    2,000-node graph and sorted random keys of 13 levels, two PAD slots
+    a row."""
+    from repro_torch.core.hp_index import INT32_PAD_KEY
+    g = generators.barabasi_albert(2000, 4, seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    keys = torch.sort(torch.randint(0, 13 * 2000, (2000, 8),
+                                    generator=gen, dtype=torch.int32),
+                      dim=1).values
+    keys[:, -2:] = INT32_PAD_KEY
+    return {"g": g, "keys": keys, "vals": torch.rand((2000, 8),
+                                                     generator=gen),
+            "d": torch.rand(2000, generator=gen)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape", CELLS_3N)
+def test_cell_predicted_equals_measured_on_card(card, arch, shape):
+    """A cell on the card's (1, 1) mesh: the dry run's argument bytes
+    equal the placed real arguments', and its port kernels' calls equal
+    the launch counters over one real step."""
+    from repro_torch.kernels import cin as kcin
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.specs import make_cell
+    cs = _chip_smoke()
+    mesh = make_debug_mesh((1, 1), ("data", "model"), devices=[card])
+    rec = dryrun.run_cell(arch, shape, verbose=False, mesh=mesh)
+    cell = make_cell(arch, shape, mesh)
+    if arch == "sling-serve":
+        args, _ = cs.sling_cell_inputs(cell, _sling_host(), card, 0)
+    else:
+        args = cs.cell_inputs(cell, arch, shape, card, 0)
+    placed = cell.place(args)
+    assert rec["bytes_per_device"]["argument"] == cs.placed_bytes(placed)
+    counters = {"horner_push_rows": horner_push_rows,
+                "horner_push_slabs": horner_push_slabs,
+                "cin_layer": kcin.cin_layer, "cin_grad_xk": cin_grad_xk,
+                "cin_grad_x0": cin_grad_x0, "cin_grad_w": cin_grad_w,
+                "hp_join": hp_join, "spmm": spmm}
+    for fn in counters.values():
+        fn.launches = 0
+    cell.jitted()(*placed)
+    torch.cuda.synchronize()
+    assert {k: fn.launches for k, fn in counters.items()
+            if fn.launches} == rec["kernels"]
