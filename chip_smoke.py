@@ -272,6 +272,27 @@ Phases (any failure raises and the script exits non-zero):
      differ, and on the sling cell's first 8 rows more than TOL_KERNEL
      from the plain push on its inputs. The first steps' launches join
      the kernel rows' counts;
+  3o. the static analyzer held against the card (``repro_torch.
+     analysis``): its CLI with ``ANALYSIS_BASELINE_TORCH.json`` in a
+     subprocess (exit 0, 0 passes skipped); then every program of its
+     registry on real CUDA tensors from the registry's seed (the
+     sharded ones on ``["cuda:0"] * 2``, whose fan-out takes its
+     one-device route: the multi-device route's syncs, which the pass
+     reports on its fake mesh, are printed beside), one warm call, then
+     one call under ``torch.cuda.set_sync_debug_mode("error")`` inside
+     a dispatch mode that ties each sync the card raises to its aten op
+     (re-run with the check off) and the pass's own recorder, and one
+     under ``"warn"`` with the warnings captured: the card's sync ops
+     must equal the pass's for that program on that path (a sync raised
+     outside any aten op fails the phase), and the warnings must count
+     what the error mode caught; then source/kernel and topk/kernel at
+     the pass's ``HBM_GEOMETRY`` (n = 10,000, B = 16) and on phase 3i's
+     graph and index at B = 8: one warm call, then a call under
+     ``torch.cuda.memory._record_memory_history``, whose allocations of
+     at least B*n/2 float32 words must not outnumber the pass's count of
+     frontier-sized writes, and whose kernel launches must equal the op
+     walk's kernel calls (the 10^6 rows carry no budget). Its launches
+     join the kernel rows' counts;
   4. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and on its rows: max abs error, times (CUDA
      events), the card's bound and a library call's time where one
@@ -4507,6 +4528,228 @@ def sling_serve_phase(dev, tmp) -> tuple[dict, dict]:
     return launches, row, host
 
 
+def card_sync_mode():
+    """A dispatch mode for a call under
+    ``torch.cuda.set_sync_debug_mode("error")``: each aten op that the
+    card refuses as synchronizing is noted by name (``.ops``) and run
+    again with the check off, so the program runs on."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CardSyncs(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            try:
+                return func(*args, **kwargs)
+            except RuntimeError as e:
+                if "synchronizing CUDA operation" not in str(e):
+                    raise
+                self.ops.append(func.__name__.split(".")[0])
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    return func(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("error")
+    return CardSyncs()
+
+
+def card_syncs(fn, args) -> tuple[list, list, int]:
+    """(the aten ops the card refuses as synchronizing in one call of
+    ``fn(*args)``, the ops the analyzer's recorder notes in it, the sync
+    warnings of a second call under the "warn" mode), both calls warm."""
+    import torch
+
+    from repro_torch.analysis.jaxpr_passes import record_syncs
+    fn(*args)
+    torch.cuda.synchronize()
+    mode = card_sync_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with record_syncs(args) as rec:
+            with mode:
+                fn(*args)
+    except RuntimeError as e:
+        if "synchronizing CUDA operation" not in str(e):
+            raise
+        raise RuntimeError(f"a sync outside any aten op, which no "
+                           f"dispatch mode sees: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    warned = sum("synchronizing CUDA operation" in str(w.message)
+                 for w in caught)
+    return mode.ops, [s.op for s in rec.syncs], warned
+
+
+def frontier_allocs(fn, args, min_bytes: int) -> tuple[list, dict]:
+    """(the sizes of the allocations of at least ``min_bytes`` in one warm
+    call of ``fn(*args)``, read from a memory-history snapshot, the port
+    kernels' launches in that call)."""
+    import torch
+
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 horner_push_slabs)
+    from repro_torch.kernels.hp_join import hp_join
+    kerns = {"horner_push_rows": horner_push_rows,
+             "horner_push_slabs": horner_push_slabs, "hp_join": hp_join}
+    out = fn(*args)
+    del out
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in kerns.items()}
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    try:
+        out = fn(*args)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    del out
+    launched = {k: f.launches - before[k] for k, f in kerns.items()
+                if f.launches > before[k]}
+    dev = torch.cuda.current_device()
+    sizes = [e["size"] for e in snap["device_traces"][dev]
+             if e["action"] == "alloc" and e["size"] >= min_bytes]
+    return sizes, launched
+
+
+def analysis_phase(dev, sling_host) -> dict:
+    """Phase 3o (see the module docstring): the analyzer's CLI, its
+    host-sync findings and its HBM counts, each held against the card.
+    Returns the phase's kernel launches."""
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import jaxpr_passes as jp
+    from repro_torch.analysis import programs
+    from repro_torch.configs import base as configs
+    from repro_torch.kernels.horner_push import (horner_push_rows,
+                                                 horner_push_slabs)
+    from repro_torch.kernels.hp_join import hp_join
+    from repro_torch.kernels.spmv_ell import SpmmLayout
+    from repro_torch.train import steps
+
+    t_phase = time.perf_counter()
+    kerns = {"hp_join": hp_join, "horner_push": horner_push_rows,
+             "horner_push_slabs": horner_push_slabs}
+    start = {k: f.launches for k, f in kerns.items()}
+    steps0 = horner_push_rows.steps
+
+    # 1. the CLI, on this host, with jax and the reference blocked
+    t0 = time.perf_counter()
+    blocked = ("import sys; sys.modules['jax'] = None; "
+               "sys.modules['repro'] = None; "
+               "from repro_torch.analysis.__main__ import main; "
+               "sys.exit(main(sys.argv[1:]))")
+    cli = subprocess.run(
+        [sys.executable, "-c", blocked, "--baseline",
+         str(ROOT / "ANALYSIS_BASELINE_TORCH.json")],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+        text=True, timeout=600, cwd=ROOT)
+    lines = cli.stdout.strip().splitlines()
+    print(f"[analysis] CLI (jax and repro blocked; jax "
+          f"{'is' if importlib.util.find_spec('jax') else 'is not'} "
+          f"installed on this host) exit {cli.returncode} in "
+          f"{time.perf_counter() - t0:.2f}s: "
+          f"{lines[-1] if lines else cli.stderr.strip()[-400:]}")
+    if cli.returncode != 0 or not lines or \
+            "0 new" not in lines[-1] or "0 pass(es) skipped" not in lines[-1]:
+        raise RuntimeError(f"the analyzer's CLI failed: {cli.returncode}\n"
+                           f"{cli.stdout[-3000:]}\n{cli.stderr[-3000:]}")
+
+    # 2. each program's syncs on the card against the pass's
+    for spec in programs.build_specs():
+        if spec.devices > 1:
+            static_at = ["meta:0"] * spec.devices
+            card_at = ["cuda:0"] * spec.devices
+        else:
+            static_at, card_at = None, ["cuda"]
+        fn, args = spec.make() if static_at is None else \
+            spec.make(static_at)
+        _, syncs = jp.run_program(fn, args, walk=False)
+        static = sorted({s.op for s in syncs})
+        fn, args = spec.make(card_at)
+        raised, noted, warned = card_syncs(fn, args)
+        del fn, args
+        card = sorted(set(raised))
+        note = ""
+        if spec.devices > 1:
+            fn, args = spec.make()
+            _, multi = jp.run_program(fn, args, walk=False)
+            note = (f"; on one card {card_at} takes the one-device route,"
+                    f" the pass's fake mesh {['meta:0', 'meta:1']} the "
+                    f"multi-device one, which syncs on "
+                    f"{sorted({s.op for s in multi})}")
+        print(f"[analysis] {spec.name}: card syncs {card} "
+              f"({len(raised)} a call, {warned} warnings under \"warn\"), "
+              f"the pass {static} on {static_at or 'its default'}, its "
+              f"recorder on the card {sorted(set(noted))}{note}")
+        if card != static or sorted(set(noted)) != static or \
+                warned != len(raised):
+            raise RuntimeError(f"{spec.name}: the card's syncs {raised} "
+                               f"({warned} warnings) are not the pass's "
+                               f"{static} (its recorder on the card: "
+                               f"{noted})")
+
+    # 3. frontier-sized allocations and launches against the pass
+    geo = jp.HBM_GEOMETRY
+    cfg = configs.get("sling-serve").full()
+    g = sling_host["g"]
+    keys, vals, d = (sling_host[k].to(dev) for k in ("keys", "vals", "d"))
+    lay = SpmmLayout.pull(g, cfg.c ** 0.5, dev)
+    us8 = torch.as_tensor(np.random.default_rng(0).choice(g.n, 8,
+                                                          replace=False),
+                          device=dev)
+    tau = steps._sling_tau(cfg)
+    failed = []
+    for prog, k in (("source", None), ("topk", 16)):
+        fn, args = programs.push_program(
+            geo["n"], geo["deg"], geo["W"], geo["l_max"], geo["B"],
+            "kernel", k, ["cuda"])
+        cases = [(f"HBM_GEOMETRY n={geo['n']} B={geo['B']}", geo["n"],
+                  geo["B"], fn, args, jp.HBM_BUDGETS[(prog, "kernel")])]
+        cases.append((f"phase 3i n={g.n} B=8", g.n, 8,
+                       programs.push_fn("kernel", g.n, cfg.l_max, tau, k),
+                       (keys, vals, d, lay, us8), None))
+        for label, n, B, fn, args, budget in cases:
+            walk, _ = jp.run_program(fn, programs.fake_args(args))
+            count = jp.frontier_writes(walk.records, B * n // 2)
+            calls = walk.kernels
+            sizes, launched = frontier_allocs(fn, args, 4 * (B * n // 2))
+            print(f"[analysis] hbm {prog}/kernel at {label}: the pass "
+                  f"{count} frontier-sized writes (budget {budget}), "
+                  f"kernel calls {calls}; the card {len(sizes)} "
+                  f"allocations of >= {4 * (B * n // 2):,} bytes "
+                  f"{sizes}, launches {launched}")
+            if launched != calls or len(sizes) > count:
+                failed.append(f"hbm {prog}/kernel at {label}: card "
+                              f"allocations {len(sizes)} > the pass's "
+                              f"{count}, or launches {launched} != the "
+                              f"walk's kernel calls {calls}")
+    del keys, vals, d, lay
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    out = {k: f.launches - start[k] for k, f in kerns.items()}
+    out["horner_push_steps"] = horner_push_rows.steps - steps0
+    print(f"[analysis] phase {time.perf_counter() - t_phase:.1f}s; "
+          f"launches {out}; card {card_line()}")
+    return out
+
+
 def update_phase(g, dev) -> dict:
     """The dynamic-graph path on the card at the Enron regime: build
     with ``STALE_FRAC``, warm an engine, then for each churn level in
@@ -5367,10 +5610,16 @@ def main() -> int:
 
     # ---- 3n. four cells on the card's (1, 1) mesh, predicted, measured --
     cells = cells_phase(dev, sling_host, args.seed)
-    del sling_host
     for k, v in cells.items():
         total[k] = total.get(k, 0) + v
     print(f"[cells] launches {cells}; all paths {total}")
+
+    # ---- 3o. the static analyzer held against the card -------------------
+    ana = analysis_phase(dev, sling_host)
+    del sling_host
+    for k, v in ana.items():
+        total[k] = total.get(k, 0) + v
+    print(f"[analysis] launches {ana}; all paths {total}")
 
     # ---- 4. each kernel vs its plain version at the main path's shapes --
     kernels = [hp_join_row(eng, idx, pair_u, pair_v, total["hp_join"]),

@@ -337,7 +337,7 @@ def _save_v2(idx: SlingIndex, path: str) -> None:
     meta["_stale"] = float(idx.stale)
     meta["_epoch"] = int(idx.epoch)
     tmp = path + ".tmp.npz"
-    np.savez_compressed(
+    np.savez_compressed(  # slinglint: disable=banned-api -- the atomic writer itself (tmp + os.replace below)
         tmp, d=_host(idx.d), keys=_host(idx.hp.keys),
         vals=_host(idx.hp.vals), counts=_host(idx.hp.counts),
         reduced=(idx.reduced if idx.reduced is not None

@@ -61,6 +61,7 @@ from repro_torch.core.single_source import (Slab, prune_tau,
                                             slab_push, slab_views)
 from repro_torch.core.topk import stable_topk
 from repro_torch.graph import csr
+from repro_torch.kernels.cost import collective
 from repro_torch.kernels.horner_push import resolve_push_backend
 from repro_torch.kernels.spmv_ell import SpmmLayout
 from repro_torch.launch.mesh import make_debug_mesh
@@ -225,13 +226,18 @@ def _query_rows(si: ShardedIndex, us: torch.Tensor):
         u = u - s * si.n_loc
         mine = ((u >= 0) & (u < si.n_loc))[:, None]
         uc = u.clamp(0, si.n_loc - 1)
-        k = torch.where(mine, keys[uc], 0).to(home, non_blocking=True)
-        x = torch.where(mine, vals[uc], 0.0).to(home, non_blocking=True)
+        with collective("all-reduce"):
+            k = torch.where(mine, keys[uc], 0).to(home, non_blocking=True)
+            x = torch.where(mine, vals[uc], 0.0).to(home, non_blocking=True)
         ku, xu = (k, x) if ku is None else (ku + k, xu + x)
     return ku, xu
 
 
 def _ids(si: ShardedIndex, us) -> torch.Tensor:
+    """The query ids as int64 on the first shard's device: host ids are
+    copied there, ids already there (a tensor) are taken as they are."""
+    if isinstance(us, torch.Tensor):
+        return us.to(si.devices[0], torch.int64)
     return torch.as_tensor(np.atleast_1d(np.asarray(us, np.int64)),
                            device=si.devices[0])
 
@@ -288,8 +294,9 @@ def _merge_topk(outs: list, n: int, n_loc: int, k: int, home):
         gids = s * n_loc + torch.arange(n_loc, device=out.device)
         masked = torch.where(gids[None, :] < n, out.t(), -1.0)
         v, i = stable_topk(masked, k_loc)
-        cand_v.append(v.to(home, non_blocking=True))
-        cand_i.append((i + s * n_loc).to(home, non_blocking=True))
+        with collective("all-gather"):
+            cand_v.append(v.to(home, non_blocking=True))
+            cand_i.append((i + s * n_loc).to(home, non_blocking=True))
     vc, gc = torch.cat(cand_v, dim=1), torch.cat(cand_i, dim=1)
     v, pos = torch.sort(vc, dim=1, descending=True, stable=True)
     return v[:, :k], gc.gather(1, pos[:, :k])

@@ -32,8 +32,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graph import csr
 from repro_torch.kernels import horner_push as hpk
-from repro_torch.kernels.cost import (collective, faking, is_fake,
-                                     worst_case)
+from repro_torch.kernels.cost import (collective, faking, host_read,
+                                     is_fake, worst_case)
 from repro_torch.kernels.horner_push import Slab, top_level
 from repro_torch.kernels.spmv_ell import SpmmLayout
 from repro_torch.launch.sharding import ShardedTensor
@@ -248,7 +248,8 @@ def slab_horner_push(ku, xu, slabs: list, tau: float, *, n: int,
     top = top_level(ku, n, l_max)
     mine = {dev: [i for i, sl in enumerate(slabs) if sl.device == dev]
             for dev in devices}
-    rows = {dev: [(ku.to(dev), xu.to(dev), 0)] for dev in devices}
+    with collective("all-reduce"):     # the rest of the psum row fetch
+        rows = {dev: [(ku.to(dev), xu.to(dev), 0)] for dev in devices}
     ids = {dev: torch.arange(B, device=dev) for dev in devices}
     ws = {dev: _workspace(dev, B, n_rows, l_max) for dev in devices}
     fronts = {dev: hpk.frontier_view(ws[dev], n_rows, B) for dev in devices}
@@ -370,6 +371,7 @@ def pod_slabs(d, blk_src, blk_dstl, blk_w, n: int, mesh) -> list:
 
     if is_fake(*(block(a, 0, groups[0]) for a in arrays)):
         worst_case("pod_slabs: every slot of a slab's edge block live")
+        host_read("_to_copy")
         e_max = block(blk_src, 0, groups[0]).shape[0]
         return [[_fake_slab(n_l, e_max, d, j, dev) for j, dev in
                  enumerate(mesh.axis_devices("model", **coords))]

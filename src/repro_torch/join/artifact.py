@@ -113,7 +113,7 @@ class KnnGraph:
         }
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
-            np.savez_compressed(
+            np.savez_compressed(  # slinglint: disable=banned-api -- the atomic writer itself
                 f, meta=json.dumps(meta), sources=self.sources,
                 indptr=self.indptr, nbr_ids=self.nbr_ids,
                 nbr_scores=self.nbr_scores,

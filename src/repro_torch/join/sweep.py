@@ -129,7 +129,7 @@ def _save_checkpoint(path: str, fp: dict, sources: np.ndarray,
     meta["tiles_done"] = int(tiles_done)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        np.savez_compressed(f, meta=json.dumps(meta), sources=sources,
+        np.savez_compressed(f, meta=json.dumps(meta), sources=sources,  # slinglint: disable=banned-api -- the atomic writer itself (tmp + os.replace below)
                             vals=vals[:done], ids=ids[:done])
     os.replace(tmp, path)
 

@@ -320,7 +320,8 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, W: torch.Tensor,
 def _forward(x0, xk, W) -> torch.Tensor:
     if _cost.is_fake(x0, xk, W):
         out = x0.new_empty((x0.shape[0], W.shape[0], x0.shape[2]))
-        _cost.record("cin_layer", cin_layer_cost(x0, xk, W), x0.device)
+        _cost.record("cin_layer", cin_layer_cost(x0, xk, W), x0.device,
+                     out=(out,))
         return out
     if x0.device.type == "cpu":
         return cin_layer_ref(x0, xk, W)
@@ -429,7 +430,8 @@ def _fake_grad(name: str, x0, xk, W, g, shape) -> torch.Tensor:
     """A gradient wrapper on fake tensors: its empty output and one
     recorded launch."""
     out = x0.new_empty(shape)
-    _cost.record(name, cin_grad_cost(x0, xk, W, g, out), x0.device)
+    _cost.record(name, cin_grad_cost(x0, xk, W, g, out), x0.device,
+                 out=(out,))
     return out
 
 

@@ -26,6 +26,12 @@ names it with :func:`worst_case`. Real tensors never reach this path.
 Code that moves data between the devices of a mesh names what the move
 is (say "all-gather") with :func:`collective`, which the op walk reads
 through :func:`collective_kind`; the name changes nothing else.
+
+A fake branch that skips a read of data to the host (an ``int(t)``, a
+``.cpu()``) which the real branch makes names that read with
+:func:`host_read`, so that a recorder of host syncs
+(``analysis/jaxpr_passes.py``, listening through :func:`listen_syncs`)
+sees on fakes the sync that real tensors make.
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ BF16_OPS_PER_S = 989e12        # dense bf16 / fp16 tensor cores
 NVLINK_BYTES_PER_S = 450e9     # NVLink 4, each way
 
 _lock = threading.Lock()
-_listeners: list = []
+_listeners: list = []         # (fn, whether fn takes the outputs)
+_sync_listeners: list = []
 _worst: list = []
 _local = threading.local()    # this thread's stack of collective kinds
 
@@ -120,22 +127,49 @@ def collective_kind() -> str | None:
 
 
 @contextlib.contextmanager
-def listen(fn):
-    """Inside the block, :func:`record` calls ``fn(name, cost, device)``."""
+def listen(fn, outputs: bool = False):
+    """Inside the block, :func:`record` calls ``fn(name, cost, device)``,
+    and ``fn(name, cost, device, out)`` under ``outputs``."""
+    ent = (fn, outputs)
     with _lock:
-        _listeners.append(fn)
+        _listeners.append(ent)
     try:
         yield
     finally:
         with _lock:
-            _listeners.remove(fn)
+            _listeners.remove(ent)
 
 
-def record(name: str, cost: KernelCost, device) -> None:
-    """One call of kernel ``name`` on fake tensors: its cost, to every
-    listener."""
-    for fn in list(_listeners):
-        fn(name, cost, device)
+def record(name: str, cost: KernelCost, device, out=()) -> None:
+    """One call of kernel ``name`` on fake tensors: its cost, and the
+    tensors ``out`` that the kernel writes (its results and its scratch),
+    to every listener."""
+    for fn, outputs in list(_listeners):
+        if outputs:
+            fn(name, cost, device, tuple(out))
+        else:
+            fn(name, cost, device)
+
+
+@contextlib.contextmanager
+def listen_syncs(fn):
+    """Inside the block, :func:`host_read` calls ``fn(op)``."""
+    with _lock:
+        _sync_listeners.append(fn)
+    try:
+        yield
+    finally:
+        with _lock:
+            _sync_listeners.remove(fn)
+
+
+def host_read(op: str) -> None:
+    """A fake branch stands in for a read to the host that real tensors
+    make there: ``op`` is the aten op of that read (``"_local_scalar_dense"``
+    for an ``int(t)``, ``"_to_copy"`` for a ``.cpu()``), told to every
+    sync listener; nothing else changes."""
+    for fn in list(_sync_listeners):
+        fn(op)
 
 
 def worst_case(what: str) -> None:

@@ -209,13 +209,13 @@ def _fake_rows(keys, us, layout, l_max, workspace) -> torch.Tensor:
     n, B = layout.n, us.shape[0]
     out = torch.empty((B, n), dtype=torch.float32, device=keys.device)
     if workspace is None:
-        torch.empty(workspace_numel(n, B, l_max), dtype=torch.float32,
-                    device=keys.device)
+        workspace = torch.empty(workspace_numel(n, B, l_max),
+                                dtype=torch.float32, device=keys.device)
     _cost.worst_case("horner_push_rows: every slot of the B query rows "
                      "live, all l_max + 1 levels run")
     _cost.record("horner_push_rows", horner_push_cost(
         B, B * keys.shape[1], layout.in_idx.numel(), n + 1, n, l_max + 1,
-        us.element_size()), keys.device)
+        us.element_size()), keys.device, out=(out, workspace))
     return out
 
 
@@ -322,8 +322,8 @@ def horner_push_slabs(rows, us, slabs, outs, tau: float, *, n: int,
     B = us.shape[0]
     if _cost.is_fake(us, *outs):
         if workspace is None:
-            torch.empty(workspace_numel(n_rows, B, l_max),
-                        dtype=torch.float32, device=dev)
+            workspace = torch.empty(workspace_numel(n_rows, B, l_max),
+                                    dtype=torch.float32, device=dev)
         _cost.worst_case("horner_push_slabs: every slot of the B query "
                          "rows live, every level of the launch's range run")
         _cost.record("horner_push_slabs", horner_push_cost(
@@ -331,7 +331,7 @@ def horner_push_slabs(rows, us, slabs, outs, tau: float, *, n: int,
             sum(sl.layout.in_idx.numel() for sl in slabs),
             sum(sl.layout.n + 1 for sl in slabs),
             sum(sl.layout.n for sl in slabs), hi - lo + 1,
-            us.element_size()), dev)
+            us.element_size()), dev, out=(*outs, workspace))
         return
     if B == 0:
         return

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hp_index import INT32_PAD_KEY
-from repro_torch.kernels.cost import is_fake, worst_case
+from repro_torch.kernels.cost import host_read, is_fake, worst_case
 from repro_torch.kernels.spmv_ell import spmm_plain
 from repro_torch.kernels.spmv_ell.ops import SpmmLayout
 
@@ -193,9 +193,11 @@ def top_level(keys: torch.Tensor, n: int, l_max: int) -> int:
     """The highest level (key // n, at most l_max) that holds a key in
     the rows ``keys``, -1 for none: above it a push from a zero frontier
     stays exactly zero (one host sync). Fake rows (the dry run's) hold
-    no keys: l_max, the worst case."""
+    no keys: l_max, the worst case, and the host read is declared
+    (``kernels/cost.host_read``) in place of the one made."""
     if is_fake(keys):
         worst_case("top_level: the rows' highest level taken as l_max")
+        host_read("_local_scalar_dense")
         return l_max
     lv = keys.long() // n
     lv = torch.where((keys == INT32_PAD_KEY) | (lv > l_max), -1, lv)
@@ -237,3 +239,13 @@ def horner_push_slabs_plain(rows, us, slabs, outs, tau: float, *, n: int,
                 if bf16_frontier:
                     res = res.to(torch.bfloat16).float()
                 front[level & 1, sl.start:sl.start + sl.layout.n] = res
+
+
+def count_hbm_intermediates(fn, *args, min_elems: int) -> int:
+    """The frontier-sized (>= ``min_elems`` element) arrays that one call
+    of ``fn(*args)`` writes, by the op walk: the kernel-fusion gate's
+    count (``analysis/jaxpr_passes.count_hbm_intermediates``, which this
+    delegates to)."""
+    from repro_torch.analysis import jaxpr_passes
+    return jaxpr_passes.count_hbm_intermediates(fn, *args,
+                                                min_elems=min_elems)

@@ -14,7 +14,10 @@ the rows through ``us``/``vs`` itself: one block a pair, row v copied
 into shared memory with 16-byte loads, a binary search of it per entry
 of row u, and a fixed-order reduction (warp shuffles, then the warps in
 order), so two calls give the same bits. :func:`hp_join_cost` counts a
-call's work; no dry-run cell reaches this kernel.
+call's work; on ``FakeTensor`` inputs (the analyzer's pair program,
+``analysis/programs.py``) the wrapper makes its output empty and records
+that cost (``kernels/cost.py``), every slot of the pairs' rows taken as
+live.
 """
 from __future__ import annotations
 
@@ -94,8 +97,16 @@ def hp_join(keys: torch.Tensor, vals: torch.Tensor, us: torch.Tensor,
             vs: torch.Tensor) -> torch.Tensor:
     """(B,) float32 pair scores. On a CUDA device the Hopper kernel runs
     (it raises if it cannot be built or launched); for CPU tensors the
-    plain version runs. ``hp_join.launches`` counts kernel launches."""
+    plain version runs, for fake ones nothing (the module docstring).
+    ``hp_join.launches`` counts kernel launches."""
     _check(keys, vals, us, vs)
+    if _cost.is_fake(keys, vals, us, vs):
+        B, K = us.shape[0], keys.shape[1]
+        out = torch.empty(B, dtype=torch.float32, device=keys.device)
+        _cost.worst_case("hp_join: every slot of the pairs' rows live")
+        _cost.record("hp_join", hp_join_cost(B, B * K, B * K, K),
+                     keys.device, out=(out,))
+        return out
     if keys.device.type == "cpu":
         return hp_join_plain(keys, vals, us, vs)
     out = torch.empty(us.shape[0], dtype=torch.float32, device=keys.device)

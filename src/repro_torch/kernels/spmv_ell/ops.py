@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graph import csr
-from repro_torch.kernels.cost import is_fake
+from repro_torch.kernels.cost import host_read, is_fake
 from repro_torch.kernels.spmv_ell.spmv_ell import spmm as spmm_kernel
 from repro_torch.kernels.spmv_ell.spmv_ell import spmm_plain
 
@@ -78,7 +78,9 @@ class SpmmLayout:
         object.__setattr__(self, "push_order", order.int().contiguous())
         if is_fake(self.in_ptr):
             # a fake layout (the dry run's) holds no degrees: every row
-            # counted in the lowest tier, which the cost does not read
+            # counted in the lowest tier, which the cost does not read;
+            # the read of the counts to the host is declared
+            host_read("_to_copy")
             counts = [self.n] + [0] * len(PUSH_TIERS)
         else:
             counts = torch.bincount(

@@ -38,7 +38,14 @@ fuse, so each op that does work is a kernel. Per device it counts:
 A hand-written kernel launches through ``ctypes``, which no dispatch
 mode sees: on fake tensors its wrapper records one op at its cost
 function's bytes and operations (``kernels/cost.py``), counted here
-under the kernel's name.
+under the kernel's name, with the shape of the largest tensor it writes
+(its result or its scratch).
+
+Each record keeps the element counts of the arrays its op writes
+(``OpRecord.outs``) and of the scratch arrays a library op allocates
+for itself (``OpRecord.scratch``, :func:`library_scratch`), which the
+analyzer's frontier count reads (``analysis/jaxpr_passes.
+count_hbm_intermediates``); neither moves the totals.
 
 The totals are the busiest device's: each of FLOPs, compute time, HBM
 bytes and collective bytes (the larger of sent and received) is the
@@ -74,6 +81,9 @@ _NO_WORK = {"empty", "empty_strided", "new_empty", "new_empty_strided",
             "sym_numel", "sym_storage_offset", "_local_scalar_dense",
             "record_stream"}
 
+# torch's CUDA sort sorts a dimension of at most this many in place; a
+# longer one goes through a radix sort that allocates scratch
+SORT_INPLACE_MAX = 4096
 # row gathers and scatters, whose tables are not read whole
 _GATHERS = {"index_select", "embedding", "gather", "index", "take"}
 _SCATTERS = {"index_add", "index_put", "scatter", "scatter_add",
@@ -103,14 +113,16 @@ class DeviceCost:
 class OpRecord:
     """One op that did work: its name ("kernel:<name>" for a port
     kernel, whose bytes are its cost's), device, its largest result's
-    dtype, shape and bytes, and for a copy between devices its
-    collective kind."""
+    dtype, shape and bytes, for a copy between devices its collective
+    kind, and the element count of each array it writes."""
     op: str
     device: str
     dtype: str
     shape: tuple
     nbytes: int
     kind: str | None = None
+    outs: tuple = ()
+    scratch: tuple = ()
 
 
 @dataclasses.dataclass
@@ -177,6 +189,22 @@ def _op_bytes(name: str, ins: list, outs: list) -> int:
         copy = 0 if name.endswith("_") else 2 * _nbytes(ins[0])
         return idx + 3 * vals + copy
     return sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+
+
+def library_scratch(name: str, args, kwargs) -> tuple:
+    """Element counts of the scratch arrays that a library op allocates
+    for itself, at most: ``sort`` along a dimension longer than
+    ``SORT_INPLACE_MAX`` -- a copy of the keys, two int64 index buffers
+    and the radix sort's temporary storage, each taken at the input's
+    size (on an H100 with torch 2.11 all four were at least half the
+    input's size at (16, 10,000), and none was at (8, 10^6)). Empty for
+    any other op."""
+    if name != "sort" or not args or not args[0].dim():
+        return ()
+    x = args[0]
+    dim = args[1] if len(args) > 1 and isinstance(args[1], int) \
+        else kwargs.get("dim", -1)
+    return (x.numel(),) * 4 if x.shape[dim] > SORT_INPLACE_MAX else ()
 
 
 def _storage(t: torch.Tensor):
@@ -270,7 +298,8 @@ class OpWalk(TorchDispatchMode):
             dc.compute_s += flops / rate
         dc.hbm_bytes += _op_bytes(name, ins, outs)
         dc.ops += 1
-        self._record(name, dev, big)
+        self._record(name, dev, big, outs=outs,
+                     scratch=library_scratch(name, args, kwargs))
         return out
 
     def _copy(self, src: torch.Tensor, dst: torch.Tensor) -> None:
@@ -285,16 +314,21 @@ class OpWalk(TorchDispatchMode):
         recv.hbm_bytes += nb
         recv.coll_by_op[kind] = recv.coll_by_op.get(kind, 0.0) + nb
         recv.ops += 1
-        self._record("copy", d, dst, kind)
+        self._record("copy", d, dst, kind, outs=(dst,))
 
-    def _record(self, name, dev, t, kind=None) -> None:
+    def _record(self, name, dev, t, kind=None, outs=(),
+                scratch=()) -> None:
         self.records.append(OpRecord(
             name, dev, str(t.dtype).replace("torch.", "") if t is not None
             else "", tuple(t.shape) if t is not None else (),
-            _nbytes(t) if t is not None else 0, kind))
+            _nbytes(t) if t is not None else 0, kind,
+            tuple(o.numel() for o in outs), scratch))
 
-    def kernel(self, name: str, kc: _cost.KernelCost, device) -> None:
-        """A port kernel's call on fake tensors: one op at its cost."""
+    def kernel(self, name: str, kc: _cost.KernelCost, device,
+               out=()) -> None:
+        """A port kernel's call on fake tensors: one op at its cost, with
+        the dtype and shape of the largest tensor of ``out`` that it
+        writes."""
         d = str(device)
         dc = self.dev[d]
         dc.flops += kc.flops
@@ -302,8 +336,12 @@ class OpWalk(TorchDispatchMode):
         dc.hbm_bytes += kc.bytes
         dc.ops += 1
         self.kernels[name] += 1
-        self.records.append(OpRecord("kernel:" + name, d, "", (),
-                                     int(kc.bytes)))
+        big = max(out, key=_nbytes, default=None)
+        self.records.append(OpRecord(
+            "kernel:" + name, d,
+            "" if big is None else str(big.dtype).replace("torch.", ""),
+            () if big is None else tuple(big.shape), int(kc.bytes),
+            outs=tuple(o.numel() for o in out)))
 
     # ---- totals -------------------------------------------------------
     def totals(self, out=None) -> WalkTotals:
@@ -353,7 +391,7 @@ def analyze(fn, *args, **kwargs) -> WalkTotals:
             stack.enter_context(mode)
         for t in leaf_tensors((args, kwargs)):
             walk.track(t, arg=True)
-        stack.enter_context(_cost.listen(walk.kernel))
+        stack.enter_context(_cost.listen(walk.kernel, outputs=True))
         with walk:
             out = fn(*args, **kwargs)
         totals = walk.totals(out)

@@ -50,7 +50,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.cost import is_fake, worst_case
+from repro_torch.kernels.cost import host_read, is_fake, worst_case
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.flash_attention import flash_attention
 from repro_torch.models.layers import dense_init, rms_norm, rope, silu
@@ -469,6 +469,7 @@ def decode_step(cfg: LMConfig, params: LMParams, cache: dict, token):
         # a fake cache (the dry run's) holds no length: the last slot,
         # every position attended
         worst_case("decode_step: the cache's len taken as S - 1")
+        host_read("_local_scalar_dense")
         pos = S - 1
     else:
         pos = int(cache["len"])

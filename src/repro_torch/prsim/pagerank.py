@@ -20,6 +20,19 @@ DEFAULT_TOL = 1e-6        # L1 residual on a distribution summing to 1
 MAX_ITERS = 100
 
 
+def _pr_step(pr, d_nbr, d_owner, d_inv, d_dang, damping: float):
+    """One reverse-PageRank step on the device: (the next iterate, its
+    L1 residual against ``pr`` as a 0-d tensor). Edge e carries
+    ``pr[d_owner[e]] * d_inv[e]`` to ``d_nbr[e]``; ``d_dang`` marks the
+    in-degree-0 owners, whose mass spreads uniformly."""
+    n = pr.shape[0]
+    agg = torch.zeros(n, dtype=torch.float32, device=pr.device)
+    agg.index_add_(0, d_nbr, pr[d_owner] * d_inv)
+    loose = (pr * d_dang).sum()
+    new = (1.0 - damping) / n + damping * (agg + loose / n)
+    return new, (new - pr).abs().sum()
+
+
 def reverse_pagerank(g: csr.Graph, damping: float = DEFAULT_DAMPING,
                      tol: float = DEFAULT_TOL,
                      max_iters: int = MAX_ITERS,
@@ -52,11 +65,8 @@ def reverse_pagerank(g: csr.Graph, damping: float = DEFAULT_DAMPING,
     pr = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
     iters = 0
     for iters in range(1, max_iters + 1):
-        agg = torch.zeros(n, dtype=torch.float32, device=dev)
-        agg.index_add_(0, d_nbr, pr[d_owner] * d_inv)
-        loose = (pr * d_dang).sum()
-        new = (1.0 - damping) / n + damping * (agg + loose / n)
-        resid = float((new - pr).abs().sum())
+        new, resid = _pr_step(pr, d_nbr, d_owner, d_inv, d_dang, damping)
+        resid = float(resid)
         pr = new
         if resid <= tol:
             break

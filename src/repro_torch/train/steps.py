@@ -154,21 +154,24 @@ def sling_serve_step_sharded(cfg, mesh,
     ``single_source.pod_slabs`` of them built once, which the push then
     reads instead. Returns (B, cfg.n) float32 on the mesh's first
     device. The query ids are read on the host; fake ids (the dry run's)
-    stay where they are."""
+    stay where they are, and the read is declared
+    (``kernels/cost.host_read``)."""
     from repro_torch.core.single_source import batched_single_source_sharded
-    from repro_torch.kernels.cost import is_fake
+    from repro_torch.kernels.cost import host_read, is_fake
 
     tau = _sling_tau(cfg)
 
     def step(index, graph, batch):
         us = batch["us"]
+        if is_fake(us):
+            host_read("_to_copy")
+        else:
+            us = torch.as_tensor(us).cpu()
         with torch.inference_mode():
             return batched_single_source_sharded(
                 index["keys"], index["vals"], index["d"],
                 graph.get("blk_src"), graph.get("blk_dstl"),
-                graph.get("blk_w"),
-                us if is_fake(us) else torch.as_tensor(us).cpu(),
-                tau, cfg.n, cfg.l_max,
+                graph.get("blk_w"), us, tau, cfg.n, cfg.l_max,
                 mesh, bf16_frontier=bf16_frontier,
                 slabs=graph.get("slabs"))
     return step

@@ -151,12 +151,18 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.data.pipeline, repro_torch.configs.xdeepfm\n"
             "import repro_torch.launch.specs, repro_torch.join\n"
             "import repro_torch.serve.frontend, repro_torch.serve.clock\n"
-            "import repro_torch.serve.load\n"
-            "print('ok')\n")
+            "import repro_torch.serve.load, repro_torch.analysis\n"
+            "from repro_torch.analysis.__main__ import main\n"
+            "rc = main(['--only', 'lock-discipline,clock-seam,banned-api'])\n"
+            "print('ok' if rc == 0 else f'rc {rc}')\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+                         capture_output=True, text=True, timeout=120,
+                         cwd=PORT.parent.parent)
+    lines = out.stdout.strip().splitlines()
+    assert out.returncode == 0 and lines[-1] == "ok", (out.stdout,
+                                                       out.stderr)
+    assert lines[-2].startswith("slinglint: 0 finding(s), 0 new"), lines
 
 
 def test_serve_cli_frontend_with_churn_on_cpu():

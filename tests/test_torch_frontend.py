@@ -114,17 +114,24 @@ def test_virtual_clock_fires_in_order_at_exact_deadlines():
     assert clk.pending() == 0
 
 
-@pytest.mark.parametrize("pass_name", ["ClockSeamPass",
-                                       "LockDisciplinePass"])
-def test_scheduler_passes_the_reference_lint(pass_name):
-    """The reference's static checks over the port's frontend and clock:
-    no wall-clock reads or sleeps outside the clock seam, and the
+@pytest.mark.parametrize("pass_name,package", [
+    pytest.param("ClockSeamPass", "repro", id="ClockSeamPass"),
+    pytest.param("LockDisciplinePass", "repro", id="LockDisciplinePass"),
+    pytest.param("ClockSeamPass", "repro_torch", id="ClockSeamPass-port"),
+    pytest.param("LockDisciplinePass", "repro_torch",
+                 id="LockDisciplinePass-port")])
+def test_scheduler_passes_the_reference_lint(pass_name, package):
+    """The reference's static checks, and the port's own copy of them
+    (``repro_torch.analysis``), over the port's frontend and clock: no
+    wall-clock reads or sleeps outside the clock seam, and the
     ``_SLINGLINT_GUARDED`` lock contracts hold."""
-    from repro import analysis
-    from repro.analysis import ast_passes
+    import importlib
+
     from repro_torch.serve import clock as clock_mod
     from repro_torch.serve import frontend as frontend_mod
 
+    analysis = importlib.import_module(f"{package}.analysis")
+    ast_passes = importlib.import_module(f"{package}.analysis.ast_passes")
     findings = analysis.check_modules(getattr(ast_passes, pass_name)(),
                                       [clock_mod, frontend_mod])
     assert findings == [], [f.message for f in findings]
