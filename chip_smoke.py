@@ -222,7 +222,18 @@ Phases (any failure raises and the script exits non-zero):
      expert held: prefill at S = 4,096, B = 1, and 1 + 4 decode steps.
      For every config one decoded token against ``forward`` over the
      prompt plus that token, all layers (``lm_agreement``: float32
-     within TOL_DECODE, bf16 within LM_BF16_DECODE bf16 ulps);
+     within TOL_DECODE, bf16 within LM_BF16_DECODE bf16 ulps). Then
+     the mesh part (``lm_mesh_part``): the partitioned dense-LM steps
+     (``models/transformer_sharded.py``) on a (2, 2) ("data", "model")
+     mesh of the card against the unpartitioned steps on the card, in
+     bf16 ulps of max |ref|: smollm-135m whole, train_4k at B = 8 x
+     4,096 (the loss within LM_MESH_OUT, each leaf's max |grad| within
+     LM_MESH_GRAD, each gradient's entrywise distance to that step's and
+     to the float32 step's printed; then 1 + 2 timed steps), then
+     prefill at 4,096, B = 2, and 3 decode steps for smollm-135m (with
+     the profiler's kernels and host launches of one prefill and one
+     step), gemma3-1b and qwen3-14b at 2 layers: logits and the caches
+     gathered from their pieces within LM_MESH_OUT;
   3m. the sharded models (``launch/sharding.py``, ``models/gnn_sharded.py``,
      ``moe_ffn``'s mesh branch, ``restore`` under shardings; no kernel of
      the port: the reference's are XLA ops) on meshes that repeat the
@@ -271,7 +282,12 @@ Phases (any failure raises and the script exits non-zero):
      copies a step. It fails on argument bytes or launch counts that
      differ, and on the sling cell's first 8 rows more than TOL_KERNEL
      from the plain push on its inputs. The first steps' launches join
-     the kernel rows' counts;
+     the kernel rows' counts. Then one dense-LM cell on a (2, 2) mesh
+     of the card (``lm_cell_3n``): smollm-135m train_4k at B = 8 of the
+     cell's 256, the partitioned step, its real arguments made on the
+     host and placed on the card a copy a position; the same
+     predictions against the card, failing on argument bytes or
+     launches that differ or a loss that is not finite;
   3o. the static analyzer held against the card (``repro_torch.
      analysis``): its CLI with ``ANALYSIS_BASELINE_TORCH.json`` in a
      subprocess (exit 0, 0 passes skipped); then every program of its
@@ -414,12 +430,24 @@ MOE_TRAIN_LAYERS = 1       # the mesh train step: mixtral cut to one layer
 MOE_TRAIN_SEQ, MOE_TRAIN_BATCH = 4_096, 4
 BF16_ULP = 2.0 ** -7       # of max |logit|: bf16's spacing at a significand of 1
 LM_BF16_DECODE = 8         # decode vs forward, bf16: in BF16_ULPs
+# phase 3l's mesh part: the partitioned dense-LM steps on a (2, 2)
+# ("data", "model") mesh of the one card, against the unpartitioned ones
+LM_MESH = (2, 2)
+LM_MESH_SEQ = 4_096
+LM_MESH_TRAIN_B = 8        # train_4k's batch, cut from the cell's 256
+LM_MESH_TRAIN_STEPS = (1, 2)
+LM_MESH_SERVE_B = 2        # prefill / decode: one row a data group
+LM_MESH_DECODE = 3         # decode steps after the prefill
+LM_MESH_OUT, LM_MESH_GRAD = 4, 8   # bf16 ulps: outputs, each leaf's grad
 # phase 3n: the cells on the card's (1, 1) mesh, and their steps
 # (warm-up, timed)
 CELLS_3N = (("xdeepfm", "serve_p99", (1, 5)),
             ("xdeepfm", "train_batch", (1, 2)),
             ("gcn-cora", "full_graph_sm", (1, 5)),
             ("sling-serve", "serve_batch", (1, 1)))
+# and one dense-LM cell on a (2, 2) mesh of the card: (arch, shape,
+# (warm-up, timed) steps, the batch cut from the cell's)
+CELL_3N_LM = ("smollm-135m", "train_4k", (1, 2), 8)
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -1892,6 +1920,223 @@ def cache_of(cache, B: int, slots: int) -> dict:
     return out
 
 
+def ulps(got, ref) -> float:
+    """max |got - ref| in bf16 ulps of max |ref| (BF16_ULP each)."""
+    return rel_err(got, ref) / BF16_ULP
+
+
+def assembled(st, pieces, dev):
+    """The whole of a placed leaf from {position: that position's piece}
+    (a partitioned step's gradients), float32 on ``dev``."""
+    import torch
+    out = torch.empty(st.shape, dtype=torch.float32, device=dev)
+    for p, sl in st.sharding.devices_indices_map(st.shape).items():
+        out[sl] = pieces[p]
+    return out
+
+
+def lm_mesh_train(cfg, params, mesh, dev, bad: list) -> None:
+    """train_4k on the mesh at B = LM_MESH_TRAIN_B, S = LM_MESH_SEQ: the
+    partitioned loss and each leaf's max |grad| (of the gradient
+    assembled from the pieces') against the unpartitioned ``lm_loss`` on
+    the card; each gradient's largest entrywise distance, to that step's
+    and to the unpartitioned float32 step's, printed beside them; then
+    the timed partitioned ``lm_train_step_sharded`` on a copy."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import lm_model_flops
+    from repro_torch.models import transformer as T
+    from repro_torch.models import transformer_sharded as TS
+    from repro_torch.optim.adamw import AdamW, AdamWState
+    from repro_torch.train.steps import lm_train_step_sharded
+    from repro_torch.train.trainer import value_and_grad
+
+    B, S = LM_MESH_TRAIN_B, LM_MESH_SEQ
+    b = TokenStream(cfg.vocab, B, S, seed=5).batch_at(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    def whole(c):
+        return value_and_grad(
+            lambda p, x: T.lm_loss(c, p, x["tokens"], x["targets"]),
+            params, batch)
+    _, g32 = whole(dataclasses.replace(cfg, dtype=torch.float32))
+    ref_loss, ref_g = whole(cfg)
+    with sh.use_mesh_rules(mesh):
+        leaves = TS.place_params(params)
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), ms = events_ms(lambda: TS.value_and_grad(
+            cfg, leaves, batch["tokens"], batch["targets"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    e_loss = ulps(loss, ref_loss)
+    e_max, e_elem = {}, {}
+    for n, st in leaves.items():
+        got = assembled(st, grads[n], dev)
+        e_max[n] = ulps(got.abs().max(), ref_g[n].abs().max())
+        e_elem[n] = (round(ulps(got, ref_g[n]), 2),
+                     round(ulps(got, g32[n]), 2),
+                     round(ulps(ref_g[n], g32[n]), 2))
+    worst = max((v, n) for n, v in e_max.items())
+    del grads, ref_g, g32, leaves
+    copy_ = copy.deepcopy(params)
+    opt = AdamW(lr=1e-3)
+    step = lm_train_step_sharded(cfg, opt)
+    with sh.use_mesh_rules(mesh):
+        leaves = TS.place_params(copy_)
+        state = opt.init(copy_)
+        shards = sh.tree_shardings(copy_, mesh)
+        state = AdamWState(step=sh.place(state.step, (), mesh),
+                           m={n: shards[n].shard(t)
+                              for n, t in state.m.items()},
+                           v={n: shards[n].shard(t)
+                              for n, t in state.v.items()})
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for k in range(sum(LM_MESH_TRAIN_STEPS)):
+            (leaves, state, m), t = events_ms(
+                lambda: step(leaves, state, batch))
+            losses.append(float(m["loss"]))
+            if k >= LM_MESH_TRAIN_STEPS[0]:
+                times.append(t)
+        step_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[lm-mesh] {cfg.name} train_4k B = {B} x {S} on {LM_MESH}: loss "
+          f"{float(loss):.5f} vs unpartitioned {float(ref_loss):.5f} "
+          f"({e_loss:.3g} bf16 ulps, limit {LM_MESH_OUT}); each leaf's "
+          f"max |g| within {worst[0]:.3g} ulps ({worst[1]}, limit "
+          f"{LM_MESH_GRAD}); entrywise, in ulps of max |g|, (partitioned "
+          f"vs unpartitioned, partitioned vs float32, unpartitioned vs "
+          f"float32) a leaf {e_elem}; value and grad "
+          f"{ms:.3f} ms, device peak {peak:.3f} GiB; "
+          + lm_stats(f"{LM_MESH_TRAIN_STEPS[1]} timed steps after "
+                     f"{LM_MESH_TRAIN_STEPS[0]}, losses "
+                     f"{[round(l, 4) for l in losses]}, step", times,
+                     B * S, lm_model_flops(cfg, "train", B, S))
+          + f" (steps' peak {step_peak:.3f} GiB); port kernels launched "
+          f"none (the LM path has none)")
+    if not e_loss <= LM_MESH_OUT or not worst[0] <= LM_MESH_GRAD:
+        bad.append(f"{cfg.name} train: loss {e_loss:.3g} ulps, max |g| "
+                   f"{worst[0]:.3g} ulps ({worst[1]})")
+    del leaves, state, copy_
+
+
+def lm_mesh_serve(cfg, params, mesh, dev, label: str, bad: list,
+                  census: bool = False) -> None:
+    """Prefill at B = LM_MESH_SERVE_B, S = LM_MESH_SEQ and LM_MESH_DECODE
+    decode steps on the mesh, against the unpartitioned prefill and
+    decode on the card: the logits, the cache gathered from its pieces
+    after the prefill and after the decode steps. With ``census``, the
+    profiler's kernels and host launches of one partitioned prefill and
+    one decode step."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import lm_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.models import transformer_sharded as TS
+
+    B, S = LM_MESH_SERVE_B, LM_MESH_SEQ
+    tokens = torch.as_tensor(TokenStream(cfg.vocab, B, S, seed=6).batch_at(
+        0)["tokens"], device=dev)
+    ref_logits, ref_cache = T.prefill(cfg, params, tokens)
+    leaves = TS.place_params(params, mesh)
+    with sh.use_mesh_rules(mesh, lm_rules("prefill", B)):
+        torch.cuda.reset_peak_memory_stats()
+        (logits, cache), p_ms = events_ms(
+            lambda: TS.prefill(cfg, leaves, tokens))
+        p_peak = torch.cuda.max_memory_allocated() / 2**30
+        p_census = launch_census(lambda: TS.prefill(cfg, leaves, tokens),
+                                 1) if census else None
+    errs = {"prefill logits": ulps(logits.gather(dev), ref_logits)}
+    k0, v0 = cache["k"].gather(dev), cache["v"].gather(dev)
+    errs["prefill cache k"] = ulps(k0, ref_cache["k"])
+    errs["prefill cache v"] = ulps(v0, ref_cache["v"])
+    del cache, logits
+    slots = S + LM_MESH_DECODE + 1
+    ref = T.pad_cache(ref_cache, slots)
+    mine = T.pad_cache({"k": k0, "v": v0, "len": S}, slots)
+    del ref_cache, k0, v0
+    token = ref_logits.argmax(-1)
+    d_ms = []
+    with sh.use_mesh_rules(mesh, lm_rules("decode", B)):
+        names = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        spec = sh.spec_for(tuple(mine["k"].shape), names, mesh)
+        placed = {"k": sh.place(mine["k"], spec, mesh),
+                  "v": sh.place(mine["v"], spec, mesh), "len": S}
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(LM_MESH_DECODE):
+            rl, ref = T.decode_step(cfg, params, ref, token)
+            (ml, placed), t = events_ms(
+                lambda: TS.decode_step(cfg, leaves, placed, token))
+            d_ms.append(t)
+            errs[f"decode {i} logits"] = ulps(ml.gather(dev), rl)
+            token = rl.argmax(-1)
+        d_peak = torch.cuda.max_memory_allocated() / 2**30
+        errs["decode cache k"] = ulps(placed["k"].gather(dev), ref["k"])
+        errs["decode cache v"] = ulps(placed["v"].gather(dev), ref["v"])
+        # the census's steps write the cache's spare slot
+        d_census = launch_census(
+            lambda: TS.decode_step(cfg, leaves, placed, token), 1) \
+            if census else None
+    worst = max(errs.values())
+    note = ""
+    if census:
+        note = (f"; one partitioned prefill {p_census['kernels']:.0f} "
+                f"kernels, {p_census['host']:.0f} host launches, device "
+                f"busy {p_census['busy_pct']:.1f} %; one decode step "
+                f"{d_census['kernels']:.0f} kernels, "
+                f"{d_census['host']:.0f} host launches, busy "
+                f"{d_census['busy_pct']:.1f} %")
+    print(f"[lm-mesh] {cfg.name} {label} B = {B} on {LM_MESH}: prefill "
+          f"{S} tokens {p_ms:.3f} ms (device peak {p_peak:.3f} GiB), "
+          f"{LM_MESH_DECODE} decode steps ms {[round(t, 3) for t in d_ms]} "
+          f"(peak {d_peak:.3f} GiB); against the unpartitioned steps in "
+          f"bf16 ulps of max |ref| (limit {LM_MESH_OUT}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + "; port kernels launched none (the LM path has none)" + note)
+    if not worst <= LM_MESH_OUT:
+        bad.append(f"{cfg.name} {label}: {errs}")
+
+
+def lm_mesh_part(dev) -> None:
+    """Phase 3l's mesh part (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+
+    t0 = time.perf_counter()
+    mesh = card_mesh(LM_MESH, ("data", "model"), dev)
+    bad: list = []
+    cfg = cfg_base.get("smollm-135m").full()
+    params = lm_params(cfg, dev)
+    lm_mesh_train(cfg, params, mesh, dev, bad)
+    lm_mesh_serve(cfg, params, mesh, dev, "serve", bad, census=True)
+    del params
+    torch.cuda.empty_cache()
+    cfg = cfg_base.get("gemma3-1b").full()
+    params = lm_params(cfg, dev)
+    lm_mesh_serve(cfg, params, mesh, dev, "serve", bad)
+    del params
+    torch.cuda.empty_cache()
+    full = cfg_base.get("qwen3-14b").full()
+    cfg = dataclasses.replace(full, n_layers=LM_CUT_LAYERS)
+    params = lm_params(cfg, dev)
+    lm_mesh_serve(cfg, params, mesh, dev,
+                  f"{LM_CUT_LAYERS} of {full.n_layers} layers", bad)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[lm-mesh] part {time.perf_counter() - t0:.1f}s; card "
+          f"{card_line()}")
+    if bad:
+        raise RuntimeError("phase 3l mesh part: " + "; ".join(bad))
+
+
 def lm_phase(dev, profile: bool = False) -> None:
     """Phase 3l, the LM stack on the card at the published widths (see
     the module docstring); seeded weights, ``TokenStream`` data. With
@@ -1972,6 +2217,7 @@ def lm_phase(dev, profile: bool = False) -> None:
         lm_agreement(cfg, params, max(2_047, cfg.window + 1_023))
         del params
         torch.cuda.empty_cache()
+    lm_mesh_part(dev)
     print(f"[lm] phase {time.perf_counter() - t_phase:.1f}s; card "
           f"{card_line()}")
 
@@ -2623,11 +2869,90 @@ def cells_phase(dev, sling_host, seed: int) -> dict:
             bad.append(f"{arch} x {shape}: launches predicted "
                        f"{rec['kernels']} counted {launches}")
         del placed, args, step, lay
+    lm_cell_3n(dev, counters, bad, seed)
     print(f"[cells] phase {time.perf_counter() - t_phase:.1f}s; card "
           f"{card_line()}")
     if bad:
         raise RuntimeError("phase 3n: " + "; ".join(bad))
     return first
+
+
+def lm_cell_3n(dev, counters: dict, bad: list, seed: int) -> None:
+    """Phase 3n's dense-LM cell (CELL_3N_LM) on a (2, 2) mesh of the card:
+    the dry run's record on the same mesh, then ``cell.jitted()`` (the
+    partitioned train step, every argument read as its placed pieces)
+    on real arguments made on the host from ``seed`` and placed on the
+    card, a copy a position."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+
+    arch, shape, steps, batch = CELL_3N_LM
+    saved = specs.LM_SHAPE_DEFS
+    specs.LM_SHAPE_DEFS = dict(saved, **{shape: dict(saved[shape],
+                                                     batch=batch)})
+    try:
+        mesh = card_mesh((2, 2), ("data", "model"), dev)
+        torch.cuda.empty_cache()
+        rec = dryrun.run_cell(arch, shape, verbose=False, mesh=mesh)
+        cell = specs.make_cell(arch, shape, mesh)
+    finally:
+        specs.LM_SHAPE_DEFS = saved
+    cfg = _cell_cfg(arch, shape)
+    params = T.init_params(cfg, torch.Generator().manual_seed(seed))
+    b = TokenStream(cfg.vocab, batch, cell.args[2]["tokens"].shape[1],
+                    seed=seed).batch_at(0)
+    args = (params, AdamW(lr=1e-4).init(params),
+            {k: torch.as_tensor(b[k]) for k in cell.args[2]})
+    placed = cell.place(args)
+    del args, params
+    arg_bytes = placed_bytes(placed)
+    step = cell.jitted()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, first_ms = events_ms(lambda: step(*placed))
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+    losses = [float(out[2]["loss"])]
+    del out
+    ms = []
+    for k in range(sum(steps)):
+        o, t = events_ms(lambda: step(*placed))
+        losses.append(float(o[2]["loss"]))
+        del o
+        if k >= steps[0]:
+            ms.append(t)
+    bpd, r = rec["bytes_per_device"], rec["roofline"]
+    t_roof = max(r["t_compute_s"], r["t_memory_s"],
+                 r["t_collective_s"]) * 1e3
+    p50 = float(np.percentile(ms, 50))
+    print(f"[cells] {arch} x {shape} B = {batch} of the cell's "
+          f"{saved[shape]['batch']} on (2, 2) of the card: dry run "
+          f"{rec['t_lower_s']} s, {rec['n_ops']} ops, collectives "
+          f"{rec['collectives']}; argument bytes predicted "
+          f"{bpd['argument']:,} measured {arg_bytes:,}; device peak "
+          f"predicted {bpd['peak_est'] / 2**30:.3f} GiB measured "
+          f"{peak / 2**30:.3f} GiB; roofline step {t_roof:.4f} ms "
+          f"({r['bottleneck']}) vs p50 {p50:.3f} ms (first call "
+          f"{first_ms:.3f} ms, timed {[round(t, 3) for t in ms]}); losses "
+          f"{[round(l, 4) for l in losses]}; port kernels predicted "
+          f"{rec['kernels']} launched {launches}")
+    if bpd["argument"] != arg_bytes:
+        bad.append(f"{arch} x {shape} on (2, 2): argument bytes predicted "
+                   f"{bpd['argument']} measured {arg_bytes}")
+    if rec["kernels"] != launches:
+        bad.append(f"{arch} x {shape} on (2, 2): launches predicted "
+                   f"{rec['kernels']} counted {launches}")
+    if not all(math.isfinite(l) for l in losses):
+        bad.append(f"{arch} x {shape} on (2, 2): losses {losses}")
+    del placed, step
 
 
 def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,

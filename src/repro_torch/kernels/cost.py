@@ -25,7 +25,11 @@ names it with :func:`worst_case`. Real tensors never reach this path.
 
 Code that moves data between the devices of a mesh names what the move
 is (say "all-gather") with :func:`collective`, which the op walk reads
-through :func:`collective_kind`; the name changes nothing else.
+through :func:`collective_kind`; the name changes nothing else. A
+collective given fake tensors (``launch/collectives.py``) makes no copy:
+it hands each device's bytes sent and received to the listeners that
+:func:`listen_collectives` installed, through
+:func:`record_collective`.
 
 A fake branch that skips a read of data to the host (an ``int(t)``, a
 ``.cpu()``) which the real branch makes names that read with
@@ -51,6 +55,7 @@ NVLINK_BYTES_PER_S = 450e9     # NVLink 4, each way
 _lock = threading.Lock()
 _listeners: list = []         # (fn, whether fn takes the outputs)
 _sync_listeners: list = []
+_coll_listeners: list = []
 _worst: list = []
 _local = threading.local()    # this thread's stack of collective kinds
 
@@ -149,6 +154,29 @@ def record(name: str, cost: KernelCost, device, out=()) -> None:
             fn(name, cost, device, tuple(out))
         else:
             fn(name, cost, device)
+
+
+@contextlib.contextmanager
+def listen_collectives(fn):
+    """Inside the block, :func:`record_collective` calls ``fn(kind,
+    device, sent, recv, what, shape, dtype)``."""
+    with _lock:
+        _coll_listeners.append(fn)
+    try:
+        yield
+    finally:
+        with _lock:
+            _coll_listeners.remove(fn)
+
+
+def record_collective(kind: str, device, sent: float, recv: float,
+                      what: str = "", shape=(), dtype=None) -> None:
+    """One collective on fake tensors as ``device`` takes part in it:
+    the bytes it sends to and receives from other devices, ``what`` was
+    moved (a leaf's name and the axes, say), and the shape and dtype of
+    its result there, to every collective listener."""
+    for fn in list(_coll_listeners):
+        fn(kind, device, sent, recv, what, tuple(shape), dtype)
 
 
 @contextlib.contextmanager

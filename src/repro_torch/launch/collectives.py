@@ -1,0 +1,307 @@
+"""Collectives over a mesh's positions, run from one thread, and the
+classes of equal positions that a dry run traces once each.
+
+A partitioned step (``models/transformer_sharded.py``) is one program a
+mesh position, run position by position in row-major order. Where the
+positions exchange data it calls a collective here on {position:
+tensor} dicts, the counterparts of the all-gather, reduce-scatter and
+all-reduce that GSPMD derives for the reference. A collective names its
+group by mesh axes: the peers of a position over ``axes`` are the
+positions equal to it on every other axis, row-major (:func:`peers`).
+
+  * :func:`all_gather`: every member assembles its peers' parts, each at
+    its region of the result (``region(q)``: one (lo, hi) a dimension),
+    cast to ``dtype``. Differentiable: the backward is the
+    reduce-scatter, each part's gradient the sum of its readers'
+    gradients at its region, in row-major position order, in float32,
+    cast once to the part's dtype. ``readers`` widens the readers past
+    the gather's own group: a weight replicated over an axis sums its
+    gradient over that axis too, so every copy gets the same sum.
+  * :func:`all_reduce`: every member gets the sum (or the maximum) of
+    its peers' parts, ring-style: the parts, flattened, are cut into one
+    chunk a member, member i reduces chunk i over the group in row-major
+    order, in float32, casts it once, and every member gathers the
+    reduced chunks; each member moves about twice its part's bytes, not
+    the group's. Differentiable when it sums (the sum is its own
+    adjoint).
+
+On real tensors these are plain torch copies (a part already on the
+member's device is not moved) and arithmetic, named for the op walk
+with ``kernels/cost.collective``. On fake tensors (the dry run's) they
+copy nothing: each makes its results with ``torch.empty`` and books
+every taking-part device's bytes sent and received through
+``kernels/cost.record_collective``, as the real copies count them (an
+all-gather's part moves once to each peer on another device).
+
+A dry run on distinct fake devices runs two programs for each class of
+positions whose programs are equal (:func:`spmd`): the caller keys each
+position by everything its program's shapes depend on, and the first
+and the last position of a class, row-major, run for it (a position's
+peak memory depends on whether its turn comes first, in the middle or
+last in the loops over positions, and the middle one's is the least). The collectives book the
+bytes of the positions that run from the regions of every position, so
+each device that runs gets the totals that a trace of every position
+gives it; the other devices hold their arguments and do no work.
+:func:`every_position` turns the shortcut off.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.kernels import cost as _cost
+
+_SHORTCUT = [True]
+
+
+@contextlib.contextmanager
+def every_position():
+    """Inside the block a fake step runs every position's program."""
+    prev = _SHORTCUT[0]
+    _SHORTCUT[0] = False
+    try:
+        yield
+    finally:
+        _SHORTCUT[0] = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class Spmd:
+    """A mesh, the positions whose programs run (row-major), and whether
+    the tensors are fake."""
+    mesh: Any
+    run: tuple
+    fake: bool
+
+    def dev(self, pos) -> torch.device:
+        return _devices(self.mesh)[pos]
+
+
+@functools.lru_cache(maxsize=None)
+def _devices(mesh) -> dict:
+    """{position: device} of ``mesh``."""
+    grid = mesh.devices
+    return {p: grid[p] for p in positions(mesh)}
+
+
+def positions(mesh) -> tuple:
+    """Every position of ``mesh``, row-major."""
+    return tuple(mesh.axes_positions(mesh.axis_names))
+
+
+def spmd(mesh, key: Callable, fake: bool) -> Spmd:
+    """The positions to run: every one on real tensors; on fake tensors
+    over distinct devices, the first and the last position of each class
+    of equal ``key(position)``."""
+    every = positions(mesh)
+    if not (fake and _SHORTCUT[0] and len(set(mesh.flat)) == len(mesh.flat)):
+        return Spmd(mesh, every, fake)
+    ends: dict = {}
+    for p in every:
+        k = key(p)
+        ends[k] = (ends.get(k, (p,))[0], p)
+    return Spmd(mesh, tuple(sorted({p for e in ends.values() for p in e})),
+                fake)
+
+
+@functools.lru_cache(maxsize=None)
+def peers(mesh, pos: tuple, axes: tuple) -> tuple:
+    """The positions equal to ``pos`` off ``axes``, row-major over the
+    mesh's axes among ``axes`` (``pos`` alone when there are none)."""
+    axes = tuple(a for a in mesh.axis_names if a in axes)
+    coords = {a: pos[i] for i, a in enumerate(mesh.axis_names)
+              if a not in axes}
+    return tuple(mesh.axes_positions(axes, **coords))
+
+
+def group_index(mesh, pos: tuple, axes) -> tuple[int, int]:
+    """(the row-major index of ``pos`` among its peers over ``axes``, the
+    number of peers)."""
+    k, i = 1, 0
+    for n, a in enumerate(mesh.axis_names):
+        if a in axes:
+            k, i = k * mesh.dims[n], i * mesh.dims[n] + pos[n]
+    return i, k
+
+
+def _nbytes(region, dtype) -> int:
+    return math.prod(hi - lo for lo, hi in region) * dtype.itemsize
+
+
+def _slices(region) -> tuple:
+    return tuple(slice(lo, hi) for lo, hi in region)
+
+
+@dataclasses.dataclass(frozen=True)
+class _GatherOp:
+    S: Spmd
+    axes: tuple
+    readers: tuple
+    region: Callable
+    shape: Callable
+    dtype: Any
+    what: str
+
+    def forward(self, parts):
+        S, mesh = self.S, self.S.mesh
+        by = dict(zip(S.run, parts))
+        outs = []
+        for p in S.run:
+            dev, dt = S.dev(p), self.dtype or by[p].dtype
+            out = torch.empty(self.shape(p), dtype=dt, device=dev)
+            group = peers(mesh, p, self.axes)
+            if S.fake:
+                recv = sum(_nbytes(self.region(q), dt)
+                           for q in group if S.dev(q) != dev)
+                sent = sum(S.dev(q) != dev for q in group) \
+                    * _nbytes(self.region(p), dt)
+                _cost.record_collective("all-gather", dev, sent, recv,
+                                        self.what, out.shape, dt)
+            else:
+                with _cost.collective("all-gather"):
+                    for q in group:
+                        out[_slices(self.region(q))] = by[q]
+            outs.append(out)
+        return outs
+
+    def backward(self, grads, metas):
+        S, mesh = self.S, self.S.mesh
+        g_by = dict(zip(S.run, grads))
+        res = []
+        for q, (dt, shp, dev) in zip(S.run, metas):
+            group = peers(mesh, q, self.readers)
+            if S.fake:
+                gdt = self.dtype or dt
+                recv = sum(S.dev(p) != dev for p in group) \
+                    * _nbytes(self.region(q), gdt)
+                sent = sum(_nbytes(self.region(p), gdt)
+                           for p in group if S.dev(p) != dev)
+                res.append(torch.empty(shp, dtype=dt, device=dev))
+                _cost.record_collective("reduce-scatter", dev, sent, recv,
+                                        self.what, shp, dt)
+                continue
+            sl = _slices(self.region(q))
+            acc = None
+            with _cost.collective("reduce-scatter"):
+                for p in group:
+                    g = g_by[p][sl].to(dev, torch.float32)
+                    acc = g if acc is None else acc + g
+            res.append(acc.to(dt))
+        return res
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, *parts):
+        ctx.op = op
+        ctx.metas = [(t.dtype, tuple(t.shape), t.device) for t in parts]
+        return tuple(op.forward(parts))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(ctx.op.backward(grads, ctx.metas))
+
+
+def all_gather(S: Spmd, parts: dict, axes, region: Callable,
+               shape: Callable, *, dtype=None, readers=None,
+               what: str = "") -> dict:
+    """{p: the assembled tensor} for each position ``p`` of ``S.run``:
+    ``shape(p)`` in ``dtype`` (the part's when None), each peer q of p
+    over ``axes`` writing its part ``parts[q]`` at ``region(q)``. The
+    gradient of ``parts[q]`` sums the gradients at ``region(q)`` of q's
+    peers over ``readers`` (``axes`` when None)."""
+    op = _GatherOp(S, tuple(axes), tuple(axes if readers is None
+                                         else readers),
+                   region, shape, dtype, what)
+    outs = _Gather.apply(op, *[parts[p] for p in S.run])
+    return dict(zip(S.run, outs))
+
+
+def _cut(n: int, k: int, i: int) -> tuple[int, int]:
+    """Chunk i of k of n elements (the first n % k one longer)."""
+    q, r = divmod(n, k)
+    lo = i * q + min(i, r)
+    return lo, lo + q + (i < r)
+
+
+@dataclasses.dataclass(frozen=True)
+class _ReduceOp:
+    S: Spmd
+    axes: tuple
+    what: str
+    op: str = "sum"
+
+    def reduce(self, parts, dtypes):
+        """A ring-style all-reduce of each group: its parts, flattened,
+        cut into one chunk a member; member i reduces chunk i over the
+        group in row-major order (in float32), casts it once, and every
+        member gathers the reduced chunks."""
+        S, mesh = self.S, self.S.mesh
+        by = dict(zip(S.run, parts))
+        outs = []
+        red = {}
+        for p, dt in zip(S.run, dtypes):
+            dev, t = S.dev(p), by[p]
+            group = peers(mesh, p, self.axes)
+            k, n = len(group), t.numel()
+            if S.fake:
+                i = group.index(p)
+                mine = _cut(n, k, i)[1] - _cut(n, k, i)[0]
+                sent = recv = 0
+                for j, q in enumerate(group):
+                    if S.dev(q) == dev:
+                        continue
+                    c = _cut(n, k, j)
+                    theirs = c[1] - c[0]
+                    recv += mine * t.element_size() + theirs * dt.itemsize
+                    sent += theirs * t.element_size() + mine * dt.itemsize
+                outs.append(torch.empty(t.shape, dtype=dt, device=dev))
+                _cost.record_collective("all-reduce", dev, sent, recv,
+                                        self.what, t.shape, dt)
+                continue
+            with _cost.collective("all-reduce"):
+                chunks = []
+                for j, q in enumerate(group):
+                    key = (q, self.op, dt)
+                    if key not in red:
+                        lo, hi = _cut(n, k, j)
+                        acc = None
+                        for r in group:
+                            x = by[r].reshape(-1)[lo:hi].to(
+                                S.dev(q), torch.float32)
+                            acc = x if acc is None else (
+                                acc + x if self.op == "sum"
+                                else torch.maximum(acc, x))
+                        red[key] = acc.to(dt)
+                    chunks.append(red[key].to(dev))
+                outs.append(torch.cat(chunks).view(t.shape))
+        return outs
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, dtype, *parts):
+        ctx.op = op
+        ctx.dtypes = [t.dtype for t in parts]
+        return tuple(op.reduce(parts, [dtype or t.dtype for t in parts]))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.op.op != "sum":
+            raise RuntimeError("only a summing all-reduce differentiates")
+        return (None, None) + tuple(ctx.op.reduce(grads, ctx.dtypes))
+
+
+def all_reduce(S: Spmd, parts: dict, axes, *, dtype=None,
+               what: str = "", op: str = "sum") -> dict:
+    """{p: the sum of the parts of p's peers over ``axes``} for each
+    position of ``S.run``, in row-major order, in float32, cast once to
+    ``dtype`` (the part's when None)."""
+    red = _ReduceOp(S, tuple(axes), what, op)
+    outs = _AllReduce.apply(red, dtype, *[parts[p] for p in S.run])
+    return dict(zip(S.run, outs))

@@ -66,12 +66,14 @@ class Roofline:
     coll_bytes_per_device: float
     n_devices: int
     model_flops: float
-    # seconds of the products at each one's own dtype rate (the walk's)
-    compute_s_per_device: float
     # memory footprint
     arg_bytes: float = 0.0
     temp_bytes: float = 0.0
     out_bytes: float = 0.0
+    # seconds of the products at each one's own dtype rate (the walk's);
+    # keyword-only, so that the reference's eight positional fields read
+    # as the reference reads them
+    compute_s_per_device: float = dataclasses.field(kw_only=True)
 
     @property
     def t_compute(self) -> float:

@@ -30,7 +30,10 @@ fuse, so each op that does work is a kernel. Per device it counts:
   * collective bytes: every copy between two distinct devices, sent by
     one and received by the other, under the kind that the code around
     it names with ``kernels/cost.collective`` ("copy" where none is
-    named; "host" where one side is the CPU);
+    named; "host" where one side is the CPU); a collective of
+    ``launch/collectives.py`` on fake tensors makes no copy and books
+    each device's bytes sent and received itself, one record a device
+    under the name of what it moved;
   * the peak of live storage: each storage counted once from the op
     that made it until the last tensor on it is freed, the arguments
     from the start.
@@ -316,6 +319,25 @@ class OpWalk(TorchDispatchMode):
         recv.ops += 1
         self._record("copy", d, dst, kind, outs=(dst,))
 
+    def collective(self, kind: str, device, sent: float, recv: float,
+                   what: str = "", shape=(), dtype=None) -> None:
+        """A collective on fake tensors as ``device`` takes part in it
+        (``kernels/cost.record_collective``): its bytes sent and
+        received, counted as a copy's are; a device that receives makes
+        one record, named ``what``."""
+        dc = self.dev[str(device)]
+        dc.coll_sent += sent
+        dc.coll_recv += recv
+        dc.hbm_bytes += sent + recv
+        if not recv:
+            return
+        dc.coll_by_op[kind] = dc.coll_by_op.get(kind, 0.0) + recv
+        dc.ops += 1
+        self.records.append(OpRecord(
+            what or "copy", str(device),
+            "" if dtype is None else str(dtype).replace("torch.", ""),
+            tuple(shape), int(recv), kind))
+
     def _record(self, name, dev, t, kind=None, outs=(),
                 scratch=()) -> None:
         self.records.append(OpRecord(
@@ -345,7 +367,7 @@ class OpWalk(TorchDispatchMode):
 
     # ---- totals -------------------------------------------------------
     def totals(self, out=None) -> WalkTotals:
-        alias = 0.0
+        alias: dict = defaultdict(float)
         seen = set()
         for t in leaf_tensors(out):
             key, nb = _storage(t)
@@ -354,7 +376,7 @@ class OpWalk(TorchDispatchMode):
             seen.add(key)
             self.dev[str(t.device)].out_bytes += nb
             if key in self._args:
-                alias += nb
+                alias[str(t.device)] += nb
         devs = dict(self.dev)
         busiest = (lambda f: max((f(c) for c in devs.values()), default=0.0))
         kinds = sorted({k for c in devs.values() for k in c.coll_by_op})
@@ -368,7 +390,8 @@ class OpWalk(TorchDispatchMode):
             peak_bytes=busiest(lambda c: c.peak_bytes),
             arg_bytes=busiest(lambda c: c.arg_bytes),
             out_bytes=busiest(lambda c: c.out_bytes),
-            alias_bytes=alias, devices=devs, kernels=dict(self.kernels),
+            alias_bytes=max(alias.values(), default=0.0), devices=devs,
+            kernels=dict(self.kernels),
             records=self.records,
             n_ops=sum(c.ops for c in devs.values()))
 
@@ -392,6 +415,7 @@ def analyze(fn, *args, **kwargs) -> WalkTotals:
         for t in leaf_tensors((args, kwargs)):
             walk.track(t, arg=True)
         stack.enter_context(_cost.listen(walk.kernel, outputs=True))
+        stack.enter_context(_cost.listen_collectives(walk.collective))
         with walk:
             out = fn(*args, **kwargs)
         totals = walk.totals(out)

@@ -9,13 +9,19 @@ under the reference's tree path), the donated arguments and the
 analytic MODEL_FLOPS for the roofline's "useful compute" ratio.
 
 The reference's ``Cell.jitted()`` hands the step to GSPMD, which
-partitions it. The port has no partitioner: the LM, the base GNN and
-the recsys steps take whole tensors, so :meth:`Cell.jitted` gathers
-each of their arguments to the mesh's first device (a copy the op walk
-counts as collective "gather"; a replicated leaf is read from the first
-device's own copy). The steps with a mesh branch of their own read
-their placed pieces: the shardmap GCN (``gcn_loss_sharded``) its batch,
-the SLING pod path (``sling_serve_step_sharded``) its graph blocks.
+partitions it. The port partitions by hand, step by step: a step that
+reads its placed pieces names its arguments in ``piecewise``, and
+:meth:`Cell.jitted` hands it those pieces. The dense LMs' train,
+prefill and decode steps read every argument so
+(``models/transformer_sharded.py``: each position computes its batch
+rows and sequence slice, or its cache slots, and the positions exchange
+data through ``launch/collectives.py``); the shardmap GCN
+(``gcn_loss_sharded``) reads its batch, the SLING pod path
+(``sling_serve_step_sharded``) its graph blocks. The MoE LMs, the base
+GNN and the recsys steps still take whole tensors: :meth:`Cell.jitted`
+gathers each of their arguments to the mesh's first device (a copy the
+op walk counts as collective "gather"; a replicated leaf is read from
+the first device's own copy).
 """
 from __future__ import annotations
 
@@ -156,9 +162,9 @@ class Cell:
     def jitted(self) -> Callable:
         """The step over placed arguments (:meth:`place`): each leaf is
         checked against ``in_shardings``; an argument in ``piecewise``
-        reaches the step with its placed leaves, every other one whole
-        on the mesh's first device; then ``fn`` runs under the cell's
-        mesh and rules."""
+        reaches the step with its placed leaves (a module as {tree path:
+        its placed leaf}), every other one whole on the mesh's first
+        device; then ``fn`` runs under the cell's mesh and rules."""
         home = self.mesh.flat[0]
 
         def call(*placed):
@@ -180,7 +186,8 @@ class Cell:
                                          f"as {got}, the cell's {ns}")
                     vals[path] = leaf if ns is None or i in self.piecewise \
                         else whole(leaf, home)
-                args.append(rebuild(p.template, vals))
+                args.append(vals if i in self.piecewise and isinstance(
+                    p.template, nn.Module) else rebuild(p.template, vals))
             with sh.use_mesh_rules(self.mesh, self.rules):
                 return self.fn(*args)
         return call
@@ -312,26 +319,39 @@ def make_cell(arch_id: str, shape_name: str, mesh,
     raise ValueError(spec.family)
 
 
-def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
-    from repro_torch.models import transformer as T
-    from repro_torch.train import steps
-    d = LM_SHAPE_DEFS[shape_name]
-    cfg = spec.full()
-    opt = AdamW(lr=1e-4)
-    if d["kind"] == "prefill":
+def lm_rules(kind: str, batch: int, rules: Optional[dict] = None) -> dict:
+    """The LM cells' rule overrides on top of ``rules``: prefill's output
+    cache splits its sequence over "model"; decode splits the cache's
+    sequence over "model" (over the data axes too at batch 1) and leaves
+    heads and head_dim whole."""
+    if kind == "prefill":
         # output KV cache shards its sequence axis over "model"
-        rules = dict(rules or {}, **{"kv_seq": [("model",)]})
-    elif d["kind"] == "decode":
+        return dict(rules or {}, **{"kv_seq": [("model",)]})
+    if kind == "decode":
         # split-KV ("flash decoding"): the cache's sequence axis carries
         # the model axis (data too when batch=1); heads/head_dim stay
         # unsharded so score contractions are local
         decode_rules = {"kv_seq": [("model",)], "heads": [None],
                         "kv_heads": [None], "head_dim": [None],
                         "q_seq": [None]}
-        if d["batch"] == 1:
+        if batch == 1:
             decode_rules["kv_seq"] = [("pod", "data", "model"),
                                       ("data", "model")]
-        rules = dict(rules or {}, **decode_rules)
+        return dict(rules or {}, **decode_rules)
+    return rules
+
+
+def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
+    """An LM cell. A dense config's steps read their placed pieces
+    (``models/transformer_sharded.py``); an MoE config's are gathered to
+    the mesh's first device."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps
+    d = LM_SHAPE_DEFS[shape_name]
+    cfg = spec.full()
+    opt = AdamW(lr=1e-4)
+    rules = lm_rules(d["kind"], d["batch"], rules)
+    dense = not cfg.is_moe
     with sh.use_mesh_rules(mesh, rules):
         params = T.init_params(cfg, torch.Generator().manual_seed(0))
         pshard = sh.tree_shardings(params, mesh)
@@ -342,7 +362,8 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
                      "tokens": _empty((d["batch"], d["seq"]), torch.int32)}
             bshard = _batch_shardings(mesh, {k: ("batch", "seq")
                                              for k in batch}, batch)
-            fn = steps.lm_train_step(cfg, opt)
+            fn = steps.lm_train_step_sharded(cfg, opt) if dense \
+                else steps.lm_train_step(cfg, opt)
             return Cell(spec.arch_id, shape_name, fn,
                         (params, opt_state, batch),
                         (pshard, oshard, bshard),
@@ -350,16 +371,18 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
                         donate_argnums=(0, 1),
                         model_flops=lm_model_flops(cfg, "train", d["batch"],
                                                    d["seq"]),
-                        rules=rules, mesh=mesh)
+                        rules=rules, mesh=mesh,
+                        piecewise=(0, 1, 2) if dense else ())
         if d["kind"] == "prefill":
             batch = {"tokens": _empty((d["batch"], d["seq"]), torch.int32)}
             bshard = _batch_shardings(mesh, {"tokens": ("batch", "seq")},
                                       batch)
-            fn = steps.lm_prefill_step(cfg)
+            fn = steps.lm_prefill_step_sharded(cfg) if dense \
+                else steps.lm_prefill_step(cfg)
             return Cell(spec.arch_id, shape_name, fn, (params, batch),
                         (pshard, bshard), None, (),
                         lm_model_flops(cfg, "prefill", d["batch"], d["seq"]),
-                        rules, mesh)
+                        rules, mesh, piecewise=(0, 1) if dense else ())
         # decode
         B, Sq = d["batch"], d["seq"]
         cshape = (cfg.n_layers, B, Sq, cfg.n_kv_heads, cfg.d_head)
@@ -372,14 +395,16 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
                   "v": sh.NamedSharding(mesh, cspec)}
         batch = {"token": _empty((B,), torch.int32)}
         bshard = _batch_shardings(mesh, {"token": ("batch",)}, batch)
-        fn = steps.lm_decode_step(cfg)
+        fn = steps.lm_decode_step_sharded(cfg) if dense \
+            else steps.lm_decode_step(cfg)
         logits_shard = sh.NamedSharding(
             mesh, sh.spec_for((B, cfg.vocab), ("batch", "vocab"), mesh))
         out = {"cache/k": cshard["k"], "cache/len": cshard["len"],
                "cache/v": cshard["v"], "logits": logits_shard}
         return Cell(spec.arch_id, shape_name, fn, (params, cache, batch),
                     (pshard, cshard, bshard), out, (1,),
-                    lm_model_flops(cfg, "decode", B, Sq), rules, mesh)
+                    lm_model_flops(cfg, "decode", B, Sq), rules, mesh,
+                    piecewise=(0, 1, 2) if dense else ())
 
 
 def _gnn_cell(spec, shape_name, mesh, rules) -> Cell:

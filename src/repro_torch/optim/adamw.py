@@ -20,6 +20,7 @@ would cost another 1.73 GB a tree) and returns them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -109,24 +110,106 @@ class AdamW:
             scale = torch.clamp(self.grad_clip / (gn + 1e-12), max=1.0)
             gs = [g * scale for g in gs]
         lr = self.lr(step) if callable(self.lr) else self.lr
-        b1, b2 = self.b1, self.b2
         s32 = step.to(torch.float32)
-        c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+        c1 = 1.0 - torch.pow(torch.tensor(self.b1, dtype=torch.float32,
                                           device=s32.device), s32)
-        c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+        c2 = 1.0 - torch.pow(torch.tensor(self.b2, dtype=torch.float32,
                                           device=s32.device), s32)
         for (name, p), g in zip(leaves, gs):
-            m, v = state.m[name], state.v[name]
-            g32 = g.to(torch.float32)
-            m.mul_(b1).add_(g32 * (1 - b1))
-            v.mul_(b2).add_(g32.mul(1 - b2).mul_(g32))
-            mhat = m / c1
-            vhat = v / c2
-            delta = mhat.div_(vhat.sqrt_().add_(self.eps))
-            p32 = p.to(torch.float32)
-            delta.add_(self.weight_decay * p32)
-            p.copy_(p32 - lr * delta)
+            self._leaf(p, g, state.m[name], state.v[name], lr, c1, c2)
         return params, AdamWState(step=step, m=state.m, v=state.v)
+
+    def _leaf(self, p, g, m, v, lr, c1, c2) -> None:
+        """One leaf's update in place: m, v, then p."""
+        b1, b2 = self.b1, self.b2
+        g32 = g.to(torch.float32)
+        m.mul_(b1).add_(g32 * (1 - b1))
+        v.mul_(b2).add_(g32.mul(1 - b2).mul_(g32))
+        mhat = m / c1
+        vhat = v / c2
+        delta = mhat.div_(vhat.sqrt_().add_(self.eps))
+        p32 = p.to(torch.float32)
+        delta.add_(self.weight_decay * p32)
+        p.copy_(p32 - lr * delta)
+
+    @torch.no_grad()
+    def update_placed(self, grads: dict, state: AdamWState, params: dict):
+        """(params, state) after one step over placed leaves, each mesh
+        position updating its own pieces in place: ``params`` and the
+        state's m and v {name: ``ShardedTensor``}, its step a replicated
+        ``ShardedTensor``; ``grads`` {name: {position: the gradient of
+        that position's piece}} for the positions that ran (a dry run's
+        classes, ``launch/collectives.spmd``). The clip's norm sums each
+        distinct piece's squares once, at the first position holding it
+        (a replicated leaf counts once), all-reduced over the mesh in
+        position order. A piece that shares its storage with one updated
+        before (a replica on the same device) is not updated again."""
+        from repro_torch.kernels.cost import is_fake
+        from repro_torch.launch import collectives as C
+        names = [n for n, _ in named_leaves(params)]
+        if set(grads) != set(names):
+            raise ValueError(f"gradients for {sorted(grads)}, parameters "
+                             f"{names}")
+        run = tuple(grads[names[0]])
+        mesh = params[names[0]].sharding.mesh
+        S = C.Spmd(mesh, run, is_fake(*grads[names[0]].values()))
+        scale = {}
+        if self.grad_clip is not None:
+            part = {}
+            for p in run:
+                tot = torch.zeros((), dtype=torch.float32, device=S.dev(p))
+                for n in names:
+                    if _first_holder(params[n], p):
+                        g = grads[n][p].to(torch.float32)
+                        tot = tot + torch.sum(torch.square(g))
+                part[p] = tot
+            sq = C.all_reduce(S, part, mesh.axis_names, what="grad-norm")
+            for p in run:
+                gn = torch.sqrt(sq[p])
+                scale[p] = torch.clamp(self.grad_clip / (gn + 1e-12),
+                                       max=1.0)
+        # every position's copy of the replicated counter moves
+        steps = {p: t + 1 for p, t in state.step.pieces.items()}
+        seen = set()
+        for p in run:
+            step = steps[p]
+            lr = self.lr(step) if callable(self.lr) else self.lr
+            # the corrections as ``update`` forms them, the constants
+            # made beside the step (a dry run's last fake device has no
+            # index, where a new constant would not be fake)
+            s32 = step.to(torch.float32)
+            c1 = 1.0 - torch.pow(torch.full_like(s32, self.b1), s32)
+            c2 = 1.0 - torch.pow(torch.full_like(s32, self.b2), s32)
+            for n in names:
+                piece = params[n].pieces[p]
+                if not is_fake(piece):
+                    view = (piece.device, piece.data_ptr(),
+                            tuple(piece.shape), piece.stride())
+                    if view in seen:
+                        continue
+                    seen.add(view)
+                g = grads[n][p]
+                if p in scale:
+                    g = g * scale[p]
+                self._leaf(piece, g, state.m[n].pieces[p],
+                           state.v[n].pieces[p], lr, c1, c2)
+        new_step = dataclasses.replace(state.step, pieces=steps)
+        return params, AdamWState(step=new_step, m=state.m, v=state.v)
+
+
+def _first_holder(st, pos) -> bool:
+    """True when ``pos`` is the first position (row-major) whose piece of
+    the placed ``st`` covers its region."""
+    return _holders(st.sharding, tuple(st.shape))[pos]
+
+
+@functools.lru_cache(maxsize=None)
+def _holders(sharding, shape: tuple) -> dict:
+    first, out = {}, {}
+    for p, sl in sharding.devices_indices_map(shape).items():
+        key = tuple((s.start, s.stop) for s in sl)
+        out[p] = first.setdefault(key, p) == p
+    return out
 
 
 def global_norm(tree) -> torch.Tensor:

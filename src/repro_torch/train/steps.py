@@ -60,6 +60,45 @@ def lm_decode_step(cfg) -> Callable:
     return step
 
 
+def lm_train_step_sharded(cfg, opt) -> Callable:
+    """``lm_train_step`` on placed arguments (``models/
+    transformer_sharded.py``): ``params`` {tree path: ShardedTensor},
+    ``opt_state`` an AdamW state of placed leaves, ``batch`` placed or
+    whole; each position updates its own pieces in place. Dense configs
+    only; needs an active mesh."""
+    from repro_torch.models import transformer_sharded as tsh
+
+    def step(params, opt_state, batch):
+        loss, grads = tsh.value_and_grad(cfg, params, batch["tokens"],
+                                         batch["targets"])
+        params, opt_state = opt.update_placed(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+    return step
+
+
+def lm_prefill_step_sharded(cfg) -> Callable:
+    """``lm_prefill_step`` on placed arguments: {"logits" placed over the
+    batch's axes, "cache" placed (batch, kv_seq over "model")}."""
+    from repro_torch.models import transformer_sharded as tsh
+
+    def step(params, batch):
+        logits, cache = tsh.prefill(cfg, params, batch["tokens"])
+        return {"logits": logits, "cache": cache}
+    return step
+
+
+def lm_decode_step_sharded(cfg) -> Callable:
+    """``lm_decode_step`` on placed arguments: {"logits" placed (batch,
+    vocab), "cache"}; the owning pieces of the cache are written in
+    place."""
+    from repro_torch.models import transformer_sharded as tsh
+
+    def step(params, cache, batch):
+        logits, cache = tsh.decode_step(cfg, params, cache, batch["token"])
+        return {"logits": logits, "cache": cache}
+    return step
+
+
 def gnn_train_step(cfg, opt) -> Callable:
     """One training step of the GNN ``params`` (a ``GNNParams``, trained
     in place) on a full or sampled graph ``batch`` with the AdamW

@@ -26,6 +26,7 @@ from repro.kernels.hp_join.hp_join import hp_join as rhp_join
 from repro.kernels.hp_join import ops as rhp_ops
 from repro.kernels.hp_join.ref import join_ref as rjoin_ref
 from repro.kernels.spmv_ell.ref import spmm_ref as rspmm_ref
+from repro.launch import hlo_analysis as rhlo_analysis
 from repro.launch import mesh as rmesh
 from repro.launch import sharding as rsharding
 from repro.launch import specs as rspecs
@@ -49,6 +50,7 @@ from repro_torch.kernels.hp_join import ops as thp_ops
 from repro_torch.kernels.hp_join.ref import join_ref as tjoin_ref
 from repro_torch.kernels.spmv_ell.ref import spmm_ref as tspmm_ref
 from repro_torch.launch import dryrun as tdryrun
+from repro_torch.launch import hlo_analysis as thlo_analysis
 from repro_torch.launch import inspect_cell as tinspect_cell
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding as tsharding
@@ -212,7 +214,8 @@ PORT_KEYWORDS = {"device", "verbose", "build_seconds", "read_only"}
 OWN_KEYWORDS = {"cin": {"backend"}, "cin_forward": {"backend"},
                 "paired_meet": {"mesh", "mesh_axis"},
                 "make_production_mesh": {"multi_pod", "devices"},
-                "run_cell": {"mesh"}}
+                "run_cell": {"mesh"},
+                "Roofline": {"compute_s_per_device"}}
 # a positional the port renames by design: a torch.Generator for a key
 RENAMED = {"paired_meet": {"key": "gen"}}
 # trailing reference parameters the port has no use for: an XLA compile
@@ -285,6 +288,7 @@ SIGNATURES = {
                  tdryrun.run_cell),
     "inspect": (_from_source("launch/inspect_cell.py", "inspect"),
                 tinspect_cell.inspect),
+    "Roofline": (rhlo_analysis.Roofline, thlo_analysis.Roofline),
 }
 # refused by design, with TypeError: the gathered-row join (the port's
 # kernel gathers the rows itself; ROADMAP.md, "Not ported, by design")
@@ -312,6 +316,45 @@ def test_positional_order_matches_reference(name):
     assert t_pos == r_pos[:len(t_pos)]
     assert set(r_pos[len(t_pos):]) <= DROPPED
     assert t_kw <= PORT_KEYWORDS | OWN_KEYWORDS.get(name, set())
+
+
+def test_roofline_reads_the_reference_positions():
+    """``Roofline``'s eight positional fields are the reference's:
+    ``arg_bytes``, ``temp_bytes`` and ``out_bytes`` sixth to eighth, and
+    the port's walked compute seconds only by keyword (a ninth
+    positional is refused)."""
+    args = (1e12, 1e9, 0.0, 1, 1e12, 5e9, 1e9, 2e9)
+    ref = rhlo_analysis.Roofline(*args)
+    port = thlo_analysis.Roofline(*args, compute_s_per_device=0.25)
+    for f in ("arg_bytes", "temp_bytes", "out_bytes", "flops_per_device",
+              "hbm_bytes_per_device", "n_devices", "model_flops"):
+        assert getattr(port, f) == getattr(ref, f), f
+    assert (port.arg_bytes, port.temp_bytes, port.out_bytes) == \
+        (5e9, 1e9, 2e9)
+    assert port.t_compute == 0.25
+    with pytest.raises(TypeError):
+        thlo_analysis.Roofline(*args)
+    with pytest.raises(TypeError):
+        thlo_analysis.Roofline(*args, 0.25)
+
+
+@pytest.mark.parametrize("package", ["core", "configs"])
+def test_package_names_match_reference(package):
+    """``repro_torch.core`` and ``repro_torch.configs`` export the
+    reference packages' public names (``build_index``, ``update_index``,
+    ``SlingIndex``, ``plan``; ``all_archs``, ``get``), each bound to the
+    port's own object."""
+    import importlib
+
+    def public(mod):
+        return {n for n, v in vars(mod).items()
+                if not n.startswith("_") and not inspect.ismodule(v)}
+
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert public(port) == public(ref)
+    for n in public(port):
+        assert getattr(port, n).__module__.startswith("repro_torch."), n
 
 
 def test_from_graph_and_paired_meet_by_position(monkeypatch):
