@@ -209,8 +209,8 @@ Phases (any failure raises and the script exits non-zero):
      CUDA events, each with tokens/s, TFLOP/s by ``lm_model_flops`` and
      the device peak, every config's wq / wk / wv scaled to fan_in
      d_model (``lm_params``): smollm-135m whole (30 layers) -- train_4k
-     (S = 4,096) at B = 32 of the cell's 256 (1 warm-up and 3 timed
-     ``lm_train_step``s, every loss finite), prefill_32k at B = 2 (1 + 2
+     (S = 4,096) at B = 32 of the cell's 256 (1 warm-up and 2 timed
+     ``lm_train_step``s, every loss finite), prefill_32k at B = 2 (1 + 1
      calls), decode_32k from that prefill's cache repeated to the
      largest power-of-two batch up to 128 that fits 85 % of the free
      memory (1 + 8 token steps near the end of 32,768 slots), long_500k
@@ -233,7 +233,26 @@ Phases (any failure raises and the script exits non-zero):
      prefill at 4,096, B = 2, and 3 decode steps for smollm-135m (with
      the profiler's kernels and host launches of one prefill and one
      step), gemma3-1b and qwen3-14b at 2 layers: logits and the caches
-     gathered from their pieces within LM_MESH_OUT;
+     gathered from their pieces within LM_MESH_OUT; gemma3-1b whole,
+     train_4k at B = 8 x 4,096 held as smollm-135m's (its loss chunks
+     formed a vocabulary slice at a time; no float32 step), one step's
+     peak printed beside the dry run's prediction for that cell on the
+     mesh; then the MoE
+     part (``moe_mesh_part``): mixtral-8x22b and llama4-scout-17b-a16e at
+     their published widths, "model" splitting the experts (EP; mixtral
+     also d_ff, TP, through the rules ``MOE_MESH_TP``), each in float32
+     and in bf16 against the gathered steps under the same mesh rules
+     (``moe_ffn``'s branch, G = 2): prefill 4,096 at B = 2 and 3 decode
+     steps at LM_CUT_LAYERS, train_4k at MOE_TRAIN_LAYERS, B = 4 x 4,096
+     (the loss and each leaf's max |grad|), every layer's routing
+     recorded (``RouteLog``): every position of a group routes
+     bit-equally; in float32 each token goes to the experts the gathered
+     step sends it to, near-ties apart (``route_diff``: a margin within
+     the two steps' float32 difference of the probabilities), the
+     outputs and max |grad| within TOL_MOE_MESH of max |ref|; in bf16
+     the ulps and the routing decisions that differ (and the first layer
+     where one does) printed, LM_MESH_OUT / LM_MESH_GRAD held where none
+     differs;
   3m. the sharded models (``launch/sharding.py``, ``models/gnn_sharded.py``,
      ``moe_ffn``'s mesh branch, ``restore`` under shardings; no kernel of
      the port: the reference's are XLA ops) on meshes that repeat the
@@ -284,10 +303,13 @@ Phases (any failure raises and the script exits non-zero):
      from the plain push on its inputs. The first steps' launches join
      the kernel rows' counts. Then one dense-LM cell on a (2, 2) mesh
      of the card (``lm_cell_3n``): smollm-135m train_4k at B = 8 of the
-     cell's 256, the partitioned step, its real arguments made on the
+     cell's 256 cut to 6 of its 30 layers, the partitioned step, its real arguments made on the
      host and placed on the card a copy a position; the same
      predictions against the card, failing on argument bytes or
-     launches that differ or a loss that is not finite;
+     launches that differ or a loss that is not finite; then
+     mixtral-8x22b train_4k cut to 1 layer at B = 4 the same way
+     (CELL_3N_MOE), its device peak also held within CELL_3N_PEAK of the
+     prediction;
   3o. the static analyzer held against the card (``repro_torch.
      analysis``): its CLI with ``ANALYSIS_BASELINE_TORCH.json`` in a
      subprocess (exit 0, 0 passes skipped); then every program of its
@@ -367,6 +389,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -410,8 +433,8 @@ LG_STEPS = (1, 2)      # minibatch_lg: 3 steps, the first a warm-up
 LG_SEEDS, LG_FANOUT = 1_024, (15, 10)
 MESH_GRID = (52, 52)   # graphcast's mesh: 2,704 nodes, 10,608 edges
 # phase 3l: the LM stack (launch/specs.py LM_SHAPE_DEFS)
-LM_TRAIN_STEPS = (1, 3)    # train_4k: warm-up steps, timed steps
-LM_PREFILL_STEPS = (1, 2)  # prefill: warm-up calls, timed calls
+LM_TRAIN_STEPS = (1, 2)    # train_4k: warm-up steps, timed steps
+LM_PREFILL_STEPS = (1, 1)  # prefill: warm-up calls, timed calls
 LM_DECODE_STEPS = (1, 8)   # decode_32k / long_500k: warm-up, timed tokens
 LM_CUT_DECODE = (1, 4)     # the depth-cut configs after their prefill
 LM_CUT_LAYERS = 2          # qwen3 / mixtral / scout: each layer its own period
@@ -436,9 +459,15 @@ LM_MESH = (2, 2)
 LM_MESH_SEQ = 4_096
 LM_MESH_TRAIN_B = 8        # train_4k's batch, cut from the cell's 256
 LM_MESH_TRAIN_STEPS = (1, 2)
+LM_MESH_GEMMA_STEPS = (0, 1)   # gemma3-1b's: the one step that its peak needs
 LM_MESH_SERVE_B = 2        # prefill / decode: one row a data group
 LM_MESH_DECODE = 3         # decode steps after the prefill
 LM_MESH_OUT, LM_MESH_GRAD = 4, 8   # bf16 ulps: outputs, each leaf's grad
+# its MoE part: at the published widths, against the gathered steps under
+# the same mesh rules; mixtral also with d_ff over "model" (TP)
+MOE_MESH_ARCHS = ("mixtral-8x22b", "llama4-scout-17b-a16e")
+MOE_MESH_TP = {"experts_w": [None]}
+TOL_MOE_MESH = 1e-4        # float32: of max |ref| (outputs, max |grad|)
 # phase 3n: the cells on the card's (1, 1) mesh, and their steps
 # (warm-up, timed)
 CELLS_3N = (("xdeepfm", "serve_p99", (1, 5)),
@@ -446,8 +475,13 @@ CELLS_3N = (("xdeepfm", "serve_p99", (1, 5)),
             ("gcn-cora", "full_graph_sm", (1, 5)),
             ("sling-serve", "serve_batch", (1, 1)))
 # and one dense-LM cell on a (2, 2) mesh of the card: (arch, shape,
-# (warm-up, timed) steps, the batch cut from the cell's)
-CELL_3N_LM = ("smollm-135m", "train_4k", (1, 2), 8)
+# (warm-up, timed) steps, the batch cut from the cell's, the layers cut
+# to: the dry run of 30 layers on four positions takes ~60 s)
+CELL_3N_LM = ("smollm-135m", "train_4k", (1, 2), 8, 6)
+# and one MoE-LM cell, cut to MOE_TRAIN_LAYERS; a cut cell's peak is
+# held to the prediction within CELL_3N_PEAK
+CELL_3N_MOE = ("mixtral-8x22b", "train_4k", (1, 2), 4, 1)
+CELL_3N_PEAK = 0.10
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -1935,13 +1969,36 @@ def assembled(st, pieces, dev):
     return out
 
 
-def lm_mesh_train(cfg, params, mesh, dev, bad: list) -> None:
+def lm_cell_peak(arch: str, mesh, batch: int) -> float:
+    """The dry run's busiest-device peak (GiB) of ``arch``'s train_4k cell
+    at ``batch`` rows on ``mesh`` (``launch/dryrun.run_cell``: fake
+    tensors, nothing allocated)."""
+    from repro_torch.launch import dryrun, specs
+
+    saved = specs.LM_SHAPE_DEFS
+    specs.LM_SHAPE_DEFS = dict(saved, train_4k=dict(saved["train_4k"],
+                                                    batch=batch))
+    try:
+        rec = dryrun.run_cell(arch, "train_4k", verbose=False, mesh=mesh)
+    finally:
+        specs.LM_SHAPE_DEFS = saved
+    return rec["bytes_per_device"]["peak_est"] / 2**30
+
+
+def lm_mesh_train(cfg, params, mesh, dev, bad: list,
+                  predict: str | None = None,
+                  steps: tuple = LM_MESH_TRAIN_STEPS,
+                  f32: bool = True) -> None:
     """train_4k on the mesh at B = LM_MESH_TRAIN_B, S = LM_MESH_SEQ: the
     partitioned loss and each leaf's max |grad| (of the gradient
     assembled from the pieces') against the unpartitioned ``lm_loss`` on
     the card; each gradient's largest entrywise distance, to that step's
-    and to the unpartitioned float32 step's, printed beside them; then
-    the timed partitioned ``lm_train_step_sharded`` on a copy."""
+    and (``f32``) to the unpartitioned float32 step's, printed beside
+    them; then
+    ``steps`` (warm-up, timed) partitioned ``lm_train_step_sharded`` s
+    on a copy, their peak (the arguments they were given and the steps'
+    temporaries) beside the dry run's prediction for arch ``predict``'s
+    train_4k cell at that batch on the mesh when given."""
     import copy
     import dataclasses
 
@@ -1964,7 +2021,8 @@ def lm_mesh_train(cfg, params, mesh, dev, bad: list) -> None:
         return value_and_grad(
             lambda p, x: T.lm_loss(c, p, x["tokens"], x["targets"]),
             params, batch)
-    _, g32 = whole(dataclasses.replace(cfg, dtype=torch.float32))
+    g32 = whole(dataclasses.replace(cfg, dtype=torch.float32))[1] \
+        if f32 else None
     ref_loss, ref_g = whole(cfg)
     with sh.use_mesh_rules(mesh):
         leaves = TS.place_params(params)
@@ -1978,10 +2036,13 @@ def lm_mesh_train(cfg, params, mesh, dev, bad: list) -> None:
         got = assembled(st, grads[n], dev)
         e_max[n] = ulps(got.abs().max(), ref_g[n].abs().max())
         e_elem[n] = (round(ulps(got, ref_g[n]), 2),
-                     round(ulps(got, g32[n]), 2),
-                     round(ulps(ref_g[n], g32[n]), 2))
+                     *((round(ulps(got, g32[n]), 2),
+                        round(ulps(ref_g[n], g32[n]), 2)) if f32 else ()))
     worst = max((v, n) for n, v in e_max.items())
     del grads, ref_g, g32, leaves
+    pred = None if predict is None else lm_cell_peak(predict, mesh, B)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     copy_ = copy.deepcopy(params)
     opt = AdamW(lr=1e-3)
     step = lm_train_step_sharded(cfg, opt)
@@ -1996,26 +2057,31 @@ def lm_mesh_train(cfg, params, mesh, dev, bad: list) -> None:
                               for n, t in state.v.items()})
         torch.cuda.reset_peak_memory_stats()
         times, losses = [], []
-        for k in range(sum(LM_MESH_TRAIN_STEPS)):
+        for k in range(sum(steps)):
             (leaves, state, m), t = events_ms(
                 lambda: step(leaves, state, batch))
             losses.append(float(m["loss"]))
-            if k >= LM_MESH_TRAIN_STEPS[0]:
+            if k >= steps[0]:
                 times.append(t)
         step_peak = torch.cuda.max_memory_allocated() / 2**30
+        cell_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     print(f"[lm-mesh] {cfg.name} train_4k B = {B} x {S} on {LM_MESH}: loss "
           f"{float(loss):.5f} vs unpartitioned {float(ref_loss):.5f} "
           f"({e_loss:.3g} bf16 ulps, limit {LM_MESH_OUT}); each leaf's "
           f"max |g| within {worst[0]:.3g} ulps ({worst[1]}, limit "
           f"{LM_MESH_GRAD}); entrywise, in ulps of max |g|, (partitioned "
-          f"vs unpartitioned, partitioned vs float32, unpartitioned vs "
-          f"float32) a leaf {e_elem}; value and grad "
+          f"vs unpartitioned"
+          + (", partitioned vs float32, unpartitioned vs float32"
+             if f32 else "") + f") a leaf {e_elem}; value and grad "
           f"{ms:.3f} ms, device peak {peak:.3f} GiB; "
-          + lm_stats(f"{LM_MESH_TRAIN_STEPS[1]} timed steps after "
-                     f"{LM_MESH_TRAIN_STEPS[0]}, losses "
+          + lm_stats(f"{steps[1]} timed steps after "
+                     f"{steps[0]}, losses "
                      f"{[round(l, 4) for l in losses]}, step", times,
                      B * S, lm_model_flops(cfg, "train", B, S))
-          + f" (steps' peak {step_peak:.3f} GiB); port kernels launched "
+          + f" (steps' peak {step_peak:.3f} GiB; the cell's, its "
+          f"arguments and the steps' temporaries, {cell_peak:.3f} GiB"
+          + ("" if pred is None else f", the dry run's prediction on "
+             f"{LM_MESH} {pred:.3f} GiB") + "); port kernels launched "
           f"none (the LM path has none)")
     if not e_loss <= LM_MESH_OUT or not worst[0] <= LM_MESH_GRAD:
         bad.append(f"{cfg.name} train: loss {e_loss:.3g} ulps, max |g| "
@@ -2102,6 +2168,258 @@ def lm_mesh_serve(cfg, params, mesh, dev, label: str, bad: list,
         bad.append(f"{cfg.name} {label}: {errs}")
 
 
+class RouteLog:
+    """Inside the block, every MoE dispatch (``models/moe.dispatch``: the
+    gathered step's and the partitioned step's alike) has its expert
+    choices (T, k) and router probabilities (T, E) kept, in call order;
+    ``take()`` returns and clears them."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._real = [], moe.dispatch
+
+        def spy(*a, **k):
+            route = self._real(*a, **k)
+            self.calls.append((route.expert_idx.detach().clone(),
+                               route.probs.detach().clone()))
+            return route
+        moe.dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.dispatch = self._real
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+def route_diff(part: list, ref: list, L: int, G: int, M: int) -> tuple:
+    """(every position of a group chose the same experts with the same
+    probabilities bit for bit, the routing decisions of the partitioned
+    step that differ from the gathered step's (a token sent to another
+    set of experts: the order of its k choices changes no slot), those
+    of them that are not near-ties, the first layer where one differs
+    or None), from the first forward's calls: the gathered step's L x G
+    (a group a call, layer by layer), the partitioned step's L x G x M
+    (a position a call, row-major). A near-tie: the gathered step's
+    margin between its k-th and (k+1)-th probability is at most twice
+    the largest difference of the two steps' probabilities in that
+    group and layer (float32 rounding apart, the two steps' inputs
+    differ by ulps)."""
+    import torch
+    same, n, hard, first = True, 0, 0, None
+    for l in range(L):
+        for g in range(G):
+            mine = part[(l * G + g) * M:(l * G + g + 1) * M]
+            same &= all(bool(torch.equal(q[0], mine[0][0]))
+                        and bool(torch.equal(q[1], mine[0][1]))
+                        for q in mine[1:])
+            (ep, pp), (er, pr) = mine[0], ref[l * G + g]
+            k = er.shape[-1]
+            moved = (ep.sort(-1).values != er.sort(-1).values).any(-1)
+            if not bool(moved.any()):
+                continue
+            n += int(moved.sum())
+            first = l if first is None else first
+            top = pr.sort(-1, descending=True).values
+            margin = top[:, k - 1] - top[:, k] if top.shape[-1] > k \
+                else torch.full_like(top[:, 0], float("inf"))
+            noise = float((pp - pr).abs().max())
+            hard += int((moved & (margin > 2 * noise)).sum())
+    return same, n, hard, first
+
+
+def moe_mesh_bars(label: str, dtype, errs: dict, routes: dict,
+                  bad: list) -> str:
+    """The MoE mesh checks of one run: every group's positions route
+    bit-equally; in float32 as the gathered step does at every layer but
+    at near-ties (``route_diff``), and every error within TOL_MOE_MESH
+    of max |ref|; in bf16 the errors (in bf16 ulps) within LM_MESH_OUT
+    on outputs and LM_MESH_GRAD on gradients where no routing decision
+    differs. Returns the line's text."""
+    import torch
+    f32 = dtype == torch.float32
+    unit = 1.0 if f32 else BF16_ULP
+    text = ", ".join(f"{k} {v / unit:.3g}" for k, v in errs.items())
+    rtext = "; ".join(
+        f"{k}: positions equal {same}, {n} decisions differ"
+        + ("" if first is None else f" (first at layer {first}), "
+           f"{n - hard} of them near-ties")
+        for k, (same, n, hard, first) in routes.items())
+    if not all(r[0] for r in routes.values()):
+        bad.append(f"{label}: a group's positions routed apart: {rtext}")
+    differ = any(r[1] for r in routes.values())
+    if f32:
+        if any(r[2] for r in routes.values()) or \
+                max(errs.values()) > TOL_MOE_MESH:
+            bad.append(f"{label} float32: {text}; {rtext}")
+        return (f"float32, of max |ref| (limit {TOL_MOE_MESH}): {text}; "
+                f"routing {rtext}")
+    worst = {k: v / unit for k, v in errs.items()}
+    over = [k for k, v in worst.items()
+            if v > (LM_MESH_GRAD if k.startswith("grad") else LM_MESH_OUT)]
+    if over and not differ:
+        bad.append(f"{label} bf16: {text}")
+    return (f"bf16 ulps of max |ref| (limits {LM_MESH_OUT} / "
+            f"{LM_MESH_GRAD} where no decision differs): {text}; routing "
+            f"{rtext}")
+
+
+def moe_mesh_serve(cfg, params, mesh, rules, label: str, bad: list) -> None:
+    """Prefill at B = LM_MESH_SERVE_B, S = LM_MESH_SEQ and LM_MESH_DECODE
+    decode steps of an MoE config on the mesh under ``rules``, against
+    the gathered steps (``prefill`` / ``decode_step`` over whole tensors
+    under the same mesh rules: ``moe_ffn``'s branch, a group a data
+    shard): the logits and the caches gathered from their pieces, and
+    every layer's routing (``RouteLog``)."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import lm_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.models import transformer_sharded as TS
+
+    dev = params.embed.device
+    B, S, L = LM_MESH_SERVE_B, LM_MESH_SEQ, cfg.n_layers
+    G, M = mesh.shape["data"], mesh.shape["model"]
+    tokens = torch.as_tensor(TokenStream(cfg.vocab, B, S, seed=6).batch_at(
+        0)["tokens"], device=dev)
+    errs, routes = {}, {}
+    with RouteLog() as log, sh.use_mesh_rules(
+            mesh, lm_rules("prefill", B, rules)):
+        ref_logits, ref_cache = T.prefill(cfg, params, tokens)
+        ref_calls = log.take()
+        leaves = TS.place_params(params)
+        torch.cuda.reset_peak_memory_stats()
+        (logits, cache), p_ms = events_ms(
+            lambda: TS.prefill(cfg, leaves, tokens))
+        p_peak = torch.cuda.max_memory_allocated() / 2**30
+        routes["prefill"] = route_diff(log.take(), ref_calls, L, G, M)
+    errs["prefill logits"] = rel_err(logits.gather(dev), ref_logits)
+    k0, v0 = cache["k"].gather(dev), cache["v"].gather(dev)
+    errs["prefill cache k"] = rel_err(k0, ref_cache["k"])
+    errs["prefill cache v"] = rel_err(v0, ref_cache["v"])
+    del cache, logits
+    slots = S + LM_MESH_DECODE
+    ref = T.pad_cache(ref_cache, slots)
+    mine = T.pad_cache({"k": k0, "v": v0, "len": S}, slots)
+    del ref_cache, k0, v0
+    token = ref_logits.argmax(-1)
+    d_ms = []
+    with RouteLog() as log, sh.use_mesh_rules(
+            mesh, lm_rules("decode", B, rules)):
+        names = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        spec = sh.spec_for(tuple(mine["k"].shape), names, mesh)
+        placed = {"k": sh.place(mine["k"], spec, mesh),
+                  "v": sh.place(mine["v"], spec, mesh), "len": S}
+        del mine
+        for i in range(LM_MESH_DECODE):
+            rl, ref = T.decode_step(cfg, params, ref, token)
+            ref_calls = log.take()
+            (ml, placed), t = events_ms(
+                lambda: TS.decode_step(cfg, leaves, placed, token))
+            d_ms.append(t)
+            routes[f"decode {i}"] = route_diff(log.take(), ref_calls, L,
+                                               G, M)
+            errs[f"decode {i} logits"] = rel_err(ml.gather(dev), rl)
+            token = rl.argmax(-1)
+        errs["decode cache k"] = rel_err(placed["k"].gather(dev), ref["k"])
+        errs["decode cache v"] = rel_err(placed["v"].gather(dev), ref["v"])
+    del placed, ref, leaves
+    text = moe_mesh_bars(f"{cfg.name} {label} serve", cfg.dtype, errs,
+                         routes, bad)
+    print(f"[lm-mesh] {cfg.name} {label} {str(cfg.dtype)[6:]} B = {B} on "
+          f"{LM_MESH}: prefill {S} tokens {p_ms:.3f} ms (device peak "
+          f"{p_peak:.3f} GiB), {LM_MESH_DECODE} decode steps ms "
+          f"{[round(t, 3) for t in d_ms]}; against the gathered steps "
+          f"({G} groups), {text}; port kernels launched none (the LM path "
+          f"has none)")
+
+
+def moe_mesh_train(cfg, params, mesh, rules, label: str, bad: list) -> None:
+    """train_4k of an MoE config on the mesh under ``rules`` at B =
+    MOE_TRAIN_BATCH, S = MOE_TRAIN_SEQ: the partitioned loss and each
+    leaf's max |grad| (over its pieces' gradients) against the gathered
+    ``lm_loss`` under the same mesh rules, and every layer's routing in
+    the first forward of each."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.models import transformer_sharded as TS
+    from repro_torch.train.trainer import value_and_grad
+
+    dev = params.embed.device
+    B, S, L = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, cfg.n_layers
+    G, M = mesh.shape["data"], mesh.shape["model"]
+    b = TokenStream(cfg.vocab, B, S, seed=5).batch_at(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    with RouteLog() as log, sh.use_mesh_rules(mesh, rules):
+        ref_loss, ref_g = value_and_grad(
+            lambda p, x: T.lm_loss(cfg, p, x["tokens"], x["targets"]),
+            params, batch)
+        ref_max = {n: g.abs().max() for n, g in ref_g.items()}
+        del ref_g
+        ref_calls = log.take()[:L * G]
+        leaves = TS.place_params(params)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        (loss, grads), ms = events_ms(lambda: TS.value_and_grad(
+            cfg, leaves, batch["tokens"], batch["targets"]))
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        routes = {"train": route_diff(log.take(), ref_calls, L, G, M)}
+    errs = {"loss": rel_err(loss, ref_loss)}
+    for n, parts in grads.items():
+        got = torch.stack([g.abs().max() for g in parts.values()]).max()
+        errs[f"grad {n}"] = rel_err(got, ref_max[n])
+    del grads, leaves
+    text = moe_mesh_bars(f"{cfg.name} {label} train", cfg.dtype, errs,
+                         routes, bad)
+    print(f"[lm-mesh] {cfg.name} {label} {str(cfg.dtype)[6:]} train_4k "
+          f"B = {B} x {S} on {LM_MESH}: loss {float(loss):.6f} vs gathered "
+          f"{float(ref_loss):.6f}; value and grad {ms:.3f} ms, device peak "
+          f"{peak:.3f} GiB above the parameters; against the gathered step "
+          f"({G} groups), {text}")
+
+
+def moe_mesh_part(dev, mesh, bad: list) -> None:
+    """Phase 3l's MoE mesh part: MOE_MESH_ARCHS at their published widths
+    on the mesh, each placement (EP for both: "model" splits the
+    experts; TP for mixtral: ``MOE_MESH_TP``, "model" splits d_ff) in
+    float32 and in bf16: prefill and decode at LM_CUT_LAYERS, train at
+    MOE_TRAIN_LAYERS."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+
+    for arch in MOE_MESH_ARCHS:
+        t0 = time.perf_counter()
+        full = cfg_base.get(arch).full()
+        places = [("EP", None)] + ([("TP", MOE_MESH_TP)]
+                                   if arch == "mixtral-8x22b" else [])
+        for layers, run in ((LM_CUT_LAYERS, moe_mesh_serve),
+                            (MOE_TRAIN_LAYERS, moe_mesh_train)):
+            cfg = dataclasses.replace(full, n_layers=layers)
+            params = lm_params(cfg, dev)
+            for name, rules in places:
+                for dtype in (torch.float32, torch.bfloat16):
+                    run(dataclasses.replace(cfg, dtype=dtype), params, mesh,
+                        rules, f"{layers} of {full.n_layers} layers, {name}",
+                        bad)
+                    torch.cuda.empty_cache()
+            del params
+            torch.cuda.empty_cache()
+        print(f"[lm-mesh] {arch} MoE mesh checks "
+              f"{time.perf_counter() - t0:.1f}s")
+
+
 def lm_mesh_part(dev) -> None:
     """Phase 3l's mesh part (see the module docstring)."""
     import dataclasses
@@ -2121,6 +2439,11 @@ def lm_mesh_part(dev) -> None:
     torch.cuda.empty_cache()
     cfg = cfg_base.get("gemma3-1b").full()
     params = lm_params(cfg, dev)
+    t1 = time.perf_counter()
+    lm_mesh_train(cfg, params, mesh, dev, bad, predict="gemma3-1b",
+                  steps=LM_MESH_GEMMA_STEPS, f32=False)
+    print(f"[lm-mesh] gemma3-1b train {time.perf_counter() - t1:.1f}s")
+    torch.cuda.empty_cache()
     lm_mesh_serve(cfg, params, mesh, dev, "serve", bad)
     del params
     torch.cuda.empty_cache()
@@ -2131,6 +2454,7 @@ def lm_mesh_part(dev) -> None:
                   f"{LM_CUT_LAYERS} of {full.n_layers} layers", bad)
     del params
     torch.cuda.empty_cache()
+    moe_mesh_part(dev, mesh, bad)
     print(f"[lm-mesh] part {time.perf_counter() - t0:.1f}s; card "
           f"{card_line()}")
     if bad:
@@ -2775,6 +3099,7 @@ def cells_phase(dev, sling_host, seed: int) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.core.single_source import release_workspaces
     from repro_torch.kernels import cin as kcin
     from repro_torch.kernels.horner_push import (horner_push_rows,
                                                  horner_push_rows_plain,
@@ -2792,6 +3117,10 @@ def cells_phase(dev, sling_host, seed: int) -> dict:
                 "cin_grad_w": kcin.cin_grad_w, "hp_join": hp_join,
                 "spmm": spmm}
     t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[cells] {torch.cuda.memory_allocated() / 2**30:.3f} GiB held "
+          f"on the card by earlier phases")
     mesh = card_mesh((1, 1), ("data", "model"), dev)
     bad = []
     first = {}
@@ -2830,7 +3159,7 @@ def cells_phase(dev, sling_host, seed: int) -> dict:
             err = float((out[:8] - plain).abs().max())
             if not err <= TOL_KERNEL:
                 bad.append(f"{arch} first 8 rows vs the plain push {err}")
-            del plain
+            del plain, index, batch
         del out
         ms = []
         for k in range(sum(steps)):
@@ -2869,7 +3198,12 @@ def cells_phase(dev, sling_host, seed: int) -> dict:
             bad.append(f"{arch} x {shape}: launches predicted "
                        f"{rec['kernels']} counted {launches}")
         del placed, args, step, lay
+    # the sling cell's push scratch (B = 1,024 at n = 10^6, 16 GB) is
+    # cached for the next push; the LM cells need the memory
+    release_workspaces()
     lm_cell_3n(dev, counters, bad, seed)
+    torch.cuda.empty_cache()
+    lm_cell_3n(dev, counters, bad, seed, CELL_3N_MOE)
     print(f"[cells] phase {time.perf_counter() - t_phase:.1f}s; card "
           f"{card_line()}")
     if bad:
@@ -2877,32 +3211,45 @@ def cells_phase(dev, sling_host, seed: int) -> dict:
     return first
 
 
-def lm_cell_3n(dev, counters: dict, bad: list, seed: int) -> None:
-    """Phase 3n's dense-LM cell (CELL_3N_LM) on a (2, 2) mesh of the card:
-    the dry run's record on the same mesh, then ``cell.jitted()`` (the
-    partitioned train step, every argument read as its placed pieces)
-    on real arguments made on the host from ``seed`` and placed on the
-    card, a copy a position."""
+def lm_cell_3n(dev, counters: dict, bad: list, seed: int,
+               which: tuple = CELL_3N_LM) -> None:
+    """Phase 3n's LM cell ``which`` (CELL_3N_LM, CELL_3N_MOE: arch, shape,
+    steps, the batch and the layers cut to (None: all)) on a (2, 2) mesh
+    of the card: the dry run's record on the same mesh, then
+    ``cell.jitted()`` (the partitioned train step, every argument read
+    as its placed pieces) on real arguments made on the host from
+    ``seed`` and placed on the card, a copy a position. A cut cell's
+    measured peak must be within CELL_3N_PEAK of the prediction."""
+    import dataclasses
+
     import numpy as np
     import torch
 
+    from repro_torch.configs import base as cfg_base
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.launch import dryrun, specs
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamW
 
-    arch, shape, steps, batch = CELL_3N_LM
-    saved = specs.LM_SHAPE_DEFS
+    arch, shape, steps, batch, layers = which
+    saved, spec = specs.LM_SHAPE_DEFS, cfg_base.get(arch)
     specs.LM_SHAPE_DEFS = dict(saved, **{shape: dict(saved[shape],
                                                      batch=batch)})
+    if layers is not None:
+        cut = dataclasses.replace(spec.full(), n_layers=layers)
+        cfg_base._REGISTRY[arch] = dataclasses.replace(spec,
+                                                       full=lambda: cut)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
     try:
         mesh = card_mesh((2, 2), ("data", "model"), dev)
-        torch.cuda.empty_cache()
         rec = dryrun.run_cell(arch, shape, verbose=False, mesh=mesh)
         cell = specs.make_cell(arch, shape, mesh)
+        cfg = _cell_cfg(arch, shape)
     finally:
         specs.LM_SHAPE_DEFS = saved
-    cfg = _cell_cfg(arch, shape)
+        cfg_base._REGISTRY[arch] = spec
     params = T.init_params(cfg, torch.Generator().manual_seed(seed))
     b = TokenStream(cfg.vocab, batch, cell.args[2]["tokens"].shape[1],
                     seed=seed).batch_at(0)
@@ -2933,8 +3280,11 @@ def lm_cell_3n(dev, counters: dict, bad: list, seed: int) -> None:
     t_roof = max(r["t_compute_s"], r["t_memory_s"],
                  r["t_collective_s"]) * 1e3
     p50 = float(np.percentile(ms, 50))
+    cut = "" if layers is None else \
+        f", {layers} of {spec.full().n_layers} layers"
     print(f"[cells] {arch} x {shape} B = {batch} of the cell's "
-          f"{saved[shape]['batch']} on (2, 2) of the card: dry run "
+          f"{saved[shape]['batch']}{cut} on (2, 2) of the card ({held:.3f} "
+          f"GiB held on the card before it): dry run "
           f"{rec['t_lower_s']} s, {rec['n_ops']} ops, collectives "
           f"{rec['collectives']}; argument bytes predicted "
           f"{bpd['argument']:,} measured {arg_bytes:,}; device peak "
@@ -2952,6 +3302,10 @@ def lm_cell_3n(dev, counters: dict, bad: list, seed: int) -> None:
                    f"{rec['kernels']} counted {launches}")
     if not all(math.isfinite(l) for l in losses):
         bad.append(f"{arch} x {shape} on (2, 2): losses {losses}")
+    if layers is not None and \
+            abs(peak / bpd["peak_est"] - 1) > CELL_3N_PEAK:
+        bad.append(f"{arch} x {shape} on (2, 2): device peak predicted "
+                   f"{bpd['peak_est']} measured {peak}")
     del placed, step
 
 

@@ -1,4 +1,4 @@
-"""The dense LMs' dry run on the production meshes, three ways: the
+"""The LMs' dry run on the production meshes, three ways: the
 reference's compiled cell, the port's partitioned step, and the port's
 gathered step (the unpartitioned step on every argument gathered to the
 mesh's first device, the path before the partitioned one).
@@ -6,17 +6,19 @@ mesh's first device, the path before the partitioned one).
     PYTHONPATH=src python scripts/lm_mesh_dryrun.py [--arch A ...]
         [--shape S ...] [--out build/lm_mesh_dryrun.json]
 
-For each (arch, shape) of smollm-135m, gemma3-1b and qwen3-14b at the
-four LM shapes, and each mesh (16 x 16, 2 x 16 x 16): the reference's
+For each (arch, shape) of smollm-135m, gemma3-1b, qwen3-14b,
+mixtral-8x22b and llama4-scout-17b-a16e at the four LM shapes, and each
+mesh (16 x 16, 2 x 16 x 16): the reference's
 record comes from its own CLI in a subprocess (``python -m
 repro.launch.dryrun --both-meshes --out ...``, 512 forced host devices;
 this script imports nothing of JAX), the port's two from
 ``launch/dryrun``'s walk on fake devices. It prints one row a record:
 the busiest device's ``peak_est`` and collective bytes in each (and
 the ratios to the reference's), the port's walked FLOPs against the
-gathered step's over the device count, the collective kinds, and the
-seconds each trace took; and writes the rows as JSON to ``--out``. Runs
-on the CPU, no card; the 24 records take about half an hour.
+gathered step's (summed over its devices) over the device count, the
+collective kinds, and the seconds each trace took; and writes the rows
+as JSON to ``--out``. Runs on the CPU, no card; the 24 dense records
+take about half an hour.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("smollm-135m", "gemma3-1b", "qwen3-14b")
+ARCHS = ("smollm-135m", "gemma3-1b", "qwen3-14b", "mixtral-8x22b",
+         "llama4-scout-17b-a16e")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
@@ -70,8 +73,11 @@ def gathered(arch: str, shape: str, mesh) -> dict:
            "alias": walk.alias_bytes}
     temp = max(0.0, walk.peak_bytes - mem["argument"] - mem["output"]
                + mem["alias"])
+    # its FLOPs over every device: the MoE layer's mesh branch runs each
+    # group's experts on that group's device
     return {"peak_est": mem["argument"] + temp + mem["output"]
-            - mem["alias"], "flops": walk.flops,
+            - mem["alias"],
+            "flops": sum(c.flops for c in walk.devices.values()),
             "coll_bytes": walk.coll_bytes, "coll_by_op": walk.coll_by_op,
             "t_s": time.perf_counter() - t0}
 

@@ -136,6 +136,13 @@ def _workspace(dev, batch: int, n_rows: int, l_max: int) -> torch.Tensor:
     return buf
 
 
+def release_workspaces() -> None:
+    """Drop the calling thread's cached push scratch (``_workspace``): a
+    caller done with a large batch gives the device memory back; the
+    next push allocates anew."""
+    _workspaces.__dict__.pop("bufs", None)
+
+
 def _tiled_rows(slabs: list) -> int:
     """The rows of the node dimension that ``slabs`` tile, in order."""
     n_rows = 0

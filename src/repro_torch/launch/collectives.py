@@ -17,6 +17,10 @@ positions equal to it on every other axis, row-major (:func:`peers`).
     cast once to the part's dtype. ``readers`` widens the readers past
     the gather's own group: a weight replicated over an axis sums its
     gradient over that axis too, so every copy gets the same sum.
+  * :func:`reduce_scatter`: the all-gather's backward run forward:
+    every member gets the sum of its peers' parts at its own region, in
+    row-major order, in float32, cast once. Its backward is the
+    all-gather.
   * :func:`all_reduce`: every member gets the sum (or the maximum) of
     its peers' parts, ring-style: the parts, flattened, are cut into one
     chunk a member, member i reduces chunk i over the group in row-major
@@ -170,29 +174,38 @@ class _GatherOp:
         return outs
 
     def backward(self, grads, metas):
-        S, mesh = self.S, self.S.mesh
-        g_by = dict(zip(S.run, grads))
-        res = []
-        for q, (dt, shp, dev) in zip(S.run, metas):
-            group = peers(mesh, q, self.readers)
-            if S.fake:
-                gdt = self.dtype or dt
-                recv = sum(S.dev(p) != dev for p in group) \
-                    * _nbytes(self.region(q), gdt)
-                sent = sum(_nbytes(self.region(p), gdt)
-                           for p in group if S.dev(p) != dev)
-                res.append(torch.empty(shp, dtype=dt, device=dev))
-                _cost.record_collective("reduce-scatter", dev, sent, recv,
-                                        self.what, shp, dt)
-                continue
-            sl = _slices(self.region(q))
-            acc = None
-            with _cost.collective("reduce-scatter"):
-                for p in group:
-                    g = g_by[p][sl].to(dev, torch.float32)
-                    acc = g if acc is None else acc + g
-            res.append(acc.to(dt))
-        return res
+        return _scatter_sum(self.S, grads, self.readers, self.region,
+                            [self.dtype or dt for dt, _, _ in metas],
+                            metas, self.what)
+
+
+def _scatter_sum(S: Spmd, parts, axes, region, wire, metas, what):
+    """[q's peers' parts over ``axes`` summed at ``region(q)``] for each
+    position q of ``S.run``, in row-major order, in float32, cast once
+    to q's dtype of ``metas`` [(dtype, shape, device)]; on fakes booked
+    as a reduce-scatter of ``wire`` dtypes."""
+    mesh = S.mesh
+    by = dict(zip(S.run, parts))
+    res = []
+    for q, wdt, (dt, shp, dev) in zip(S.run, wire, metas):
+        group = peers(mesh, q, axes)
+        if S.fake:
+            recv = sum(S.dev(p) != dev for p in group) \
+                * _nbytes(region(q), wdt)
+            sent = sum(_nbytes(region(p), wdt)
+                       for p in group if S.dev(p) != dev)
+            res.append(torch.empty(shp, dtype=dt, device=dev))
+            _cost.record_collective("reduce-scatter", dev, sent, recv,
+                                    what, shp, dt)
+            continue
+        sl = _slices(region(q))
+        acc = None
+        with _cost.collective("reduce-scatter"):
+            for p in group:
+                g = by[p][sl].to(dev, torch.float32)
+                acc = g if acc is None else acc + g
+        res.append(acc.to(dt))
+    return res
 
 
 class _Gather(torch.autograd.Function):
@@ -219,6 +232,43 @@ def all_gather(S: Spmd, parts: dict, axes, region: Callable,
                                          else readers),
                    region, shape, dtype, what)
     outs = _Gather.apply(op, *[parts[p] for p in S.run])
+    return dict(zip(S.run, outs))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, *parts):
+        ctx.op = op
+        ctx.metas = [(t.dtype, tuple(t.shape), t.device) for t in parts]
+        S, out = op.S, []
+        for p in S.run:
+            dev = S.dev(p)
+            shp = tuple(hi - lo for lo, hi in op.region(p))
+            out.append((op.dtype, shp, dev))
+        return tuple(_scatter_sum(S, parts, op.axes, op.region,
+                                  [t.dtype for t in parts], out, op.what))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        op = ctx.op
+        shapes = {p: shp for p, (_, shp, _) in zip(op.S.run, ctx.metas)}
+        back = _GatherOp(op.S, op.axes, op.axes, op.region, shapes.get,
+                         None, op.what)
+        parts = back.forward([g.to(dt) for g, (dt, _, _)
+                              in zip(grads, ctx.metas)])
+        return (None,) + tuple(parts)
+
+
+def reduce_scatter(S: Spmd, parts: dict, axes, region: Callable, *,
+                   dtype, what: str = "") -> dict:
+    """{p: the sum of p's peers' parts over ``axes`` at p's own region
+    ``region(p)``} for each position of ``S.run``: in row-major order,
+    in float32, cast once to ``dtype``. The parts share one shape; the
+    backward is the all-gather, each part's gradient its peers' output
+    gradients each at its region."""
+    # the all-gather whose backward this forward is (its shape unused)
+    op = _GatherOp(S, tuple(axes), tuple(axes), region, None, dtype, what)
+    outs = _ReduceScatter.apply(op, *[parts[p] for p in S.run])
     return dict(zip(S.run, outs))
 
 

@@ -11,14 +11,14 @@ analytic MODEL_FLOPS for the roofline's "useful compute" ratio.
 The reference's ``Cell.jitted()`` hands the step to GSPMD, which
 partitions it. The port partitions by hand, step by step: a step that
 reads its placed pieces names its arguments in ``piecewise``, and
-:meth:`Cell.jitted` hands it those pieces. The dense LMs' train,
-prefill and decode steps read every argument so
+:meth:`Cell.jitted` hands it those pieces. The LMs' train, prefill
+and decode steps, dense and MoE, read every argument so
 (``models/transformer_sharded.py``: each position computes its batch
 rows and sequence slice, or its cache slots, and the positions exchange
 data through ``launch/collectives.py``); the shardmap GCN
 (``gcn_loss_sharded``) reads its batch, the SLING pod path
-(``sling_serve_step_sharded``) its graph blocks. The MoE LMs, the base
-GNN and the recsys steps still take whole tensors: :meth:`Cell.jitted`
+(``sling_serve_step_sharded``) its graph blocks. The base GNN and the
+recsys steps still take whole tensors: :meth:`Cell.jitted`
 gathers each of their arguments to the mesh's first device (a copy the
 op walk counts as collective "gather"; a replicated leaf is read from
 the first device's own copy).
@@ -342,16 +342,14 @@ def lm_rules(kind: str, batch: int, rules: Optional[dict] = None) -> dict:
 
 
 def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
-    """An LM cell. A dense config's steps read their placed pieces
-    (``models/transformer_sharded.py``); an MoE config's are gathered to
-    the mesh's first device."""
+    """An LM cell: its steps read their placed pieces
+    (``models/transformer_sharded.py``), dense and MoE configs alike."""
     from repro_torch.models import transformer as T
     from repro_torch.train import steps
     d = LM_SHAPE_DEFS[shape_name]
     cfg = spec.full()
     opt = AdamW(lr=1e-4)
     rules = lm_rules(d["kind"], d["batch"], rules)
-    dense = not cfg.is_moe
     with sh.use_mesh_rules(mesh, rules):
         params = T.init_params(cfg, torch.Generator().manual_seed(0))
         pshard = sh.tree_shardings(params, mesh)
@@ -362,8 +360,7 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
                      "tokens": _empty((d["batch"], d["seq"]), torch.int32)}
             bshard = _batch_shardings(mesh, {k: ("batch", "seq")
                                              for k in batch}, batch)
-            fn = steps.lm_train_step_sharded(cfg, opt) if dense \
-                else steps.lm_train_step(cfg, opt)
+            fn = steps.lm_train_step_sharded(cfg, opt)
             return Cell(spec.arch_id, shape_name, fn,
                         (params, opt_state, batch),
                         (pshard, oshard, bshard),
@@ -372,17 +369,16 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
                         model_flops=lm_model_flops(cfg, "train", d["batch"],
                                                    d["seq"]),
                         rules=rules, mesh=mesh,
-                        piecewise=(0, 1, 2) if dense else ())
+                        piecewise=(0, 1, 2))
         if d["kind"] == "prefill":
             batch = {"tokens": _empty((d["batch"], d["seq"]), torch.int32)}
             bshard = _batch_shardings(mesh, {"tokens": ("batch", "seq")},
                                       batch)
-            fn = steps.lm_prefill_step_sharded(cfg) if dense \
-                else steps.lm_prefill_step(cfg)
+            fn = steps.lm_prefill_step_sharded(cfg)
             return Cell(spec.arch_id, shape_name, fn, (params, batch),
                         (pshard, bshard), None, (),
                         lm_model_flops(cfg, "prefill", d["batch"], d["seq"]),
-                        rules, mesh, piecewise=(0, 1) if dense else ())
+                        rules, mesh, piecewise=(0, 1))
         # decode
         B, Sq = d["batch"], d["seq"]
         cshape = (cfg.n_layers, B, Sq, cfg.n_kv_heads, cfg.d_head)
@@ -395,8 +391,7 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
                   "v": sh.NamedSharding(mesh, cspec)}
         batch = {"token": _empty((B,), torch.int32)}
         bshard = _batch_shardings(mesh, {"token": ("batch",)}, batch)
-        fn = steps.lm_decode_step_sharded(cfg) if dense \
-            else steps.lm_decode_step(cfg)
+        fn = steps.lm_decode_step_sharded(cfg)
         logits_shard = sh.NamedSharding(
             mesh, sh.spec_for((B, cfg.vocab), ("batch", "vocab"), mesh))
         out = {"cache/k": cshard["k"], "cache/len": cshard["len"],
@@ -404,7 +399,7 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
         return Cell(spec.arch_id, shape_name, fn, (params, cache, batch),
                     (pshard, cshard, bshard), out, (1,),
                     lm_model_flops(cfg, "decode", B, Sq), rules, mesh,
-                    piecewise=(0, 1, 2) if dense else ())
+                    piecewise=(0, 1, 2))
 
 
 def _gnn_cell(spec, shape_name, mesh, rules) -> Cell:

@@ -14,6 +14,13 @@ is the mean of the G groups'. Without a mesh, without such an axis, or
 where G does not divide T, ``_moe_local`` runs on all the tokens at
 once: the reference's semantics for one group.
 
+``_moe_local`` is three steps that the partitioned LM step
+(``models/transformer_sharded.py``) also runs, on a group's tokens and
+a position's experts: ``dispatch`` (router, top-k, ranks, capacity,
+slots: a :class:`Route`), ``scatter`` into the buffer and
+``expert_ffn``, and ``combine``; ``scatter`` and ``combine`` take an
+expert range [lo, hi), every expert by default.
+
 Dispatch is bit-compatible with the reference on the same router
 output: the top k by a stable descending sort (``jax.lax.top_k`` gives
 a tie to the lower expert), a stable argsort by expert, ranks within an
@@ -27,6 +34,7 @@ load-balance loss takes its gradient through ``probs`` only.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,11 +50,37 @@ def _top_k(probs: torch.Tensor, k: int):
     return probs.gather(-1, ids), ids
 
 
-def _moe_local(x, router_w, w_gate, w_up, w_down, top_k: int,
-               capacity_factor: float):
-    """Dispatch, expert FFN and combine on a block of tokens x (T, d);
-    returns (y (T, d), aux)."""
-    T, d = x.shape
+class Route(NamedTuple):
+    """The dispatch of a block of T tokens: the router's ``probs`` (T, E)
+    and top-k ``expert_idx`` (T, k), and the T * k assignments sorted by
+    expert (stably): expert ``se``, gate weight ``sw``, token ``st``,
+    whether it is within the capacity ``ok`` and its row ``slot`` of the
+    (E * C, d) buffer (an assignment past C at rank C - 1)."""
+    probs: torch.Tensor
+    expert_idx: torch.Tensor
+    se: torch.Tensor
+    sw: torch.Tensor
+    st: torch.Tensor
+    ok: torch.Tensor
+    slot: torch.Tensor
+    C: int
+
+    @property
+    def E(self) -> int:
+        return self.probs.shape[-1]
+
+    def aux(self):
+        """The load-balance loss, its gradient through ``probs`` only."""
+        one_hot = torch.nn.functional.one_hot(self.expert_idx, self.E).to(
+            torch.float32)
+        frac_tokens = one_hot.sum(1).mean(0)
+        return self.E * torch.sum(frac_tokens * self.probs.mean(0))
+
+
+def dispatch(x, router_w, top_k: int, capacity_factor: float) -> Route:
+    """The router (float32), top-k, ranks within an expert, capacity
+    ``C = ceil(T * k / E * cf)`` and buffer slots of tokens x (T, d)."""
+    T = x.shape[0]
     E = router_w.shape[-1]
     C = max(1, int(math.ceil(T * top_k / E * capacity_factor)))
 
@@ -67,26 +101,65 @@ def _moe_local(x, router_w, w_gate, w_up, w_down, top_k: int,
     rank = torch.arange(T * top_k, device=x.device) - first
     ok = rank < C
     slot = se * C + torch.clamp(rank, 0, C - 1)            # row of (E*C, d)
+    return Route(probs, expert_idx, se, sw, st, ok, slot, C)
 
-    gathered = torch.where(ok[:, None], x.index_select(0, st),
+
+def _mine(route: Route, lo: int, hi: int):
+    """(the assignments kept and within experts [lo, hi), their rows of
+    that range's (hi - lo) * C buffer)."""
+    if (lo, hi) == (0, route.E):
+        return route.ok, route.slot
+    mine = route.ok & (route.se >= lo) & (route.se < hi)
+    return mine, torch.clamp(route.slot - lo * route.C, 0,
+                             (hi - lo) * route.C - 1)
+
+
+def scatter(x, route: Route, lo: int = 0, hi: int | None = None):
+    """The (hi - lo, C, d) buffer of experts [lo, hi) (every expert by
+    default): each kept assignment's token at its slot, zero elsewhere."""
+    hi = route.E if hi is None else hi
+    mine, slot = _mine(route, lo, hi)
+    d = x.shape[1]
+    gathered = torch.where(mine[:, None], x.index_select(0, route.st),
                            torch.zeros((), dtype=x.dtype, device=x.device))
-    buf = torch.zeros((E * C, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_add(0, slot, gathered).view(E, C, d)
+    buf = torch.zeros(((hi - lo) * route.C, d), dtype=x.dtype,
+                      device=x.device)
+    return buf.index_add(0, slot, gathered).view(hi - lo, route.C, d)
 
+
+def expert_ffn(buf, w_gate, w_up, w_down):
+    """The experts' SwiGLU over their buffer rows (E, C, d), in the
+    buffer's dtype."""
     h = torch.bmm(buf, w_gate.to(buf.dtype))
     u = torch.bmm(buf, w_up.to(buf.dtype))
-    out_buf = torch.bmm(silu(h) * u, w_down.to(h.dtype)).view(E * C, d)
+    return torch.bmm(silu(h) * u, w_down.to(h.dtype))
 
-    weight = torch.where(ok, sw, torch.zeros((), dtype=sw.dtype,
-                                             device=sw.device))
-    back = out_buf.index_select(0, slot) * weight[:, None].to(x.dtype)
-    y = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add(
-        0, st, back)
 
-    one_hot = torch.nn.functional.one_hot(expert_idx, E).to(torch.float32)
-    frac_tokens = one_hot.sum(1).mean(0)
-    aux = E * torch.sum(frac_tokens * probs.mean(0))
-    return y, aux
+def combine(out_buf, route: Route, T: int, dtype, lo: int = 0,
+            hi: int | None = None):
+    """y (T, d) in ``dtype``: each token's kept assignments to experts
+    [lo, hi) (every expert by default), ``out_buf`` (hi - lo, C, d) at
+    the assignment's slot times its gate weight (in ``out_buf``'s
+    dtype), added in the sorted order."""
+    hi = route.E if hi is None else hi
+    mine, slot = _mine(route, lo, hi)
+    d = out_buf.shape[-1]
+    sw = route.sw
+    weight = torch.where(mine, sw, torch.zeros((), dtype=sw.dtype,
+                                               device=sw.device))
+    back = out_buf.reshape(-1, d).index_select(0, slot) \
+        * weight[:, None].to(out_buf.dtype)
+    return torch.zeros((T, d), dtype=dtype, device=out_buf.device).index_add(
+        0, route.st, back.to(dtype))
+
+
+def _moe_local(x, router_w, w_gate, w_up, w_down, top_k: int,
+               capacity_factor: float):
+    """Dispatch, expert FFN and combine on a block of tokens x (T, d);
+    returns (y (T, d), aux)."""
+    route = dispatch(x, router_w, top_k, capacity_factor)
+    out_buf = expert_ffn(scatter(x, route), w_gate, w_up, w_down)
+    return combine(out_buf, route, x.shape[0], x.dtype), route.aux()
 
 
 class _Shared(torch.autograd.Function):

@@ -309,8 +309,10 @@ def forward(cfg: LMConfig, params: LMParams, tokens):
     dev = params.embed.device
     tokens = torch.as_tensor(tokens, device=dev)
     B, S = tokens.shape
-    x = params.embed.to(cfg.dtype).index_select(
-        0, tokens.reshape(-1)).view(B, S, cfg.d_model)
+    # the rows gathered before the cast: equal values, and their gradient
+    # is added up in the float32 table (a frequent token's thousands of
+    # rows added in bf16 swamp)
+    x = _embed_rows(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
     is_global = cfg.layer_is_global()
@@ -402,7 +404,8 @@ def pad_cache(cache: dict, max_seq: int) -> dict:
 
 def _embed_rows(cfg: LMConfig, params: LMParams, ids):
     """``embed.to(dtype)[ids]``, gathered before the cast (equal values,
-    without casting the whole table)."""
+    without casting the whole table; the gradient of repeated ids adds
+    up in float32)."""
     return params.embed.index_select(0, ids.reshape(-1)).to(
         cfg.dtype).view(*ids.shape, cfg.d_model)
 

@@ -1,8 +1,8 @@
-"""The dense LM's train, prefill and decode steps on the placed pieces of
-their arguments: by hand, what GSPMD derives for the reference from its
+"""The LM's train, prefill and decode steps on the placed pieces of their
+arguments: by hand, what GSPMD derives for the reference from its
 ``logical(...)`` hints (``repro/models/transformer.py``,
-``repro/models/flash_attention.py``) on the same placements
-(``launch/sharding.py``'s ``PARAM_RULES``, the cell's rules).
+``repro/models/flash_attention.py``, ``repro/models/moe.py``) on the same
+placements (``launch/sharding.py``'s ``PARAM_RULES``, the cell's rules).
 
 Each mesh position runs one program, position by position in row-major
 order from the calling thread, and the positions exchange data through
@@ -16,10 +16,10 @@ position (g, j) is data group g, model index j.
   group g (its piece of the tokens) and the sequence slice j of S (cut by
   ``launch.sharding._bounds``, unevenly where M does not divide S). Every
   token-local op runs on that slice: the embedding, the norms, the
-  projections, the FFN and the loss chunks (its slice cut at the global
-  ``loss_chunk`` boundaries). Attention reads the group's whole K and V,
-  all-gathered over M (the reference's ``kv_time: [None]``), against
-  its own queries at their offset (``q_seq: [("model",)]``;
+  projections, the dense FFN and the loss chunks (its slice cut at the
+  global ``loss_chunk`` boundaries). Attention reads the group's whole K
+  and V, all-gathered over M (the reference's ``kv_time: [None]``),
+  against its own queries at their offset (``q_seq: [("model",)]``;
   ``flash_attention``'s ``q_offset``). A layer's weights are gathered
   whole in ``cfg.dtype`` inside that layer's checkpointed function, so
   the remat gathers them again in the backward and only one layer is
@@ -27,8 +27,24 @@ position (g, j) is data group g, model index j.
   gather's backward is the reduce-scatter: each piece's gradient is the
   sum of every position's gradient at its region, in row-major position
   order, in float32 (a replicated leaf, the norms, gets the sum on every
-  copy). The loss is the positions' NLL sums, all-reduced in position
-  order, over B * S.
+  copy). The embedding lookup's gradient adds each id's rows up in
+  float32 (``_Lookup``). A loss chunk's logits are formed
+  ``VOCAB_SLICE`` rows of the vocabulary at a time
+  (:func:`_chunk_nll_sliced`), never whole. The
+  loss is the positions' NLL sums, all-reduced in position order, over
+  B * S.
+* The MoE FFN (train and prefill) is a group-level step, the reference's
+  ``shard_map`` branch with GSPMD's "model" split written out: the
+  group's tokens (its rows, the whole sequence: the block one data shard
+  dispatches) are all-gathered over M; every position routes them alike
+  (``models/moe.dispatch``, capacity ``ceil(T_l * k / E * cf)``). The
+  expert weights are gathered over the axes but M only, so a position
+  holds its experts (EP: M splits the experts) or every expert's slice of
+  d_ff (TP: M splits d_ff). It forms its partial y (T_l, d) in float32
+  from its pieces; a reduce-scatter over M sums the partials and gives
+  each position its sequence slice in ``cfg.dtype``. Each position adds
+  aux / M to the loss's all-reduce; the loss takes 0.01 x the layers'
+  sum over the G groups' mean, as the reference's ``lm_loss``.
 * Prefill (:func:`prefill`). The same split, without gradients. The
   position's own K and V slice is its piece of the output cache
   (``kv_seq: [("model",)]``): the cache is never whole. The last-token
@@ -50,10 +66,11 @@ position (g, j) is data group g, model index j.
   partial softmax (max, sum, weighted V, in float32) over its slots; the
   partials merge across the slot axes by log-sum-exp in position order.
   The logits come out placed (batch, vocab): a position computes only
-  its vocab slice.
-
-MoE configs raise ``ValueError``: their partitioned step is not written
-yet, and ``launch/specs.py`` keeps them on the gathered path.
+  its vocab slice. An MoE layer routes each position's rows on their own
+  (its rows are its data group's; at batch 1, or where the groups do not
+  divide the batch, the whole batch is one group, as in the reference);
+  the experts run on their pieces in the same patterns, the EP or TP
+  partial y all-reduced over M.
 
 A dry run (fake tensors on distinct devices) runs one program for each
 class of positions whose programs have equal shapes
@@ -71,17 +88,16 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from repro_torch.kernels.cost import host_read, is_fake, worst_case
 from repro_torch.launch import collectives as C
 from repro_torch.launch import sharding as sh
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.flash_attention import flash_attention
 from repro_torch.models.layers import rms_norm, rope, silu
 
 NORMS = ("ln1", "ln2", "qnorm", "knorm")
-
-
-def _dense(cfg) -> None:
-    if cfg.is_moe:
-        raise ValueError(f"{cfg.name}: the partitioned LM step takes dense "
-                         "configs; an MoE config runs on the gathered path")
+EXPERTS = ("moe_w_gate", "moe_w_up", "moe_w_down")
+# rows of ``embed`` a loss slice: its float32 logits take 256 MiB at a
+# position of the gemma3-1b train_4k cell at 16 x 16 (16 rows x 256 tokens)
+VOCAB_SLICE = 4_096
 
 
 def _mesh():
@@ -153,6 +169,200 @@ def _whole(S, st, parts, l, dtype, what):
                         readers=S.mesh.axis_names, what=what)
 
 
+def _gather_over(S, st, parts, l, axes, dtype, name):
+    """({p: leaf ``st``'s layer ``l`` piece (the leaf itself when None)
+    gathered whole along the dimensions split over ``axes``, in
+    ``dtype``}, q -> the region of q's gathered piece in the layer, [the
+    axes still splitting each dimension]). Under autograd a piece's gradient sums the
+    gradients at its region of every position that reads it (each other
+    axis but those still splitting it)."""
+    drop = 0 if l is None else 1
+    spec = (tuple(st.sharding.spec) + (None,) * len(st.shape))[
+        drop:len(st.shape)]
+    shape = tuple(st.shape[drop:])
+    regs = _regions(st.sharding, st.shape)
+    axes = set(axes)
+    for e in spec:
+        if set(_axes(e)) & axes and not set(_axes(e)) <= axes:
+            raise ValueError(f"{name} is placed {st.sharding.spec}: a "
+                             "dimension split partly over the axes "
+                             f"{sorted(axes)}")
+    gdims = [i for i, e in enumerate(spec) if e and set(e) <= axes]
+    gaxes = tuple(a for i in gdims for a in spec[i])
+    left = [() if i in gdims else _axes(e) for i, e in enumerate(spec)]
+
+    def eff(q):
+        r = regs[q][drop:]
+        return tuple((0, n) if i in gdims else r[i]
+                     for i, n in enumerate(shape))
+    src = {p: parts[p] if l is None else parts[p][l] for p in S.run}
+    if gaxes or torch.is_grad_enabled():
+        def gregion(q):
+            r = regs[q][drop:]
+            return tuple(r[i] if i in gdims else (0, r[i][1] - r[i][0])
+                         for i in range(len(shape)))
+        split = {a for e in left for a in e}
+        W = C.all_gather(S, src, gaxes, gregion,
+                         lambda p: tuple(b - a for a, b in eff(p)),
+                         dtype=dtype, what=f"{name}@{','.join(gaxes)}",
+                         readers=tuple(a for a in S.mesh.axis_names
+                                       if a not in split))
+    else:
+        W = {p: src[p].to(dtype) for p in S.run}
+    return W, eff, left
+
+
+class _SlicedNLL(torch.autograd.Function):
+    """The summed NLL of a chunk, its logits formed ``width`` vocabulary
+    rows at a time: an online log-sum-exp over the slices, the gold logit
+    from the slice that holds each target; the backward recomputes each
+    slice's logits and adds (softmax - onehot) g into dx and that slice
+    of d emb."""
+
+    @staticmethod
+    def forward(ctx, xi, ti, emb, width):
+        V = emb.shape[0]
+        tl = ti.long()
+        m = s = gold = None
+        for v0 in range(0, V, width):
+            v1 = min(V, v0 + width)
+            lg = (xi @ emb[v0:v1].T).to(torch.float32)
+            top = lg.amax(-1)
+            if m is None:
+                m, s = top, torch.exp(lg - top[..., None]).sum(-1)
+            else:
+                new = torch.maximum(m, top)
+                s = s * torch.exp(m - new) \
+                    + torch.exp(lg - new[..., None]).sum(-1)
+                m = new
+            hit = (tl >= v0) & (tl < v1)
+            at = torch.clamp(tl - v0, 0, v1 - v0 - 1)
+            g = lg.gather(-1, at[..., None])[..., 0]
+            gold = torch.where(hit, g, 0.0 if gold is None else gold)
+            del lg
+        logz = m + torch.log(s)
+        ctx.width = width
+        ctx.save_for_backward(xi, ti, emb, logz)
+        return (logz - gold).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        xi, ti, emb, logz = ctx.saved_tensors
+        V, d = emb.shape
+        tl = ti.long()
+        dx = torch.zeros(xi.shape, dtype=torch.float32, device=xi.device)
+        demb = torch.empty_like(emb)
+        rows = xi.reshape(-1, d)
+        for v0 in range(0, V, ctx.width):
+            v1 = min(V, v0 + ctx.width)
+            lg = (xi @ emb[v0:v1].T).to(torch.float32)
+            ids = torch.arange(v0, v1, device=tl.device)
+            p = torch.exp(lg - logz[..., None]) \
+                - (ids == tl[..., None]).to(torch.float32)
+            dl = (p * g).to(xi.dtype)
+            del lg, p
+            dx += (dl @ emb[v0:v1]).to(torch.float32)
+            demb[v0:v1] = dl.reshape(-1, v1 - v0).T @ rows
+        return dx.to(xi.dtype), None, demb, None
+
+
+class _Lookup(torch.autograd.Function):
+    """``table.index_select(0, ids)``; the backward adds each id's rows up
+    in float32 (in a (n, d) buffer, a row a run of equal ids after a
+    sort) and casts each sum once into the table's gradient, as the
+    unpartitioned step's lookup from the float32 table adds them (a
+    frequent token's thousands of rows added in bf16 swamp)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.meta = (tuple(table.shape), table.dtype)
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        shape, dtype = ctx.meta
+        srt, order = torch.sort(ids)
+        new = torch.ones_like(srt, dtype=torch.bool)
+        new[1:] = srt[1:] != srt[:-1]
+        run = torch.cumsum(new, 0) - 1
+        acc = torch.zeros((ids.numel(), g.shape[-1]), dtype=torch.float32,
+                          device=g.device).index_add_(
+            0, run, g.index_select(0, order).to(torch.float32))
+        # a run past the last holds zeros and adds them to row 0
+        rep = torch.zeros_like(srt).scatter_(0, run, srt)
+        return torch.zeros(shape, dtype=dtype, device=g.device).index_add_(
+            0, rep, acc.to(dtype)), None
+
+
+def _chunk_nll_sliced(xi, ti, emb, width: int):
+    """``transformer._chunk_nll`` (the summed NLL of a (rows, c) chunk
+    over the tied embeddings) with no (rows, c, V) logits in either
+    direction: ``width`` rows of ``emb`` at a time (the last slice may
+    be short). Only the order of the log-sum-exp's sum differs."""
+    return _SlicedNLL.apply(xi, ti, emb, width)
+
+
+# ----------------------------------------------------------------------
+# the MoE FFN over a position's pieces
+# ----------------------------------------------------------------------
+def _expert_weights(cfg, S, leaves, parts, l, axes):
+    """{name: {p: expert weight ``name``'s layer l piece gathered over
+    ``axes``, in cfg.dtype}}, p -> the gate's region ((e0, e1), (d0, d1),
+    (f0, f1)), and the axes still splitting the experts, d and d_ff,
+    which must agree across the three weights."""
+    W, split = {}, None
+    for n in EXPERTS:
+        W[n], reg, left = _gather_over(S, leaves["blocks/" + n],
+                                       parts["blocks/" + n], l, axes,
+                                       cfg.dtype, "blocks/" + n)
+        e, a, b = left
+        by_dim = (e, a, b) if n != "moe_w_down" else (e, b, a)
+        if split is None:
+            split, regs = by_dim, reg
+        elif by_dim != split:
+            raise ValueError(f"the expert weights are placed apart: "
+                             f"{n} splits (experts, d, d_ff) over {by_dim}, "
+                             f"the gate over {split}")
+    return W, regs, split
+
+
+def _moe_partial(S, cfg, xs, routes, W, regs, split):
+    """{p: the position's part of the MoE FFN's y (T, its d slice)} from
+    tokens xs {p: (T, d)} routed by ``routes``: its experts' buffer (the
+    experts of its region), the gate and up products over its d slice
+    (their partials all-reduced over the axes splitting d, in float32,
+    cast once), the down product over its d_ff slice in cfg.dtype (the
+    reference's einsum's), combined in the reference's order. The part
+    is float32 where the experts or d_ff are split (a partial for the
+    caller to sum over ``split``), else cfg.dtype."""
+    dt = cfg.dtype
+    e_ax, d_ax, f_ax = split
+    partial = bool(e_ax or f_ax)
+    hs, us = {}, {}
+    for p in S.run:
+        (e0, e1), (d0, d1), _ = regs(p)
+        buf = MOE.scatter(xs[p], routes[p], e0, e1)[..., d0:d1]
+        wg, wu = W["moe_w_gate"][p], W["moe_w_up"][p]
+        if d_ax:
+            buf = buf.to(torch.float32)
+            wg, wu = wg.to(torch.float32), wu.to(torch.float32)
+        hs[p], us[p] = torch.bmm(buf, wg), torch.bmm(buf, wu)
+        del buf
+    if d_ax:
+        tag = ",".join(d_ax)
+        hs = C.all_reduce(S, hs, d_ax, dtype=dt, what="moe-gate@" + tag)
+        us = C.all_reduce(S, us, d_ax, dtype=dt, what="moe-up@" + tag)
+    ys = {}
+    for p in S.run:
+        (e0, e1), _, _ = regs(p)
+        out = torch.bmm(silu(hs.pop(p)) * us.pop(p), W["moe_w_down"][p])
+        ys[p] = MOE.combine(out, routes[p], xs[p].shape[0],
+                            torch.float32 if partial else dt, e0, e1)
+    return ys
+
+
 # ----------------------------------------------------------------------
 # train and prefill: batch rows x sequence slices
 # ----------------------------------------------------------------------
@@ -213,10 +423,46 @@ class _Split:
         k_pos = torch.arange(self.S, dtype=torch.int32, device=dev)
         return T.dense_attention(cfg, q, k, v, q_pos, k_pos, is_global)
 
-    def block(self, S, W, xs, is_global, cache=None, l=None):
-        """One layer at every running position: {p: x} -> {p: x}; K / V
-        slices written into ``cache`` {"k", "v": {p: piece}} at layer
-        ``l`` when given."""
+    def region(self, q):
+        """Position q's (rows, sequence slice, d) of its group's whole."""
+        return ((0, self.nrows(q)), self.cols[q], (0, self.cfg.d_model))
+
+    def moe(self, S, W, experts, hs):
+        """The MoE FFN of a layer at every running position, from its
+        ``rms_norm(x, ln2)`` slice ``hs`` {p: (rows, slice, d)} (see the
+        module docstring): ({p: y (rows, slice, d) in cfg.dtype}, {p:
+        aux / M})."""
+        cfg, d = self.cfg, self.cfg.d_model
+        regs, split = experts
+        if split[1]:
+            raise ValueError(f"the expert weights split d over {split[1]}; "
+                             "the group step takes the experts or d_ff "
+                             "split over the model axis")
+        toks = C.all_gather(S, hs, self.model_axes, self.region,
+                            lambda p: (self.nrows(p), self.S, d),
+                            what="moe-tokens@model")
+        xs, routes, aux = {}, {}, {}
+        for p in S.run:
+            m = C.group_index(self.mesh, p, self.model_axes)[1]
+            xs[p] = toks.pop(p).reshape(-1, d)
+            routes[p] = MOE.dispatch(xs[p], W["router"][p], cfg.moe_top_k,
+                                     cfg.capacity_factor)
+            aux[p] = routes[p].aux() / m
+        parts = _moe_partial(S, cfg, xs, routes, W, regs, split)
+        del xs, routes
+        parts = {p: y.view(self.nrows(p), self.S, d)
+                 for p, y in parts.items()}
+        if split[0] or split[2]:
+            return C.reduce_scatter(S, parts, self.model_axes, self.region,
+                                    dtype=cfg.dtype,
+                                    what="moe-y@model"), aux
+        return {p: y[:, slice(*self.cols[p])] for p, y in parts.items()}, aux
+
+    def block(self, S, W, xs, is_global, cache=None, l=None, experts=None):
+        """One layer at every running position: {p: x} -> ({p: x}, {p:
+        the layer's aux share}, empty for a dense config); K / V slices
+        written into ``cache`` {"k", "v": {p: piece}} at layer ``l`` when
+        given. ``experts`` is :func:`_gather_layer`'s expert layout."""
         cfg = self.cfg
         lps = {p: {n: W[n][p] for n in W} for p in S.run}
         qkv = {}
@@ -225,7 +471,7 @@ class _Split:
             qkv[p] = T._project_qkv(cfg, lps[p], h, self.positions(p))
         ks = self.kv(S, {p: qkv[p][1] for p in S.run}, "k@model")
         vs = self.kv(S, {p: qkv[p][2] for p in S.run}, "v@model")
-        out = {}
+        out, hs = {}, {}
         for p in S.run:
             q, k, v = qkv.pop(p)
             if cache is not None:
@@ -234,15 +480,33 @@ class _Split:
             o = self.attend(p, q, ks.pop(p), vs.pop(p), is_global)
             x = xs[p] + T._out_proj(cfg, lps[p], o)
             del q, k, v, o
+            if cfg.is_moe:
+                out[p], hs[p] = x, rms_norm(x, lps[p]["ln2"])
+                continue
             y, _ = T._ffn(cfg, lps[p], rms_norm(x, lps[p]["ln2"]))
             out[p] = x + y
-        return out
+        if not cfg.is_moe:
+            return out, {}
+        ys, aux = self.moe(S, W, experts, hs)
+        return {p: out[p] + ys.pop(p) for p in S.run}, aux
 
 
 def _gather_layer(cfg, S, leaves, parts, names, l):
-    return {n: _whole(S, leaves["blocks/" + n], parts["blocks/" + n], l,
-                      None if n in NORMS else cfg.dtype, n)
-            for n in names}
+    """({name: {p: layer l of leaf ``blocks/name`` on p's device}}, the
+    expert layout or None): each leaf whole in cfg.dtype (the norms and
+    the router in float32); the expert weights gathered over every axis
+    but the model axis (:func:`_expert_weights`)."""
+    W = {n: _whole(S, leaves["blocks/" + n], parts["blocks/" + n], l,
+                   None if n in NORMS or n == "router" else cfg.dtype, n)
+         for n in names if n not in EXPERTS}
+    if not cfg.is_moe:
+        return W, None
+    keep = _model_axes(S.mesh)
+    ew, regs, split = _expert_weights(
+        cfg, S, leaves, parts, l,
+        tuple(a for a in S.mesh.axis_names if a not in keep))
+    W.update(ew)
+    return W, (regs, split)
 
 
 def _chunks(lo: int, hi: int, c: int) -> list:
@@ -270,7 +534,6 @@ def value_and_grad(cfg, params, tokens, targets):
     over placed parameters (:func:`place_params`) and (B, S) ids, one
     program a position (see the module docstring). The gradients are
     float32, for the positions that ran."""
-    _dense(cfg)
     mesh = _mesh()
     leaves = place_params(params, mesh)
     toks = _placed(tokens, ("batch", "seq"), mesh)
@@ -293,15 +556,17 @@ def value_and_grad(cfg, params, tokens, targets):
         for p in S.run:
             lo, hi = sp.cols[p]
             ids = toks.pieces[p][:, lo:hi]
-            xs[p] = emb[p].index_select(0, ids.reshape(-1)).view(
+            xs[p] = _Lookup.apply(emb[p], ids.reshape(-1)).view(
                 sp.nrows(p), hi - lo, cfg.d_model)
 
+        aux = {p: 0.0 for p in S.run}
         for l in range(cfg.n_layers):
             def layer(*xt, l=l):
-                W = _gather_layer(cfg, S, leaves, req, names, l)
-                out = sp.block(S, W, dict(zip(S.run, xt)),
-                               bool(is_global[l]))
-                return tuple(out[p] for p in S.run)
+                W, experts = _gather_layer(cfg, S, leaves, req, names, l)
+                out, a = sp.block(S, W, dict(zip(S.run, xt)),
+                                  bool(is_global[l]), experts=experts)
+                return tuple(out[p] for p in S.run) + \
+                    tuple(a[p] for p in a)
             xt = tuple(xs[p] for p in S.run)
             if remat:
                 # recompute every position's whole layer (early stop
@@ -313,7 +578,10 @@ def value_and_grad(cfg, params, tokens, targets):
                                     preserve_rng_state=False)
             else:
                 xt = layer(*xt)
-            xs = dict(zip(S.run, xt))
+            n = len(S.run)
+            xs = dict(zip(S.run, xt[:n]))
+            for p, a in zip(S.run, xt[n:]):
+                aux[p] = aux[p] + a
         ln_f = _whole(S, leaves["ln_f"], req["ln_f"], None, None, "ln_f")
         tots = {}
         for p in S.run:
@@ -322,17 +590,19 @@ def value_and_grad(cfg, params, tokens, targets):
             tgt = tgts.pieces[p]
             tot = torch.zeros((), dtype=torch.float32, device=S.dev(p))
             for a, b in cuts[p]:
-                # the chunk's tensors are closed over, not passed: a
-                # checkpoint looks up the device module of its arguments'
-                # device type, and a dry run's "lazy" devices have none
-                part = checkpoint(functools.partial(
-                    T._chunk_nll, x[:, a - lo:b - lo], tgt[:, a:b], emb[p]),
-                    use_reentrant=False, preserve_rng_state=False)
-                tot = tot + part
-            tots[p] = tot
+                tot = tot + _chunk_nll_sliced(x[:, a - lo:b - lo],
+                                              tgt[:, a:b], emb[p],
+                                              VOCAB_SLICE)
+            tots[p] = torch.stack([tot, aux[p]]) if cfg.is_moe else tot
         home = S.run[0]
         total = C.all_reduce(S, tots, mesh.axis_names, what="loss")[home]
-        loss = total / (B * S_len)      # a dense model's aux loss is 0
+        if cfg.is_moe:
+            # the positions' aux shares sum to the groups' aux; the loss
+            # takes 0.01 x their mean, summed over the layers
+            G = math.prod(mesh.shape[a] for a in _data_axes(mesh))
+            loss = total[0] / (B * S_len) + 0.01 * (total[1] / G)
+        else:
+            loss = total / (B * S_len)
     flat = [(path, p) for path in req for p in S.run]
     grads = torch.autograd.grad(loss, [req[path][p] for path, p in flat],
                                 allow_unused=True)
@@ -348,7 +618,6 @@ def prefill(cfg, params, tokens):
     a cache {"k", "v": (L, B, S, K, dh) placed (batch, kv_seq over
     "model"), "len": S}) of ``prefill`` over placed parameters, one
     program a position."""
-    _dense(cfg)
     mesh = _mesh()
     leaves = place_params(params, mesh)
     toks = _placed(tokens, ("batch", "seq"), mesh)
@@ -375,8 +644,8 @@ def prefill(cfg, params, tokens):
             cache[n][p] = torch.empty(shape, dtype=cfg.dtype,
                                       device=S.dev(p))
     for l in range(L):
-        W = _gather_layer(cfg, S, leaves, pieces, names, l)
-        xs = sp.block(S, W, xs, bool(is_global[l]), cache, l)
+        W, experts = _gather_layer(cfg, S, leaves, pieces, names, l)
+        xs, _ = sp.block(S, W, xs, bool(is_global[l]), cache, l, experts)
         del W
     ln_f = _whole(S, leaves["ln_f"], pieces["ln_f"], None, None, "ln_f")
     parts = {}
@@ -437,41 +706,13 @@ class _Decode:
         other axes is all-gathered, unless ``keep``: then ({p: the
         output's piece}, {p: its region over the output dims}).
         ``local(h, W, region)`` replaces the product."""
-        S, mesh, dt = self.S, self.mesh, self.cfg.dtype
+        S, dt = self.S, self.cfg.dtype
         st = self.leaves[name]
-        drop = 0 if l is None else 1
-        spec = (tuple(st.sharding.spec) + (None,) * len(st.shape))[
-            drop:len(st.shape)]
-        shape = tuple(st.shape[drop:])
-        regs = _regions(st.sharding, st.shape)
-        rows = set(self.rows_axes)
-        for e in spec:
-            if set(_axes(e)) & rows and not set(_axes(e)) <= rows:
-                raise ValueError(f"{name} is placed {st.sharding.spec}: a "
-                                 "dimension split partly over the rows' "
-                                 f"axes {self.rows_axes}")
-        gdims = [i for i, e in enumerate(spec) if e and set(e) <= rows]
-        gaxes = tuple(a for i in gdims for a in spec[i])
-
-        def eff(q):
-            r = regs[q][drop:]
-            return tuple((0, n) if i in gdims else r[i]
-                         for i, n in enumerate(shape))
-        parts = {p: st.pieces[p] if l is None else st.pieces[p][l]
-                 for p in S.run}
-        if gaxes:
-            def gregion(q):
-                r = regs[q][drop:]
-                return tuple(r[i] if i in gdims else (0, r[i][1] - r[i][0])
-                             for i in range(len(shape)))
-            W = C.all_gather(S, parts, gaxes, gregion,
-                             lambda p: tuple(b - a for a, b in eff(p)),
-                             dtype=dt, what=f"{name}@{','.join(gaxes)}")
-        else:
-            W = {p: parts[p].to(dt) for p in S.run}
+        shape = tuple(st.shape[0 if l is None else 1:])
+        W, eff, left = _gather_over(S, st, st.pieces, l, self.rows_axes,
+                                    dt, name)
         odims = [i for i in range(len(shape)) if i not in cdims]
-        red = tuple(a for i in cdims for a in _axes(spec[i])
-                    if a not in rows)
+        red = tuple(a for i in cdims for a in left[i])
         outs, oreg = {}, {}
         for p in S.run:
             e, w = eff(p), W.pop(p)
@@ -496,8 +737,7 @@ class _Decode:
                                 what=f"{name}@{','.join(red)}")
         if keep:
             return outs, oreg
-        gat = tuple(a for i in odims for a in _axes(spec[i])
-                    if a not in rows)
+        gat = tuple(a for i in odims for a in left[i])
         if not gat:
             return outs
         oshape = tuple(shape[i] for i in odims)
@@ -508,6 +748,37 @@ class _Decode:
         return C.all_gather(S, outs, gat, oregion,
                             lambda p: (self.nrows(p),) + oshape,
                             what=f"{name}.out@{','.join(gat)}")
+
+    def moe(self, l, hs):
+        """{p: the MoE FFN's y (rows, d) in cfg.dtype} of layer ``l`` from
+        ``hs`` {p: (rows, d)}: each position routes its own rows (the
+        router gathered whole, float32); the expert weights gathered over
+        the rows' axes only; the partial y all-reduced over the axes that
+        split the experts or d_ff, then all-gathered over those that
+        split d."""
+        S, cfg = self.S, self.cfg
+        rt = self.leaves["blocks/router"]
+        router, _, _ = _gather_over(
+            S, rt, rt.pieces, l, {a for e in rt.sharding.spec
+                                  for a in _axes(e)}, None, "blocks/router")
+        routes = {p: MOE.dispatch(hs[p], router.pop(p), cfg.moe_top_k,
+                                  cfg.capacity_factor) for p in S.run}
+        W, regs, split = _expert_weights(
+            cfg, S, self.leaves, {"blocks/" + n: self.leaves[
+                "blocks/" + n].pieces for n in EXPERTS}, l, self.rows_axes)
+        ys = _moe_partial(S, cfg, hs, routes, W, regs, split)
+        del W, routes
+        red = split[0] + split[2]
+        if red:
+            ys = C.all_reduce(S, ys, red, dtype=cfg.dtype,
+                              what=f"moe-y@{','.join(red)}")
+        if not split[1]:
+            return ys
+        d = cfg.d_model
+        return C.all_gather(S, ys, split[1],
+                            lambda q: ((0, self.nrows(q)), regs(q)[1]),
+                            lambda p: (self.nrows(p), d),
+                            what=f"moe-y.out@{','.join(split[1])}")
 
 
 def _lookup_local(w, e, ids):
@@ -527,7 +798,6 @@ def decode_step(cfg, params, cache: dict, token):
     {"k", "v": (L, B, S, K, dh) ShardedTensors, "len"}: the new keys and
     values are written into the owning pieces in place. A full cache
     raises ValueError."""
-    _dense(cfg)
     mesh = _mesh()
     leaves = place_params(params, mesh)
     kst, vst = cache["k"], cache["v"]
@@ -551,6 +821,16 @@ def decode_step(cfg, params, cache: dict, token):
         raise ValueError(f"the cache's batch and slots do not split over "
                          f"the data axes {sorted(missing)}")
     layout = _Decode(cfg, mesh, leaves, kst)
+    if cfg.is_moe:
+        # a position's rows must be its data group's (all the rows where
+        # the groups do not divide the batch), as the reference routes
+        G = math.prod(mesh.shape[a] for a in _data_axes(mesh))
+        want = _data_axes(mesh) if G > 1 and kst.shape[1] % G == 0 else ()
+        if tuple(a for a in layout.rows_axes if mesh.shape[a] > 1) != want:
+            raise ValueError(
+                f"{cfg.name}: a batch of {kst.shape[1]} placed over "
+                f"{layout.rows_axes}; the MoE decode routes the rows of "
+                f"the data groups {want or 'as one'} on their own")
     owns = {p: layout.slots[p][0] <= pos < layout.slots[p][1]
             for p in layout.slots}
     S = _spmd(mesh, leaves, kst, lambda p: (
@@ -619,6 +899,11 @@ def decode_step(cfg, params, cache: dict, token):
             xs[p] = xs[p] + y.pop(p)
         hs = {p: rms_norm(xs[p], leaves[W("ln2")].pieces[p][l])
               for p in S.run}
+        if cfg.is_moe:
+            y = layout.moe(l, hs)
+            for p in S.run:
+                xs[p] = xs[p] + y.pop(p)
+            continue
         g, greg = layout.tp(W("w_gate"), l, hs, (0,), keep=True)
         u, _ = layout.tp(W("w_up"), l, hs, (0,), keep=True)
         gu = {p: silu(g.pop(p)) * u.pop(p) for p in S.run}

@@ -64,8 +64,8 @@ def lm_train_step_sharded(cfg, opt) -> Callable:
     """``lm_train_step`` on placed arguments (``models/
     transformer_sharded.py``): ``params`` {tree path: ShardedTensor},
     ``opt_state`` an AdamW state of placed leaves, ``batch`` placed or
-    whole; each position updates its own pieces in place. Dense configs
-    only; needs an active mesh."""
+    whole; each position updates its own pieces in place. Dense and MoE
+    configs; needs an active mesh."""
     from repro_torch.models import transformer_sharded as tsh
 
     def step(params, opt_state, batch):
