@@ -282,6 +282,20 @@ Phases (any failure raises and the script exits non-zero):
      cut to 1 layer at B = 4 x S = 4,096; (d) that trained model saved
      and restored under a (2, 2) mesh's ``tree_shardings``: pieces
      cover the slices their placements report, gathered equal bits;
+     (e) ``gnn_mesh_part``: the partitioned GNN train step
+     (``models/gnn_sharded.value_and_grad``, node rows and edge slices
+     over GNN_MESH = (2, 2) of the card) of each kind at full width
+     against the unpartitioned ``loss_fn`` on the card: in float64 the
+     loss and each leaf's max |g| within TOL_SHARDED, every position's
+     copy equal, every loss finite; in float32 the same distances printed
+     beside the unpartitioned float32 step's own distance to float64
+     (reordered float32 sums of these gradients differ by more than
+     TOL_SHARDED: PNA's by up to 3e-4 of max |g|): gcn-cora at the
+     ogb_products n and m, gat-cora at a quarter of its m, pna at a
+     twentieth of n and m (uniform random edges from ``--seed``),
+     graphcast on GNN_MESH_GRID's grid mesh; then GNN_MESH_STEPS
+     partitioned float32 train steps, their ms, peak and the host
+     launches of one;
   3n. four cells (``launch/specs.make_cell``) on a (1, 1) ("data",
      "model") mesh of the card: xdeepfm serve_p99 (the ``cin`` kernel),
      xdeepfm train_batch (its three gradient kernels), gcn-cora
@@ -309,7 +323,11 @@ Phases (any failure raises and the script exits non-zero):
      launches that differ or a loss that is not finite; then
      mixtral-8x22b train_4k cut to 1 layer at B = 4 the same way
      (CELL_3N_MOE), its device peak also held within CELL_3N_PEAK of the
-     prediction;
+     prediction; then one partitioned GNN cell at ogb_products on that
+     mesh (``gnn_cell_3n``): pna where the dry run of the mesh predicts a
+     peak under CELL_3N_GNN_BAR GiB, else gat-cora, its arguments from
+     ``cell_inputs`` on the host placed a copy a position, held the same
+     way, its peak within CELL_3N_PEAK;
   3o. the static analyzer held against the card (``repro_torch.
      analysis``): its CLI with ``ANALYSIS_BASELINE_TORCH.json`` in a
      subprocess (exit 0, 0 passes skipped); then every program of its
@@ -451,6 +469,18 @@ MOE_GROUPS = 4             # the MoE mesh: ("data",) = 4 on the card
 MOE_DECODE_B = 64
 MOE_TRAIN_LAYERS = 1       # the mesh train step: mixtral cut to one layer
 MOE_TRAIN_SEQ, MOE_TRAIN_BATCH = 4_096, 4
+# its GNN part: each kind's partitioned step on a (2, 2) ("data",
+# "model") mesh of the card against the unpartitioned step, in float64
+# and float32, at full width on uniform random edges: (arch, the
+# ogb_products n and m divided by), sized so that the unpartitioned
+# float64 step fits: gcn-cora at the full shape (float32 9.8 GiB above
+# its batch); gat-cora at a quarter of its edges (77.2 GiB predicted at
+# the full m in float32); pna at a twentieth of n and m (474 GiB at the
+# full shape); graphcast on GNN_MESH_GRID
+GNN_MESH = (2, 2)
+GNN_MESH_CASES = (("gcn-cora", 1, 1), ("gat-cora", 1, 4), ("pna", 20, 20))
+GNN_MESH_GRID = (176, 176)     # graphcast's mesh: 30,976 nodes, 123,200 edges
+GNN_MESH_STEPS = (1, 2)        # partitioned train steps: warm-up, timed
 BF16_ULP = 2.0 ** -7       # of max |logit|: bf16's spacing at a significand of 1
 LM_BF16_DECODE = 8         # decode vs forward, bf16: in BF16_ULPs
 # phase 3l's mesh part: the partitioned dense-LM steps on a (2, 2)
@@ -482,6 +512,11 @@ CELL_3N_LM = ("smollm-135m", "train_4k", (1, 2), 8, 6)
 # held to the prediction within CELL_3N_PEAK
 CELL_3N_MOE = ("mixtral-8x22b", "train_4k", (1, 2), 4, 1)
 CELL_3N_PEAK = 0.10
+# and one partitioned GNN cell at ogb_products: the first of these whose
+# dry run on the (2, 2) mesh predicts a peak under CELL_3N_GNN_BAR GiB
+CELL_3N_GNN = ("pna", "gat-cora")
+CELL_3N_GNN_BAR = 70.0
+CELL_3N_GNN_STEPS = (1, 2)
 # a kernel row's keys beyond the contract's, printed beside it
 ROW_EXTRAS = ("call_ms", "launch_floor_ms", "launch_floor_device_ms",
               "steps", "levels_run", "push_ms", "alloc_ms",
@@ -2009,7 +2044,7 @@ def lm_mesh_train(cfg, params, mesh, dev, bad: list,
     from repro_torch.launch.specs import lm_model_flops
     from repro_torch.models import transformer as T
     from repro_torch.models import transformer_sharded as TS
-    from repro_torch.optim.adamw import AdamW, AdamWState
+    from repro_torch.optim.adamw import AdamW
     from repro_torch.train.steps import lm_train_step_sharded
     from repro_torch.train.trainer import value_and_grad
 
@@ -2048,13 +2083,7 @@ def lm_mesh_train(cfg, params, mesh, dev, bad: list,
     step = lm_train_step_sharded(cfg, opt)
     with sh.use_mesh_rules(mesh):
         leaves = TS.place_params(copy_)
-        state = opt.init(copy_)
-        shards = sh.tree_shardings(copy_, mesh)
-        state = AdamWState(step=sh.place(state.step, (), mesh),
-                           m={n: shards[n].shard(t)
-                              for n, t in state.m.items()},
-                           v={n: shards[n].shard(t)
-                              for n, t in state.v.items()})
+        state = placed_state(opt, copy_, mesh)
         torch.cuda.reset_peak_memory_stats()
         times, losses = [], []
         for k in range(sum(steps)):
@@ -2796,6 +2825,230 @@ def sharded_gcn_phase(dev, tmp, seed: int) -> None:
                            f"unsharded {l1}")
 
 
+def gnn_mesh_batch(cfg, dev, cut_n: int, cut_m: int, seed: int) -> tuple:
+    """(batch on the card, n, m) for phase 3m's GNN part: the
+    ogb_products n and m divided by ``cut_n`` / ``cut_m``, padded as the
+    cell pads them (to multiples of 512), uniform random edges over the
+    n real nodes, the padded edges and rows masked, normal features and
+    uniform labels; for graphcast, GNN_MESH_GRID's grid as the mesh with
+    phase 3k's layout (n grid nodes, then the mesh; 2n g2m and m2g
+    edges)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graph import generators
+    from repro_torch.launch.specs import GNN_SHAPE_DEFS, _pad512
+    d = GNN_SHAPE_DEFS["ogb_products"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32, i32 = torch.float32, torch.int32
+    if cfg.kind == "graphcast":
+        gm = generators.grid2d(*GNN_MESH_GRID)
+        n, N = gm.n, 2 * gm.n
+        rng = np.random.default_rng(seed)
+        host = {"edge_src": gm.edge_src + n, "edge_dst": gm.edge_dst + n,
+                "g2m_src": rng.integers(0, n, N),
+                "g2m_dst": rng.integers(n, N, N),
+                "m2g_src": rng.integers(n, N, N),
+                "m2g_dst": rng.integers(0, n, N)}
+        b = {k: torch.as_tensor(v.astype(np.int32), device=dev)
+             for k, v in host.items()}
+        b.update({
+            "feats": torch.randn((N, d["d_feat"]), generator=gen,
+                                 device=dev),
+            "edge_mask": torch.ones(gm.m, device=dev),
+            "node_mask": torch.ones(N, device=dev),
+            "n_grid": torch.tensor(n, dtype=i32, device=dev),
+            "g2m_mask": torch.ones(N, device=dev),
+            "m2g_mask": torch.ones(N, device=dev),
+            "targets": torch.randn((N, cfg.n_vars), generator=gen,
+                                   device=dev)})
+        return b, n, gm.m
+    n, m = d["n"] // cut_n, d["m"] // cut_m
+    n_pad, m_pad = _pad512(n), _pad512(m)
+    ids = torch.randint(0, n, (2, m_pad), generator=gen, device=dev,
+                        dtype=i32)
+    b = {"feats": torch.randn((n_pad, d["d_feat"]), generator=gen,
+                              device=dev),
+         "edge_src": ids[0], "edge_dst": ids[1],
+         "edge_mask": (torch.arange(m_pad, device=dev) < m).to(f32),
+         "node_mask": (torch.arange(n_pad, device=dev) < n).to(f32),
+         "labels": torch.randint(0, cfg.n_classes, (n_pad,), generator=gen,
+                                 device=dev, dtype=i32)}
+    return b, n, m
+
+
+def rounded(errs: dict) -> dict:
+    return {k: float(f"{v:.3g}") for k, v in errs.items()}
+
+
+def placed_state(opt, model, mesh):
+    """The AdamW state of ``model`` placed as a train cell places it."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.optim.adamw import AdamWState
+    state = opt.init(model)
+    shards = sh.tree_shardings(model, mesh)
+    return AdamWState(step=sh.place(state.step, (), mesh),
+                      m={n: shards[n].shard(t) for n, t in state.m.items()},
+                      v={n: shards[n].shard(t) for n, t in state.v.items()})
+
+
+def max_g_errors(got: dict, ref: dict) -> dict:
+    """{name: | max |got| - max |ref| | / max |ref|} over a gradient
+    tree."""
+    return {n: float(abs(got[n].abs().max() - r.abs().max())
+                     / r.abs().max().clamp(min=1e-30)) for n, r in ref.items()}
+
+
+def gnn_mesh_compare(cfg, params, batch, mesh) -> dict:
+    """The unpartitioned ``loss_fn`` and the partitioned step's value and
+    gradient on the same parameters and batch: their losses, gradients
+    (the partitioned step's first position's copy), device ms and peaks
+    above what was held before, whether every copy is equal, and a
+    second unpartitioned run's entrywise distance from the first (the
+    card's atomic adds)."""
+    import torch
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import gnn as G
+    from repro_torch.models import gnn_sharded as GS
+    from repro_torch.train.trainer import value_and_grad
+
+    out = {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (out["lu"], out["gu"]), out["ms_u"] = events_ms(lambda: value_and_grad(
+        lambda p, b: G.loss_fn(cfg, p, b), params, batch))
+    out["peak_u"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    with sh.use_mesh_rules(mesh):
+        (out["lp"], gp), out["ms_p"] = events_ms(lambda: GS.value_and_grad(
+            cfg, params, batch))
+    out["peak_p"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    first = next(iter(gp[next(iter(gp))]))
+    out["gp"] = {k: v[first] for k, v in gp.items()}
+    out["same"] = all(torch.equal(v[first], x) for v in gp.values()
+                      for x in v.values())
+    out["loss_err"] = abs(float(out["lp"]) - float(out["lu"])) \
+        / abs(float(out["lu"]))
+    out["spread"] = leaf_errors(value_and_grad(
+        lambda p, b: G.loss_fn(cfg, p, b), params, batch)[1], out["gu"])
+    return out
+
+
+def gnn_mesh_part(dev, seed: int = 0) -> None:
+    """Phase 3m's GNN part (see the module docstring): for each kind the
+    partitioned value and gradient against the unpartitioned ``loss_fn``
+    on the card, in float64 (the loss and each leaf's max |g| held within
+    TOL_SHARDED) and in float32 (printed beside the unpartitioned
+    float32 step's own distance to float64: the reordered float32 sums
+    of these gradients differ by more than TOL_SHARDED); then
+    GNN_MESH_STEPS partitioned float32 train steps: their ms, the peak
+    and the host launches of one."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import GNN_SHAPE_DEFS, gnn_model_flops
+    from repro_torch.models import gnn as G
+    from repro_torch.models.transformer_sharded import place_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.steps import gnn_train_step_sharded
+
+    t_part = time.perf_counter()
+    mesh = card_mesh(GNN_MESH, ("data", "model"), dev)
+    d_feat = GNN_SHAPE_DEFS["ogb_products"]["d_feat"]
+    bad = []
+    for arch, cut_n, cut_m in GNN_MESH_CASES + (("graphcast", 0, 0),):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(cfg_base.get(arch).full(), d_in=d_feat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch, n, m = gnn_mesh_batch(cfg, dev, cut_n, cut_m, seed)
+        params = G.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed))
+        held = torch.cuda.memory_allocated() / 2**30
+        f32 = gnn_mesh_compare(cfg, params, batch, mesh)
+        wide = {k: v.double() if v.is_floating_point() else v
+                for k, v in batch.items()}
+        f64 = gnn_mesh_compare(cfg, copy.deepcopy(params).double(), wide,
+                               mesh)
+        del wide
+        err64 = {"loss": f64["loss_err"], **max_g_errors(f64["gp"],
+                                                          f64["gu"])}
+        err32 = {"loss": f32["loss_err"], **max_g_errors(f32["gp"],
+                                                          f32["gu"])}
+        whole32 = max_g_errors(f32["gu"], f64["gu"])
+        part32 = max_g_errors(f32["gp"], f64["gu"])
+        entry64 = leaf_errors(f64["gp"], f64["gu"])
+        entry32 = leaf_errors(f32["gp"], f32["gu"])
+        # the partitioned float32 train step on a copy
+        model = copy.deepcopy(params)
+        opt = AdamW(lr=1e-3)
+        step = gnn_train_step_sharded(cfg, opt)
+
+        def loss_step(p, s, b):
+            p, s, met = step(p, s, b)
+            return p, s, met["loss"]
+        with sh.use_mesh_rules(mesh):
+            leaves = place_params(model)
+            state = placed_state(opt, model, mesh)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            leaves, state, losses, times = timed_steps(
+                loss_step, leaves, state, batch, mesh, GNN_MESH_STEPS)
+            peak_s = (torch.cuda.max_memory_allocated() - base) / 2**30
+            census = launch_census(lambda: step(leaves, state, batch), 1)
+        flops = gnn_model_flops(cfg, n, m, d_feat)
+        p50 = float(np.percentile(times, 50))
+        print(f"[sharded-models] gnn {arch} on {GNN_MESH} of the card "
+              f"(n={n:,}, m={m:,}"
+              + (f", grid2d{GNN_MESH_GRID} mesh" if cut_n == 0 else
+                 f", the ogb_products n / {cut_n}, m / {cut_m}")
+              + f"; {held:.3f} GiB held before the steps): float64 loss "
+              f"{float(f64['lp']):.12f} partitioned vs "
+              f"{float(f64['lu']):.12f} unpartitioned, relative errors (of "
+              f"the loss, of each leaf's max |g|) {rounded(err64)} (limit "
+              f"{TOL_SHARDED}), entrywise of max |g| {rounded(entry64)} "
+              f"(two unpartitioned runs {rounded(f64['spread'])}); "
+              f"float32 loss {float(f32['lp']):.7f} vs "
+              f"{float(f32['lu']):.7f}, relative errors {rounded(err32)}, "
+              f"entrywise {rounded(entry32)} (two unpartitioned runs "
+              f"{rounded(f32['spread'])}), max |g| vs float64's: "
+              f"unpartitioned {rounded(whole32)}, partitioned "
+              f"{rounded(part32)}; every copy's gradient equal "
+              f"{f32['same'] and f64['same']}; float32 value and grad ms "
+              f"(each step's first call) {f32['ms_p']:.3f} partitioned vs "
+              f"{f32['ms_u']:.3f} "
+              f"unpartitioned (float64 {f64['ms_p']:.3f} vs "
+              f"{f64['ms_u']:.3f}), peak above the batch and params "
+              f"{f32['peak_p']:.3f} vs {f32['peak_u']:.3f} GiB; "
+              f"{GNN_MESH_STEPS[1]} timed train steps after "
+              f"{GNN_MESH_STEPS[0]}: losses {[round(l, 5) for l in losses]}, "
+              + step_stats(times, flops)
+              + f"; steps' peak above the model and its state {peak_s:.3f} "
+              f"GiB; host launches a step {census['host']:.0f} "
+              f"({census['by_name']}), device kernels "
+              f"{census['kernels']:.0f}, device busy "
+              f"{census['busy_pct']:.1f} % of {census['wall_ms']:.3f} ms "
+              f"(p50 {p50:.3f}); {time.perf_counter() - t0:.1f} s")
+        finite = [float(f32["lp"]), float(f32["lu"]), float(f64["lp"])]
+        if not max(err64.values()) <= TOL_SHARDED or not f32["same"] or \
+                not f64["same"] or not all(math.isfinite(l)
+                                           for l in losses + finite):
+            bad.append(f"{arch}: float64 errors {err64}, copies equal "
+                       f"{f32['same']} {f64['same']}, losses {losses} "
+                       f"{finite}")
+        del batch, params, model, leaves, state, step, loss_step, f32, f64
+    print(f"[sharded-models] gnn part {time.perf_counter() - t_part:.1f}s")
+    if bad:
+        raise RuntimeError("phase 3m gnn part: " + "; ".join(bad))
+
+
 def moe_drops(x, router_w, k: int, cf: float, groups: int) -> list:
     """Assignments past their expert's capacity in each of ``groups``
     contiguous token groups of ``x`` (T, d): ``_moe_local``'s routing,
@@ -2971,6 +3224,7 @@ def sharded_models_phase(dev, tmp, seed: int = 0) -> None:
     print(f"[sharded-models] {torch.cuda.memory_allocated() / 2**30:.3f} "
           f"GiB held on the card by earlier phases")
     sharded_gcn_phase(dev, tmp, seed)
+    gnn_mesh_part(dev, seed)
     moe_mesh_phase(dev, tmp)
     print(f"[sharded-models] phase {time.perf_counter() - t_phase:.1f}s; "
           f"card {card_line()}")
@@ -3204,6 +3458,8 @@ def cells_phase(dev, sling_host, seed: int) -> dict:
     lm_cell_3n(dev, counters, bad, seed)
     torch.cuda.empty_cache()
     lm_cell_3n(dev, counters, bad, seed, CELL_3N_MOE)
+    torch.cuda.empty_cache()
+    gnn_cell_3n(dev, counters, bad, seed)
     print(f"[cells] phase {time.perf_counter() - t_phase:.1f}s; card "
           f"{card_line()}")
     if bad:
@@ -3222,7 +3478,6 @@ def lm_cell_3n(dev, counters: dict, bad: list, seed: int,
     measured peak must be within CELL_3N_PEAK of the prediction."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import base as cfg_base
@@ -3257,6 +3512,25 @@ def lm_cell_3n(dev, counters: dict, bad: list, seed: int,
             {k: torch.as_tensor(b[k]) for k in cell.args[2]})
     placed = cell.place(args)
     del args, params
+    cut = "" if layers is None else \
+        f", {layers} of {spec.full().n_layers} layers"
+    mesh_cell_3n(f"{arch} x {shape} B = {batch} of the cell's "
+                 f"{saved[shape]['batch']}{cut}", rec, cell, placed,
+                 counters, bad, steps, held, layers is not None)
+
+
+def mesh_cell_3n(label: str, rec: dict, cell, placed, counters: dict,
+                 bad: list, steps: tuple, held: float,
+                 hold_peak: bool) -> None:
+    """Phase 3n's measurement of a cell on a (2, 2) mesh of the card:
+    ``cell.jitted()`` on ``placed`` (real arguments placed a copy a
+    position), each predicted value of the dry run's record ``rec``
+    beside the measured one; fails on argument bytes or launches that
+    differ, a loss that is not finite, and (``hold_peak``) a device peak
+    more than CELL_3N_PEAK from the prediction."""
+    import numpy as np
+    import torch
+
     arg_bytes = placed_bytes(placed)
     step = cell.jitted()
     torch.cuda.synchronize()
@@ -3280,33 +3554,59 @@ def lm_cell_3n(dev, counters: dict, bad: list, seed: int,
     t_roof = max(r["t_compute_s"], r["t_memory_s"],
                  r["t_collective_s"]) * 1e3
     p50 = float(np.percentile(ms, 50))
-    cut = "" if layers is None else \
-        f", {layers} of {spec.full().n_layers} layers"
-    print(f"[cells] {arch} x {shape} B = {batch} of the cell's "
-          f"{saved[shape]['batch']}{cut} on (2, 2) of the card ({held:.3f} "
-          f"GiB held on the card before it): dry run "
-          f"{rec['t_lower_s']} s, {rec['n_ops']} ops, collectives "
-          f"{rec['collectives']}; argument bytes predicted "
-          f"{bpd['argument']:,} measured {arg_bytes:,}; device peak "
-          f"predicted {bpd['peak_est'] / 2**30:.3f} GiB measured "
-          f"{peak / 2**30:.3f} GiB; roofline step {t_roof:.4f} ms "
+    print(f"[cells] {label} on (2, 2) of the card ({held:.3f} GiB held on "
+          f"the card before it): dry run {rec['t_lower_s']} s, "
+          f"{rec['n_ops']} ops, collectives {rec['collectives']}; argument "
+          f"bytes predicted {bpd['argument']:,} measured {arg_bytes:,}; "
+          f"device peak predicted {bpd['peak_est'] / 2**30:.3f} GiB "
+          f"measured {peak / 2**30:.3f} GiB; roofline step {t_roof:.4f} ms "
           f"({r['bottleneck']}) vs p50 {p50:.3f} ms (first call "
           f"{first_ms:.3f} ms, timed {[round(t, 3) for t in ms]}); losses "
           f"{[round(l, 4) for l in losses]}; port kernels predicted "
           f"{rec['kernels']} launched {launches}")
     if bpd["argument"] != arg_bytes:
-        bad.append(f"{arch} x {shape} on (2, 2): argument bytes predicted "
+        bad.append(f"{label} on (2, 2): argument bytes predicted "
                    f"{bpd['argument']} measured {arg_bytes}")
     if rec["kernels"] != launches:
-        bad.append(f"{arch} x {shape} on (2, 2): launches predicted "
+        bad.append(f"{label} on (2, 2): launches predicted "
                    f"{rec['kernels']} counted {launches}")
     if not all(math.isfinite(l) for l in losses):
-        bad.append(f"{arch} x {shape} on (2, 2): losses {losses}")
-    if layers is not None and \
-            abs(peak / bpd["peak_est"] - 1) > CELL_3N_PEAK:
-        bad.append(f"{arch} x {shape} on (2, 2): device peak predicted "
+        bad.append(f"{label} on (2, 2): losses {losses}")
+    if hold_peak and abs(peak / bpd["peak_est"] - 1) > CELL_3N_PEAK:
+        bad.append(f"{label} on (2, 2): device peak predicted "
                    f"{bpd['peak_est']} measured {peak}")
     del placed, step
+
+
+def gnn_cell_3n(dev, counters: dict, bad: list, seed: int) -> None:
+    """Phase 3n's GNN cell on a (2, 2) mesh of the card: pna x
+    ogb_products where the dry run of that mesh predicts a peak under
+    CELL_3N_GNN_BAR GiB, else gat-cora x ogb_products; its real
+    arguments (``cell_inputs``) made on the host and placed on the card a
+    copy a position, its peak held within CELL_3N_PEAK of the
+    prediction."""
+    import torch
+
+    from repro_torch.launch import dryrun, specs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    mesh = card_mesh((2, 2), ("data", "model"), dev)
+    shape = "ogb_products"
+    for arch in CELL_3N_GNN:
+        rec = dryrun.run_cell(arch, shape, verbose=False, mesh=mesh)
+        pred = rec["bytes_per_device"]["peak_est"] / 2**30
+        print(f"[cells] {arch} x {shape} on (2, 2) of the card: the dry "
+              f"run predicts a peak of {pred:.3f} GiB (bar "
+              f"{CELL_3N_GNN_BAR})")
+        if pred < CELL_3N_GNN_BAR:
+            break
+    cell = specs.make_cell(arch, shape, mesh)
+    placed = cell.place(cell_inputs(cell, arch, shape, torch.device("cpu"),
+                                    seed))
+    mesh_cell_3n(f"{arch} x {shape}", rec, cell, placed, counters, bad,
+                 CELL_3N_GNN_STEPS, held, True)
 
 
 def cin_grad_rows(model, batch, dev, launches: dict, train_ms: dict,

@@ -39,8 +39,13 @@ ARCHS = ("smollm-135m", "gemma3-1b", "qwen3-14b", "mixtral-8x22b",
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
-def reference(arch: str, shape: str) -> dict:
-    """{mesh: the reference's record} of one cell, both meshes."""
+def reference(arch: str, shape: str, cache: Path | None = None) -> dict:
+    """{mesh: the reference's record} of one cell, both meshes; read from
+    ``cache`` (a directory) where an earlier call wrote it there (the
+    reference does not change)."""
+    hit = None if cache is None else cache / f"{arch}__{shape}.json"
+    if hit is not None and hit.exists():
+        return {r["mesh"]: r for r in json.loads(hit.read_text())}
     with tempfile.TemporaryDirectory() as d:
         out = Path(d) / "ref.json"
         env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -49,26 +54,44 @@ def reference(arch: str, shape: str) -> dict:
                         "--arch", arch, "--shape", shape, "--both-meshes",
                         "--out", str(out)], check=True, env=env, cwd=ROOT,
                        capture_output=True)
-        return {r["mesh"]: r for r in json.loads(out.read_text())}
+        text = out.read_text()
+    if hit is not None:
+        hit.parent.mkdir(parents=True, exist_ok=True)
+        hit.write_text(text)
+    return {r["mesh"]: r for r in json.loads(text)}
+
+
+def unpartitioned(arch: str, shape: str):
+    """The unpartitioned step of ``arch`` x ``shape``'s cell: the LM's
+    train (AdamW lr 1e-4), prefill or decode step, or the GNN's train
+    step (AdamW lr 1e-3, d_in the shape's d_feat), as the cells make
+    them."""
+    from repro_torch.configs import base
+    from repro_torch.launch import specs
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import steps
+
+    spec = base.get(arch)
+    if spec.family == "gnn":
+        cfg = dataclasses.replace(
+            spec.full(), d_in=specs.GNN_SHAPE_DEFS[shape]["d_feat"])
+        return steps.gnn_train_step(cfg, AdamW(lr=1e-3))
+    cfg = spec.full()
+    kind = specs.LM_SHAPE_DEFS[shape]["kind"]
+    return {"train": lambda: steps.lm_train_step(cfg, AdamW(lr=1e-4)),
+            "prefill": lambda: steps.lm_prefill_step(cfg),
+            "decode": lambda: steps.lm_decode_step(cfg)}[kind]()
 
 
 def gathered(arch: str, shape: str, mesh) -> dict:
     """The gathered step's walk on ``mesh``: the cell with its step
     replaced by the unpartitioned one and nothing read as pieces."""
-    from repro_torch.configs import base
     from repro_torch.launch import dryrun, specs
-    from repro_torch.optim.adamw import AdamW
-    from repro_torch.train import steps
 
     t0 = time.perf_counter()
     cell = specs.make_cell(arch, shape, mesh)
-    cfg = base.get(arch).full()
-    kind = specs.LM_SHAPE_DEFS[shape]["kind"]
-    fn = {"train": lambda: steps.lm_train_step(cfg, AdamW(lr=1e-4)),
-          "prefill": lambda: steps.lm_prefill_step(cfg),
-          "decode": lambda: steps.lm_decode_step(cfg)}[kind]()
-    walk, _ = dryrun.trace_cell(dataclasses.replace(cell, fn=fn,
-                                                    piecewise=()))
+    walk, _ = dryrun.trace_cell(dataclasses.replace(
+        cell, fn=unpartitioned(arch, shape), piecewise=()))
     mem = {"argument": walk.arg_bytes, "output": walk.out_bytes,
            "alias": walk.alias_bytes}
     temp = max(0.0, walk.peak_bytes - mem["argument"] - mem["output"]

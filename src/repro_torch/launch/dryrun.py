@@ -12,12 +12,12 @@ port compiles nothing: it runs the step eagerly once under
 ``FakeTensorMode``, on a mesh of fake devices (:func:`fake_devices`),
 so no tensor is allocated and no card is needed. The arguments are
 placed as the cell's ``in_shardings`` say. A step that reads its placed
-pieces (the dense LMs' train, prefill and decode, the shardmap GCN, the
-SLING pod path) runs one program a mesh position; ``Cell.jitted``
-gathers the arguments of every other step (the MoE LMs, the base GNN,
-the recsys steps) to the first device, a gather the walk counts.
+pieces (the LMs' train, prefill and decode, dense and MoE, the base
+GNN's train step, the shardmap GCN, the SLING pod path) runs one program
+a mesh position; ``Cell.jitted`` gathers the arguments of every other
+step (the recsys steps) to the first device, a gather the walk counts.
 
-Shortcut: the dense LMs' partitioned steps on fake tensors over
+Shortcut: the LMs' and the GNNs' partitioned steps on fake tensors over
 distinct devices run the programs of two positions for each class of
 positions whose programs have equal shapes (the first and the last of
 the class, row-major; ``launch/collectives.spmd``), not all 256 or
@@ -28,7 +28,8 @@ arguments, so the busiest device's numbers are the full trace's:
 ``tests/test_torch_lm_mesh.py`` holds the record of every dense-LM
 cell kind on a fake (2, 4) mesh equal to the full trace's
 (``collectives.every_position``), ``t_lower_s`` and ``n_ops`` aside,
-which count the work traced.
+which count the work traced; ``tests/test_torch_gnn_mesh.py`` does the
+same for each GNN kind on a fake (4, 4) mesh.
 
 The record keeps the reference's keys. ``t_lower_s`` is the trace:
 making the cell, placing its arguments and the walked call;

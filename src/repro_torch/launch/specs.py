@@ -15,13 +15,14 @@ reads its placed pieces names its arguments in ``piecewise``, and
 and decode steps, dense and MoE, read every argument so
 (``models/transformer_sharded.py``: each position computes its batch
 rows and sequence slice, or its cache slots, and the positions exchange
-data through ``launch/collectives.py``); the shardmap GCN
+data through ``launch/collectives.py``), and so does the base GNN train
+step of all four kinds (``models/gnn_sharded.py``: each position computes
+its node rows and its edge slice); the shardmap GCN
 (``gcn_loss_sharded``) reads its batch, the SLING pod path
-(``sling_serve_step_sharded``) its graph blocks. The base GNN and the
-recsys steps still take whole tensors: :meth:`Cell.jitted`
-gathers each of their arguments to the mesh's first device (a copy the
-op walk counts as collective "gather"; a replicated leaf is read from
-the first device's own copy).
+(``sling_serve_step_sharded``) its graph blocks. The recsys steps still
+take whole tensors: :meth:`Cell.jitted` gathers each of their arguments
+to the mesh's first device (a copy the op walk counts as collective
+"gather"; a replicated leaf is read from the first device's own copy).
 """
 from __future__ import annotations
 
@@ -403,6 +404,9 @@ def _lm_cell(spec, shape_name, mesh, rules) -> Cell:
 
 
 def _gnn_cell(spec, shape_name, mesh, rules) -> Cell:
+    """A GNN train cell: its step reads its placed pieces
+    (``models/gnn_sharded.py``: each position computes its node rows and
+    its edge slice), the four kinds alike."""
     from repro_torch.models import gnn as G
     from repro_torch.train import steps
     d = GNN_SHAPE_DEFS[shape_name]
@@ -459,12 +463,12 @@ def _gnn_cell(spec, shape_name, mesh, rules) -> Cell:
             }
         batch = dict(sorted(batch.items()))
         bshard = _batch_shardings(mesh, {k: names[k] for k in batch}, batch)
-        fn = steps.gnn_train_step(cfg, opt)
+        fn = steps.gnn_train_step_sharded(cfg, opt)
         return Cell(spec.arch_id, shape_name, fn,
                     (params, opt_state, batch),
                     (pshard, oshard, bshard),
                     (pshard, oshard, {"loss": _ns(mesh)}), (0, 1),
-                    flops, rules, mesh)
+                    flops, rules, mesh, piecewise=(0, 1, 2))
 
 
 def _gnn_cell_shardmap(spec, shape_name, mesh, rules) -> Cell:

@@ -1,7 +1,8 @@
 """Step factories (port of ``repro/train/steps.py``: the LM, GNN,
 recsys and SLING steps).
 
-``lm_train_step``, ``gnn_train_step`` and ``recsys_train_step`` return
+``lm_train_step``, ``gnn_train_step`` and ``recsys_train_step`` (and the
+partitioned ``lm_train_step_sharded`` and ``gnn_train_step_sharded``) return
 ``step(params, opt_state, batch) -> (params, opt_state, {"loss"})``:
 one AdamW step in place (for xDeepFM the CIN's gradient through its
 kernels on the card). The serving and inference steps return
@@ -109,6 +110,24 @@ def gnn_train_step(cfg, opt) -> Callable:
         loss, grads = value_and_grad(
             lambda p, b: gnn_lib.loss_fn(cfg, p, b), params, batch)
         params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+    return step
+
+
+def gnn_train_step_sharded(cfg, opt) -> Callable:
+    """``gnn_train_step`` on placed arguments (``models/gnn_sharded.
+    value_and_grad``): ``params`` {tree path: ShardedTensor} (or a
+    ``GNNParams``, placed by the active rules), ``opt_state`` an AdamW
+    state of placed leaves, ``batch`` placed or whole; each position
+    computes its node rows and its edge slice and updates its own copies
+    in place. Needs an active mesh."""
+    from repro_torch.models import gnn_sharded as gsh
+    from repro_torch.models.transformer_sharded import place_params
+
+    def step(params, opt_state, batch):
+        params = place_params(params)
+        loss, grads = gsh.value_and_grad(cfg, params, batch)
+        params, opt_state = opt.update_placed(grads, opt_state, params)
         return params, opt_state, {"loss": loss}
     return step
 
